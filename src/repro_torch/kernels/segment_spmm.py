@@ -1,0 +1,128 @@
+"""``segment_spmm``: deterministic destination segment sum (CUDA, ``sm_90a``).
+
+    out[r] = Σ_{k=row_ptr[r]}^{row_ptr[r+1]-1} messages[order[k]]
+
+``order`` may be ``None`` (the identity: records already sorted by row, as
+the edges of ``CSRGraph.edges_by_dst`` are, with ``in_indptr`` as
+``row_ptr``).  A row without records is exactly 0.
+
+The port's counterpart of the Pallas TPU kernel
+``repro.kernels.segment_spmm.segment_spmm``.  The TPU kernel needs a
+block-aligned CSR layout (``prepare_block_csr``) shaped for its matrix unit;
+the CUDA kernel takes a plain row schedule instead, which
+:func:`prepare_row_schedule` builds on the host.  Kernel source and its note
+on what bounds it: ``repro_torch/csrc/segment_spmm.cu``.
+
+:func:`segment_spmm` dispatches on the device of its inputs: CPU tensors go
+to :func:`segment_spmm_plain`, CUDA tensors to the kernel, anything else
+raises.  It never falls back from the card to the plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels._build import CudaKernel
+
+KERNEL = CudaKernel("segment_spmm", ("segment_spmm_i32", "segment_spmm_i64"))
+
+
+def prepare_row_schedule(keys: np.ndarray, num_rows: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side row schedule for records with row ids ``keys``.
+
+    Keys outside ``[0, num_rows)`` (e.g. ``-1`` padding) are dropped.
+    Returns ``(order [len(keys)] int32, row_ptr [num_rows+1] int32)``:
+    ``order`` is a stable argsort of the keys (dropped records last, never
+    read), so each row's records keep their original relative order."""
+    keys = np.asarray(keys, np.int64)
+    live = (keys >= 0) & (keys < num_rows)
+    k = np.where(live, keys, num_rows)
+    order = np.argsort(k, kind="stable").astype(np.int32)
+    counts = np.bincount(k, minlength=num_rows + 1)[:num_rows]
+    row_ptr = np.zeros(num_rows + 1, np.int32)
+    np.cumsum(counts, out=row_ptr[1:])
+    return order, row_ptr
+
+
+def segment_spmm_plain(
+    messages: torch.Tensor,
+    row_ptr: torch.Tensor,
+    order: Optional[torch.Tensor] = None,
+    num_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (the CPU path, and the kernel's
+    comparison on the card).  ``index_add_`` on the CPU adds the records in
+    k order, the kernel's order."""
+    _check_rows(row_ptr, num_rows)
+    r = row_ptr.shape[0] - 1
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    e = torch.arange(lo, hi, device=row_ptr.device)
+    if order is not None:
+        e = order[lo:hi].long()
+    rows = torch.repeat_interleave(torch.arange(r, device=row_ptr.device),
+                                   (row_ptr[1:] - row_ptr[:-1]).long())
+    out = messages.new_zeros((r, messages.shape[1]))
+    out.index_add_(0, rows, messages[e])
+    return out
+
+
+def segment_spmm(
+    messages: torch.Tensor,
+    row_ptr: torch.Tensor,
+    order: Optional[torch.Tensor] = None,
+    num_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """``[E, D]`` float32 messages → ``[num_rows, D]`` row sums (see module doc)."""
+    dev = messages.device
+    if dev.type == "cpu":
+        _same_device(dev, row_ptr, order)
+        return segment_spmm_plain(messages, row_ptr, order, num_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_spmm: unsupported device {dev}")
+    _check_cuda(messages, row_ptr, order, num_rows)
+    r = row_ptr.shape[0] - 1
+    out = torch.empty((r, messages.shape[1]), dtype=torch.float32, device=dev)
+    if r == 0 or messages.shape[1] == 0:
+        return out
+    sym = "segment_spmm_i32" if row_ptr.dtype == torch.int32 else "segment_spmm_i64"
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL.launch(sym, messages.data_ptr(), row_ptr.data_ptr(),
+                      None if order is None else order.data_ptr(), out.data_ptr(),
+                      r, messages.shape[1], stream)
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# argument checks shared with delta_agg
+# ---------------------------------------------------------------------- #
+def _check_rows(row_ptr: torch.Tensor, num_rows: Optional[int]) -> None:
+    if row_ptr.dim() != 1 or row_ptr.shape[0] < 1:
+        raise ValueError(f"row_ptr must be 1-D with num_rows+1 entries, got {tuple(row_ptr.shape)}")
+    if num_rows is not None and row_ptr.shape[0] != num_rows + 1:
+        raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries, expected {num_rows + 1}")
+
+
+def _same_device(dev: torch.device, *tensors) -> None:
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got one on {t.device}")
+
+
+def _check_cuda(messages, row_ptr, order, num_rows) -> None:
+    """Everything the kernel does not take raises here, before a launch."""
+    _same_device(messages.device, row_ptr, order)
+    if messages.dtype != torch.float32 or messages.dim() != 2 or not messages.is_contiguous():
+        raise ValueError(
+            f"messages must be contiguous 2-D float32, got {messages.dtype} "
+            f"{tuple(messages.shape)} contiguous={messages.is_contiguous()}")
+    _check_rows(row_ptr, num_rows)
+    if row_ptr.dtype not in (torch.int32, torch.int64) or not row_ptr.is_contiguous():
+        raise ValueError(f"row_ptr must be contiguous int32/int64, got {row_ptr.dtype}")
+    if order is not None:
+        if order.dim() != 1 or order.dtype != row_ptr.dtype or not order.is_contiguous():
+            raise ValueError(
+                f"order must be contiguous 1-D {row_ptr.dtype}, got {order.dtype} "
+                f"{tuple(order.shape)}")
