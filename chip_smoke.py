@@ -2,11 +2,11 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # full size: n = 1,000,000 vertices, ~10M edges
-    python3 chip_smoke.py --n 20000  # a quick rehearsal at a smaller graph
+    python3 chip_smoke.py --n 20000  # a quick rehearsal at a smaller graph (the LM stays full)
 
 Phases, one JSON line each:
 
-1. build   — compile both CUDA kernels (``src/repro_torch/csrc``), one
+1. build   — compile the four CUDA kernels (``src/repro_torch/csrc``), one
              ``nvcc`` per source, started together;
 2. engine  — ``create_engine("device", …)`` for gcn and then gat (heads=2) on
              ``make_graph("uniform", n, avg_degree=10, weighted=True)`` with
@@ -18,9 +18,28 @@ Phases, one JSON line each:
              port's own ``full_forward`` over the post-stream graph at 2e-4.
              Kernel launch counts are zeroed before and read after these
              runs: each kernel must have launched on the main path;
-3. kernels — each kernel against its plain PyTorch version at the shapes the
-             engine gave it (max |Δ| ≤ 1e-5), timed with CUDA events beside
-             its plain version, the ``index_add_`` yardstick and its bound.
+3. edge_softmax_op — the standalone op ``ops.edge_softmax`` (no main path
+             calls it) on the base graph's ≈10M in-edges with H = 2 (gat's
+             heads), counts zeroed before and read after; held against
+             ``kref.edge_softmax_ref`` (normalized 1e-5, sums 1e-4);
+4. lm_serve — the LM serving path, ``repro_torch.launch.serve.serve``, on
+             llama3.2-1b at full width (16 × 2048, vocab 128,256; random
+             weights from a seeded CUDA generator): batch 8, prompt 2048, 32
+             greedy decode steps, counts zeroed before and read after
+             (``flash_attention`` must launch, 16 times: once per layer of
+             the prefill); then a profiled prefill and decode for the
+             device-time split (attention kernel, matmuls, the rest);
+5. lm_consistency — teacher-forced: prefill of 256 tokens into an fp32
+             cache, 4 decode steps, and ``forward`` over the same 260 tokens
+             (batch 2); logits within 2e-2 (the reference's own tolerance,
+             tests/test_archs_smoke.py);
+6. kernels — each kernel against its plain PyTorch version at the shapes its
+             path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
+             flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3;
+             edge_softmax_normalize 1e-5), timed with CUDA events beside its
+             plain version, a PyTorch yardstick where one call computes the
+             same function (``index_add_``; ``scaled_dot_product_attention``)
+             and its bound.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -45,15 +64,32 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
 TOL_KERNEL = 1e-5  # kernel vs plain version: fp32, different summation order
 TOL_ENGINE = 2e-4  # engine vs full recompute: the reference's tests/test_backends.py TOL
+TOL_ATTN = (2e-5, 2e-3)  # flash vs plain (atol, rtol): the reference's tests/test_kernels.py
+TOL_SUMS = 1e-4  # edge-softmax sums: the reference's tests/test_kernels.py
+TOL_TEACHER = 2e-2  # teacher-forced logits: the reference's tests/test_archs_smoke.py
 WIDTH = 128  # the lane width both TPU kernels were tiled for (BD = 128)
-KERNEL_INFO = {
+GAT_HEADS = 2
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3.2-1b", 8, 2048, 32
+KERNEL_INFO = {  # TPU kernel name → its library (csrc/<lib>.cu), source and TPU kernel
     "segment_spmm": {
+        "lib": "segment_spmm",
         "source": "src/repro_torch/csrc/segment_spmm.cu",
         "replaces": "src/repro/kernels/segment_spmm.py:131",
     },
     "delta_agg": {
+        "lib": "delta_agg",
         "source": "src/repro_torch/csrc/delta_agg.cu",
         "replaces": "src/repro/kernels/delta_agg.py:74",
+    },
+    "flash_attention": {
+        "lib": "flash_attention",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:103",
+    },
+    "edge_softmax_normalize": {
+        "lib": "edge_softmax",
+        "source": "src/repro_torch/csrc/edge_softmax.cu",
+        "replaces": "src/repro/kernels/edge_softmax.py:60",
     },
 }
 
@@ -81,7 +117,7 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 def phase_build() -> None:
     from repro_torch.kernels._build import BUILD_DIR, build_all
 
-    res = build_all(KERNEL_INFO)
+    res = build_all(info["lib"] for info in KERNEL_INFO.values())
     logdir = BUILD_DIR / "logs"
     logdir.mkdir(parents=True, exist_ok=True)
     regs = {}
@@ -270,6 +306,229 @@ def kernel_delta_agg(e_cap: int, r_cap: int, d: int, gen, rng) -> dict:
             "bound_by": by, "library_ms": lib_ms}
 
 
+def _in_edges(graph):
+    """The base graph's in-edges, dst-sorted: host ids, and on the card the
+    ids and the ``in_indptr`` row offsets."""
+    import torch
+
+    dst_host = np.repeat(np.arange(graph.n), np.diff(graph.in_indptr))
+    return dst_host, torch.from_numpy(dst_host).cuda(), torch.from_numpy(graph.in_indptr).cuda()
+
+
+def phase_edge_softmax_op(graph, gen, kernels: dict) -> dict:
+    """The standalone op ``ops.edge_softmax`` on the base graph's in-edges,
+    H = gat's heads.  Counts are set to 0 just before the op and read just
+    after; the reference check afterwards is not counted."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    dst_host, dst, _ = _in_edges(graph)
+    scores = torch.rand(graph.num_edges, GAT_HEADS, device="cuda", generator=gen).exp_()
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    normed, sums = ops.edge_softmax(scores, dst_host, graph.n)
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_ref, s_ref = kref.edge_softmax_ref(scores, dst, graph.n)
+    row = {"phase": "edge_softmax_op", "E": graph.num_edges, "H": GAT_HEADS, "R": graph.n,
+           # host seconds, synchronised: row schedule on the host + both kernels
+           "op_s": op_s,
+           "max_abs_err_normalized": float((normed - n_ref).abs().max()),
+           "max_abs_err_sums": float((sums - s_ref).abs().max()), "launches": launches}
+    emit(row)
+    if not (row["max_abs_err_normalized"] <= TOL_KERNEL and row["max_abs_err_sums"] <= TOL_SUMS):
+        raise AssertionError(f"edge_softmax vs edge_softmax_ref: {row}")
+    return row
+
+
+def _device_split_ms(prof) -> dict:
+    """Device milliseconds of a ``torch.profiler`` trace by kernel kind."""
+    from torch.autograd import DeviceType
+
+    split = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = e.key.lower()
+        kind = ("flash_attention" if "flash_attention" in name else
+                "matmul" if any(w in name for w in ("gemm", "gemv", "splitk")) else "other")
+        split[kind] += e.self_device_time_total / 1e3
+    return split
+
+
+def _profiled(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: host wall, device time by
+    kind, and the device's idle share of the wall."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = _device_split_ms(prof)
+    busy = sum(split.values())
+    return {"wall_ms": wall_ms, "device_ms": split,
+            "device_idle_share": 1.0 - busy / wall_ms if busy > 0 else None}
+
+
+def phase_lm_serve(seed: int, kernels: dict):
+    """One run of the LM serving path at full width.  Counts are set to 0
+    just before ``serve`` and read just after it; a short warm-up serve
+    before that takes the lazy CUDA/cuBLAS set-up out of the timed run."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_model, prefill
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    serve(cfg, params, tokens[:, :64], 2)  # warm-up
+    for k in kernels.values():
+        k.launches = 0
+    res = serve(cfg, params, tokens, LM_GEN)
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out = res.tokens
+    if out.shape != (LM_BATCH, LM_GEN + 1) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"lm_serve: bad tokens {tuple(out.shape)}")
+
+    tok_t = torch.from_numpy(tokens).cuda()
+    pre = _profiled(lambda: prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN))
+    _, cache = prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN)
+    first = out[:, :1]
+
+    def decode_steps():
+        nonlocal cache
+        tok = first
+        for _ in range(8):
+            logits, cache = decode_step(params, cfg, tok, cache)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+
+    dec = _profiled(decode_steps)
+    dec["steps"] = 8
+    del cache
+    row = {"phase": "lm_serve", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN, "init_s": init_s,
+           "prefill_s": res.prefill_s, "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / res.prefill_s,
+           "decode_ms_per_token": res.decode_s / LM_GEN * 1e3,
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / res.decode_s,
+           "peak_mem_bytes": peak, "launches": launches,
+           "profiled_prefill": pre, "profiled_decode": dec,
+           "sample": out[0, :8].tolist()}
+    emit(row)
+    if launches["flash_attention"] < cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
+                             f"on the prefill path, expected {cfg.num_layers}")
+    return row, cfg, params
+
+
+def phase_lm_consistency(cfg, params, seed: int) -> dict:
+    """Teacher-forced: prefill into an fp32 cache + decode steps reproduce
+    the full forward's logits at the same positions."""
+    import torch
+
+    from repro_torch.models import decode_step, forward, prefill
+
+    b, s, steps = 2, 256, 4
+    rng = np.random.default_rng(seed + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + steps))).cuda()
+    full = forward(params, cfg, {"tokens": tokens})
+    logits, cache = prefill(params, cfg, {"tokens": tokens[:, :s]}, s_max=s + steps,
+                            cache_dtype=torch.float32)
+    errs = [float((logits[:, 0] - full[:, s - 1]).abs().max())]
+    for i in range(steps):
+        logits, cache = decode_step(params, cfg, tokens[:, s + i:s + i + 1], cache)
+        errs.append(float((logits[:, 0] - full[:, s + i]).abs().max()))
+    row = {"phase": "lm_consistency", "batch": b, "prompt": s, "steps": steps,
+           "finite": bool(torch.isfinite(full).all()),
+           "max_abs_logit": float(full.abs().max()), "max_abs_err": max(errs), "per_step": errs}
+    emit(row)
+    if not (row["finite"] and row["max_abs_err"] <= TOL_TEACHER):
+        raise AssertionError(f"teacher-forced logits: max|Δ| {row['max_abs_err']} > {TOL_TEACHER}")
+    return row
+
+
+def kernel_flash_attention(cfg, gen) -> dict:
+    """The prefill shape of ``cfg`` (fp32, causal, GQA)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, hq, hkv, s, dh = (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT,
+                         cfg.resolved_head_dim)
+    q = torch.randn(b, hq, s, dh, device="cuda", generator=gen)
+    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
+    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
+    out = flash_attention(q, k, v, causal=True)
+    ref = kref.flash_attention_ref(q, k, v, causal=True)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    atol, rtol = TOL_ATTN
+    within = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+    err, lib_err = float((out - ref).abs().max()), float((lib - ref).abs().max())
+    del out, ref, lib
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+    plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, causal=True), 3, warmup=1)
+    lib_ms = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 10)
+    flops = 4 * dh * b * hq * (s * (s + 1) // 2)  # q·k and p·v over the visible pairs
+    bound_ms, by = _bound(4 * (2 * q.numel() + 2 * k.numel()), flops)
+    return {"name": "flash_attention",
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
+                      "dtype": "float32"},
+            "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "flops": flops}
+
+
+def kernel_edge_softmax(graph, gen) -> dict:
+    """``edge_softmax_normalize`` at the op's shape on the base graph: H =
+    gat's heads, sums from ``segment_spmm`` (phase 1).  No single PyTorch
+    call computes this function, so there is no library yardstick."""
+    import torch
+
+    from repro_torch.kernels.edge_softmax import (
+        edge_softmax_normalize,
+        edge_softmax_normalize_plain,
+    )
+    from repro_torch.kernels.segment_spmm import segment_spmm
+
+    _, dst, row_ptr = _in_edges(graph)
+    e, r, h = graph.num_edges, graph.n, GAT_HEADS
+    scores = torch.rand(e, h, device="cuda", generator=gen).exp_()
+    sums = segment_spmm(scores, row_ptr, None, r)
+    out = edge_softmax_normalize(scores, dst, sums)
+    ref = edge_softmax_normalize_plain(scores, dst, sums)
+    err = float((out - ref).abs().max())
+    del out, ref
+    ms = cuda_time_ms(lambda: edge_softmax_normalize(scores, dst, sums), 50)
+    plain_ms = cuda_time_ms(lambda: edge_softmax_normalize_plain(scores, dst, sums), 10)
+    nbytes = 2 * e * h * 4 + e * dst.element_size() + r * h * 4
+    bound_ms, by = _bound(nbytes, e * h)
+    return {"name": "edge_softmax_normalize", "shape": {"E": e, "H": h, "R": r},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None,
+            "library_note": "no single PyTorch call computes the gather-and-divide"}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="vertices (default 1,000,000)")
@@ -282,15 +541,18 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     try:
+        from repro_torch.device import set_fp32_precision
         from repro_torch.graph import make_graph, make_stream, random_features
         from repro_torch.kernels import delta_agg as dmod
+        from repro_torch.kernels import edge_softmax as emod
+        from repro_torch.kernels import flash_attention as fmod
         from repro_torch.kernels import segment_spmm as smod
-        from repro_torch.serve.api import set_fp32_precision
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
         return 2
     set_fp32_precision()
-    kernels = {"segment_spmm": smod.KERNEL, "delta_agg": dmod.KERNEL}
+    kernels = {"segment_spmm": smod.KERNEL, "delta_agg": dmod.KERNEL,
+               "flash_attention": fmod.KERNEL, "edge_softmax_normalize": emod.KERNEL}
 
     phase_build()
 
@@ -302,34 +564,48 @@ def main(argv=None) -> int:
     emit({"phase": "data", "n": args.n, "edges": graph.num_edges,
           "base_edges": wl.base.num_edges, "setup_s": time.perf_counter() - t0})
 
+    # each path: counts set to 0 just before it is driven, read just after
     engine_rows = [phase_engine(m, x, wl, args.seed, kernels) for m in ("gcn", "gat")]
-    launches = {name: sum(row["launches"][name] for row in engine_rows) for name in kernels}
-    emit({"phase": "main_path_launches", **launches})
-    for name, cnt in launches.items():
+    gnn = {name: sum(row["launches"][name] for row in engine_rows)
+           for name in ("segment_spmm", "delta_agg")}
+    emit({"phase": "main_path_launches", **gnn})
+    for name, cnt in gnn.items():
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-
-    # kernels at the shapes the engine used (largest layer caps over both runs)
-    caps = {k: max(row["caps"][k] for row in engine_rows) for k in ("e", "r", "f", "fe")}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    es = phase_edge_softmax_op(wl.base, gen, kernels)
+    lm, cfg, params = phase_lm_serve(args.seed, kernels)
+    phase_lm_consistency(cfg, params, args.seed)
+    del params
+    launches = {**gnn, "flash_attention": lm["launches"]["flash_attention"],
+                "edge_softmax_normalize": es["launches"]["edge_softmax_normalize"]}
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+
+    # kernels at the shapes their paths used (GNN: largest layer caps over both runs)
+    caps = {k: max(row["caps"][k] for row in engine_rows) for k in ("e", "r", "f", "fe")}
     rng = np.random.default_rng(args.seed)
     results = [
         kernel_segment_spmm(wl.base, WIDTH + 1, gen),  # gcn: [ctx (1) | raw (128)]
         kernel_segment_spmm_subset(caps["fe"], caps["f"], WIDTH + 2, gen, rng),  # gat
         kernel_delta_agg(caps["e"], caps["r"], WIDTH + 1, gen, rng),
+        kernel_flash_attention(cfg, gen),
+        kernel_edge_softmax(wl.base, gen),
     ]
     for res in results:
         emit({"phase": "kernel", **res})
-        if not res["max_abs_err"] <= TOL_KERNEL:
-            raise AssertionError(f"{res['name']}: kernel vs plain max|Δ| "
-                                 f"{res['max_abs_err']} > {TOL_KERNEL}")
+        ok = res.get("within_tol", res["max_abs_err"] <= TOL_KERNEL)
+        if not ok:
+            raise AssertionError(f"{res['name']}: kernel vs plain max|Δ| {res['max_abs_err']}")
 
     summary = []
     for res in results:
         if "plain_ms" not in res:
             continue
         name = res["name"]
-        summary.append({"name": name, "route": "cuda", **KERNEL_INFO[name],
+        info = {k: KERNEL_INFO[name][k] for k in ("source", "replaces")}
+        summary.append({"name": name, "route": "cuda", **info,
                         "launches": launches[name], "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"],
                         "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],

@@ -14,6 +14,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "error.cuh"
+
 namespace repro_torch {
 
 constexpr int kWarpSize = 32;
@@ -54,7 +56,3 @@ int launch_row_sum(const void* msg, const void* row_ptr, const void* order, void
 }
 
 }  // namespace repro_torch
-
-extern "C" const char* repro_torch_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

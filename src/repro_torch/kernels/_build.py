@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, Mapping, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -27,10 +27,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# C signature shared by every entry point:
-#   int fn(const void* msg, const void* row_ptr, const void* order, void* out,
-#          long long num_rows, long long d, void* stream)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+# ctypes argument types for the C entry points: ``PTR`` for every pointer and
+# the stream (a bare Python int would be cut to 32 bits), ``I64``/``I32`` for
+# sizes and flags, ``F32`` for a scale.  Every entry point returns a
+# ``cudaError_t`` as ``int``.
+PTR, I64, I32, F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+#: int fn(const void* msg, const void* row_ptr, const void* order, void* out,
+#:        long long num_rows, long long d, void* stream)
+ROW_SUM_ARGTYPES = (PTR, PTR, PTR, PTR, I64, I64, PTR)
 
 
 def _nvcc() -> str:
@@ -92,9 +97,11 @@ class CudaKernel:
     ``launches`` is a plain integer that the module's wrapper raises by one
     each time it launches the kernel, and nowhere else."""
 
-    def __init__(self, name: str, symbols: Sequence[str]):
+    def __init__(self, name: str, symbols: Mapping[str, Sequence]):
+        """``symbols`` maps each C entry point of ``csrc/<name>.cu`` to its
+        ctypes ``argtypes``."""
         self.name = name
-        self.symbols = tuple(symbols)
+        self.symbols = {sym: tuple(argtypes) for sym, argtypes in symbols.items()}
         self.launches = 0
         self._lib = None
 
@@ -102,9 +109,9 @@ class CudaKernel:
         if self._lib is None:
             _finish(self.name, _start(self.name))
             lib = ctypes.CDLL(str(_lib_path(self.name)))
-            for sym in self.symbols:
+            for sym, argtypes in self.symbols.items():
                 fn = getattr(lib, sym)
-                fn.argtypes = _ARGTYPES
+                fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             lib.repro_torch_error_string.argtypes = [ctypes.c_int]
             lib.repro_torch_error_string.restype = ctypes.c_char_p

@@ -20,14 +20,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import ROW_SUM_ARGTYPES, CudaKernel
 from repro_torch.kernels.segment_spmm import (
     _check_cuda,
     _same_device,
     segment_spmm_plain,
 )
 
-KERNEL = CudaKernel("delta_agg", ("delta_agg_i32", "delta_agg_i64"))
+KERNEL = CudaKernel("delta_agg", {"delta_agg_i32": ROW_SUM_ARGTYPES,
+                                 "delta_agg_i64": ROW_SUM_ARGTYPES})
 
 
 def delta_agg_plain(

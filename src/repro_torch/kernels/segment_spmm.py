@@ -24,9 +24,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import ROW_SUM_ARGTYPES, CudaKernel
 
-KERNEL = CudaKernel("segment_spmm", ("segment_spmm_i32", "segment_spmm_i64"))
+KERNEL = CudaKernel("segment_spmm", {"segment_spmm_i32": ROW_SUM_ARGTYPES,
+                                    "segment_spmm_i64": ROW_SUM_ARGTYPES})
 
 
 def prepare_row_schedule(keys: np.ndarray, num_rows: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -1,0 +1,134 @@
+"""GQA attention with RoPE, KV cache, sliding window, optional QK-norm.
+
+The counterpart of ``repro.nn.attention`` for the dense LM, with the
+reference's dispatch: every call with more than one query row (prefill and
+the full forward) goes to the ``flash_attention`` kernel; a decode step
+(one query row against the cache) takes the plain grouped-GQA path, as the
+reference sends decode to XLA's einsum and not to its Pallas kernel.
+
+The reference's ``ashard`` sharding annotations are the identity outside a
+mesh and are left out; they come with the sharded LM (ROADMAP.md Queue 1
+item 10g).  Ring decode (hymba) and cross attention (encdec) come with
+their families.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.nn.layers import apply_rope, rms_norm, rope_freqs, stacked_dense
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, Hkv, S_max, Dh]
+    v: torch.Tensor  # [B, Hkv, S_max, Dh]
+
+
+def init_attention(gen: torch.Generator, layers: int, d_model: int, n_heads: int, n_kv: int,
+                   head_dim: int, qkv_bias: bool = False, qk_norm: bool = False,
+                   dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """Stacked ``[layers, …]`` projections, drawn from ``gen`` on its device."""
+    dev = gen.device
+    p = {
+        "wq": stacked_dense(gen, layers, (d_model, n_heads * head_dim), dtype),
+        "wk": stacked_dense(gen, layers, (d_model, n_kv * head_dim), dtype),
+        "wv": stacked_dense(gen, layers, (d_model, n_kv * head_dim), dtype),
+        "wo": stacked_dense(gen, layers, (n_heads * head_dim, d_model), dtype),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros(layers, n_heads * head_dim, dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(layers, n_kv * head_dim, dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(layers, n_kv * head_dim, dtype=dtype, device=dev)
+    if qk_norm:
+        p["q_norm"] = torch.ones(layers, head_dim, dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones(layers, head_dim, dtype=dtype, device=dev)
+    return p
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                   window: Optional[int], q_offset: int) -> torch.Tensor:
+    """q [B, Hq, Sq, Dh] over k, v [B, Hkv, Sk, Dh] → [B, Hq, Sq, Dh] in q's dtype."""
+    if q.shape[2] > 1:
+        return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=causal, window=window, q_offset=q_offset)
+    # decode: grouped GQA without repeating KV heads.  As in the reference, q
+    # is cast to the cache dtype and both products accumulate in fp32: the
+    # operands are rounded first and multiplied as fp32, which is exact for
+    # bf16 (a bf16 matmul in PyTorch would round its output to bf16).
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf = q.reshape(b, hkv, hq // hkv, sq, d).to(k.dtype).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(d)
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    probs = torch.softmax(logits.masked_fill(~m, -1e30), dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).float(), v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
+         rope_theta: float, start: int):
+    """Projections, heads split to [B, H, S, Dh], QK-norm and RoPE at
+    positions ``start + arange(S)``."""
+    b, s, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
+    k = k.reshape(b, s, n_kv, head_dim).transpose(1, 2)
+    v = v.reshape(b, s, n_kv, head_dim).transpose(1, 2)
+    if "q_norm" in p:
+        q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
+    angles = rope_freqs(head_dim, rope_theta, start + torch.arange(s, device=x.device))
+    return apply_rope(q, angles), apply_rope(k, angles), v
+
+
+def _merge_heads(out: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    b, h, s, dh = out.shape
+    return out.transpose(1, 2).reshape(b, s, h * dh) @ p["wo"]
+
+
+def attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads: int, n_kv: int,
+                    head_dim: int, rope_theta: float = 1e6, causal: bool = True,
+                    window: Optional[int] = None, cache: Optional[KVCache] = None,
+                    cache_index: int = 0) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Self-attention over x [B, S, D] with one layer's ``p``.  If ``cache``
+    is given:
+
+    * S > 1 → prefill: writes positions [0, S) of the cache;
+    * S = 1 → decode: writes position ``cache_index`` and attends to the
+      whole cache with ``q_offset = cache_index``.
+
+    The reference returns an updated copy of the cache; the port writes the
+    preallocated one in place and returns it."""
+    s = x.shape[1]
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, cache_index)
+    if cache is None:
+        return _merge_heads(attention_core(q, k, v, causal, window, 0), p), None
+    if s == 1:
+        cache.k[:, :, cache_index:cache_index + 1] = k
+        cache.v[:, :, cache_index:cache_index + 1] = v
+        out = attention_core(q, cache.k, cache.v, causal, window, cache_index)
+    else:
+        cache.k[:, :, :s] = k
+        cache.v[:, :, :s] = v
+        out = attention_core(q, k, v, causal, window, 0)
+    return _merge_heads(out, p), cache
+
+
+def attention_prefill_kv(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads: int,
+                         n_kv: int, head_dim: int, rope_theta: float = 1e6,
+                         causal: bool = True, window: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill that also returns the (rope-applied) full-length K/V so the
+    caller can fill its cache."""
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, 0)
+    return _merge_heads(attention_core(q, k, v, causal, window, 0), p), k, v

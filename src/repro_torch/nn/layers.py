@@ -1,0 +1,51 @@
+"""Functional NN building blocks: norms, MLPs, RoPE, embeddings.
+
+The counterparts of ``repro.nn.layers`` with the same dtype behaviour:
+:func:`rms_norm` normalises in fp32, casts back to x's dtype and then
+multiplies by gamma, so a bf16 x times an fp32 gamma is fp32 (PyTorch
+promotes as JAX does)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor) -> torch.Tensor:
+    """[*, head_dim/2] rotation angles for the given positions (fp32)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    inv = 1.0 / (theta ** exps)
+    return positions[..., None].float() * inv
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: [B, H, S, D]; angles: [S, D/2] or [B, S, D/2].  Rotates the two
+    halves of the head dim (not interleaved pairs)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    if angles.dim() == 2:
+        cos, sin = torch.cos(angles)[None, None], torch.sin(angles)[None, None]
+    else:
+        cos, sin = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def stacked_dense(gen: torch.Generator, layers: int, shape, dtype=torch.float32) -> torch.Tensor:
+    """``[layers, *shape]`` weights ``normal · fan_in^-1/2`` (fan_in = shape[0]),
+    the reference's ``param.stacked_dense`` init, drawn from ``gen`` on its
+    device."""
+    std = 1.0 / (shape[0] ** 0.5)
+    return torch.randn((layers, *shape), generator=gen, dtype=dtype, device=gen.device) * std

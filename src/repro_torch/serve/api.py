@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.backend import DeviceBackend, StreamOrchestrator
 from repro_torch.core.engine import RTECEngine
 from repro_torch.core.operators import GNNModel, Params
+from repro_torch.device import resolve_device, set_fp32_precision
 from repro_torch.graph.csr import CSRGraph
 
 #: every backend name the reference's ``create_engine`` accepts
@@ -64,24 +65,6 @@ class EngineConfig:
             raise ValueError("EngineConfig needs params or dims")
         gen = torch.Generator().manual_seed(self.seed)
         return self.model.init_layers(gen, list(self.dims), device=dev)
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; raises if it names a card that is absent."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but no CUDA device is available; "
-            "pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
-
-
-def set_fp32_precision() -> None:
-    """Full float32 for matmuls and convolutions: TF32 off, process-wide."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def create_engine(backend: str, config: EngineConfig) -> RTECEngine:

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: each kernel against its plain version, and the
-engine's invariants with the kernels on its path.
+"""The port on a CUDA card: each kernel against its plain version, the
+engine's invariants with the kernels on its path, and the reduced LM on the
+card against the same LM on the CPU.
 
 Every test here needs a card and is marked ``gpu``; on a host without one
 each skips with its reason.  The file imports neither ``jax`` nor ``repro``
@@ -8,18 +9,29 @@ each skips with its reason.  The file imports neither ``jax`` nor ``repro``
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: kernel vs plain version 1e-5 (fp32, different summation order);
-engine on the card vs the same engine on the CPU 1e-5 per batch (different
-matmul kernels); the invariants inside the port are bitwise.
+flash_attention vs its plain version 2e-5/2e-3 in fp32 and 3e-2 in bf16 (the
+reference's tests/test_kernels.py); edge_softmax_normalize exactly (one IEEE
+division per element on both sides); engine on the card vs the same engine
+on the CPU 1e-5 per batch (different matmul kernels); the reduced LM on the
+card vs the CPU 1e-4 (fp32 cache and compute); the invariants inside the
+port are bitwise.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import models as lm_models  # noqa: E402
+from repro_torch.configs import get_arch, reduced_config  # noqa: E402
 from repro_torch.core.models import make_model  # noqa: E402
 from repro_torch.graph import make_graph, make_stream, random_features  # noqa: E402
 from repro_torch.kernels import delta_agg as dmod  # noqa: E402
+from repro_torch.kernels import edge_softmax as emod  # noqa: E402
+from repro_torch.kernels import flash_attention as fmod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import segment_spmm as smod  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.serve import EngineConfig, create_engine  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -117,3 +129,104 @@ def test_fused_equals_unfused_and_stream_equals_batch_on_card(cuda, name):
             assert torch.equal(fused.h[l], unfused.h[l])
     streamed.apply_stream(wl.batches)
     assert torch.equal(streamed.embeddings, fused.embeddings)
+
+
+# ---------------------------------------------------------------------- #
+# flash_attention, edge_softmax_normalize and the LM
+# ---------------------------------------------------------------------- #
+def _attn_inputs(b, hq, hkv, sq, sk, dh, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(b, hq, sq, dh, device="cuda", generator=g).to(dtype),
+            torch.randn(b, hkv, sk, dh, device="cuda", generator=g).to(dtype),
+            torch.randn(b, hkv, sk, dh, device="cuda", generator=g).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,sk,causal,window,q_offset",
+    [
+        (2, 4, 4, 128, 128, True, None, 0),  # MHA, causal
+        (1, 8, 2, 200, 200, True, None, 0),  # GQA g = 4, ragged S
+        (2, 4, 1, 257, 257, True, 48, 0),  # MQA, window, ragged
+        (1, 2, 2, 100, 77, False, None, 0),  # not causal, Sq ≠ Sk
+        (2, 4, 2, 5, 300, True, None, 295),  # a few rows at the end of a cache
+        (1, 2, 1, 70, 70, True, 16, -20),  # rows that see no key give 0
+    ],
+)
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, causal, window,
+                                              q_offset, dh, dtype):
+    q, k, v = _attn_inputs(b, hq, hkv, sq, sk, dh, dtype)
+    n0 = fmod.KERNEL.launches
+    out = fmod.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert fmod.KERNEL.launches == n0 + 1 and out.dtype == dtype
+    ref = kref.flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    tol = dict(atol=3e-2, rtol=3e-2) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=2e-3)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.equal(out, fmod.flash_attention(q, k, v, causal=causal, window=window,
+                                                 q_offset=q_offset))  # bitwise repeat
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _attn_inputs(1, 4, 2, 64, 64, 48, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fmod.flash_attention(q, k, v)
+    q, k, v = _attn_inputs(1, 4, 2, 64, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        fmod.flash_attention(q, k.half(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fmod.flash_attention(q.transpose(2, 3), k, v)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_edge_softmax_kernel_matches_plain_and_op_matches_reference(cuda, idx_dtype):
+    rng = np.random.default_rng(5)
+    e, h, r = 20000, 4, 3000
+    dst = np.sort(rng.integers(0, r, e))
+    dst[rng.random(e) < 0.05] = -1
+    scores = torch.from_numpy(np.exp(rng.uniform(size=(e, h))).astype(np.float32)).cuda()
+    sums = kref.segment_spmm_ref(scores, torch.from_numpy(dst).cuda(), r)
+    dst_t = torch.from_numpy(dst).to("cuda", idx_dtype)
+    n0 = emod.KERNEL.launches
+    out = emod.edge_softmax_normalize(scores, dst_t, sums)
+    assert emod.KERNEL.launches == n0 + 1
+    assert torch.equal(out, emod.edge_softmax_normalize_plain(scores, dst_t, sums))
+    live = dst >= 0
+    n, s = ops.edge_softmax(scores[live], dst[live], r)
+    n_ref, s_ref = kref.edge_softmax_ref(scores[live], torch.from_numpy(dst[live]).cuda(), r)
+    torch.testing.assert_close(n, n_ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(s, s_ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b"])
+def test_reduced_lm_on_card_matches_cpu(cuda, name):
+    cfg = reduced_config(get_arch(name))
+    params = lm_models.init_model(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    n0 = fmod.KERNEL.launches
+    full = lm_models.forward(on_card, cfg, {"tokens": tokens.cuda()})
+    assert fmod.KERNEL.launches == n0 + cfg.num_layers  # one launch per layer
+    torch.testing.assert_close(full.cpu(), lm_models.forward(params, cfg, {"tokens": tokens}),
+                               atol=1e-4, rtol=1e-4)
+    card = _serve_steps(on_card, cfg, tokens.cuda())
+    for i, (a, c) in enumerate(zip(card, _serve_steps(params, cfg, tokens))):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-4, rtol=1e-4, msg=f"step {i}")
+    res = serve(cfg, on_card, tokens[:, :8], 6)
+    assert res.tokens.is_cuda and res.tokens.shape == (2, 7)
+    torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 6).tokens)
+
+
+def _serve_steps(params, cfg, tokens, prompt=36):
+    """Logits of a prefill into an fp32 cache and teacher-forced decode steps."""
+    logits, cache = lm_models.prefill(params, cfg, {"tokens": tokens[:, :prompt]},
+                                      s_max=tokens.shape[1], cache_dtype=torch.float32)
+    steps = [logits]
+    for i in range(prompt, tokens.shape[1]):
+        logits, cache = lm_models.decode_step(params, cfg, tokens[:, i:i + 1], cache)
+        steps.append(logits)
+    return steps
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}

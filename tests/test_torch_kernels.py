@@ -18,6 +18,7 @@ import repro.kernels.ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.delta_agg import delta_agg  # noqa: E402
+from repro_torch.kernels.edge_softmax import edge_softmax_normalize  # noqa: E402
 from repro_torch.kernels.segment_spmm import prepare_row_schedule, segment_spmm  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -137,3 +138,112 @@ def test_wrappers_reject_unsupported_devices_and_shapes():
                   torch.zeros(3, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="expected 3"):
         segment_spmm(torch.zeros(4, 3), torch.zeros(5, dtype=torch.int32), None, 2)
+
+
+# ---------------------------------------------------------------------- #
+# edge_softmax and flash_attention
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("e,h,v", [(700, 4, 40), (120, 1, 16), (1024, 8, 128)])
+def test_edge_softmax_matches_reference(e, h, v, pallas_interpret):
+    """The reference test's sweep (tests/test_kernels.py) and tolerances:
+    normalized scores 1e-5, sums 1e-4."""
+    rng = np.random.default_rng(e)
+    dst = np.sort(rng.integers(0, v, e)).astype(np.int32)
+    sc = rng.uniform(0.05, 5.0, size=(e, h)).astype(np.float32)
+    n, s = tops.edge_softmax(torch.from_numpy(sc), dst, v)
+    for n_ref, s_ref in (jops.edge_softmax(jnp.asarray(sc), dst, v, tv=8, be=128, bh=32),
+                         jref.edge_softmax_ref(jnp.asarray(sc), jnp.asarray(dst), v)):
+        np.testing.assert_allclose(n.numpy(), np.asarray(n_ref), atol=1e-5)
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), atol=1e-4)
+    sums = np.zeros((v, h))
+    np.add.at(sums, dst, n.numpy())
+    np.testing.assert_allclose(sums[np.unique(dst)], 1.0, atol=1e-4)
+
+
+def test_edge_softmax_padding_and_empty_rows():
+    """-1 padded edges normalize to 0 (the reference's kernel path), rows no
+    edge reaches have sum 0, and ids outside [-1, num_rows) raise."""
+    dst = np.array([0, 0, 2, -1, 2, -1])
+    sc = torch.arange(1.0, 13.0).reshape(6, 2)
+    n, s = tops.edge_softmax(sc, dst, 4)
+    assert torch.all(n[dst < 0] == 0) and torch.all(s[[1, 3]] == 0)
+    torch.testing.assert_close(n[[0, 1]].sum(0), torch.ones(2))
+    with pytest.raises(ValueError, match=r"\[-1, 4\)"):
+        tops.edge_softmax(sc, np.array([0, 0, 4, 1, 1, 1]), 4)
+
+
+def _tol_attn(dtype):
+    # the reference test's tolerances (tests/test_kernels.py)
+    return dict(atol=3e-2, rtol=3e-2) if dtype == "bfloat16" else dict(atol=2e-5, rtol=2e-3)
+
+
+def _qkv(seed, b, hq, hkv, sq, sk, dh):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, sq, dh)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, dh)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,dh,bq,bk,causal,window",
+    [
+        (2, 4, 2, 256, 64, 128, 128, True, None),
+        (1, 2, 2, 128, 32, 64, 64, False, None),
+        (2, 4, 1, 256, 64, 128, 64, True, 64),
+        (1, 8, 4, 512, 128, 256, 256, True, None),
+    ],
+)
+def test_flash_attention_matches_reference(b, hq, hkv, s, dh, bq, bk, causal, window, dtype,
+                                           pallas_interpret):
+    """The reference test's sweep: the port against the Pallas kernel
+    (interpret mode) and the reference oracle, on the same bf16/fp32 values."""
+    arrs = _qkv(s + dh, b, hq, hkv, s, s, dh)
+    out = tops.flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs),
+                               causal=causal, window=window).float().numpy()
+    jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
+    for ref in (jops.flash_attention(jq, jk, jv, causal=causal, window=window, bq=bq, bk=bk),
+                jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)):
+        np.testing.assert_allclose(out, np.asarray(ref, np.float32), **_tol_attn(dtype))
+
+
+def test_flash_attention_decode_shape_matches_reference(pallas_interpret):
+    """q_len = 1 against a full KV cache at q_offset = 255."""
+    q, k, v = _qkv(9, 2, 4, 2, 1, 256, 64)
+    out = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                               causal=True, q_offset=255).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    for ref in (jops.flash_attention(jq, jk, jv, causal=True, q_offset=255, bq=1, bk=128),
+                jref.flash_attention_ref(jq, jk, jv, causal=True, q_offset=255)):
+        np.testing.assert_allclose(out, np.asarray(ref), atol=2e-5)
+
+
+def test_flash_attention_long_prefill_chunks_and_empty_rows():
+    """Sq = 4096 takes the 2048-row chunked path of the plain version and
+    equals one unchunked call; a row that sees no key is 0."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 2, 1, 4096, 4096, 16))
+    out = tops.flash_attention(q, k, v, causal=True, window=32)
+    whole = torch.cat([tops.flash_attention(q[:, :, :2048 + 1], k, v, causal=True, window=32),
+                       tops.flash_attention(q[:, :, 2049:], k, v, causal=True, window=32,
+                                            q_offset=2049)], dim=2)
+    torch.testing.assert_close(out, whole, atol=2e-5, rtol=2e-3)
+    empty = tops.flash_attention(q[:, :, :4], k, v, causal=True, q_offset=-2)
+    assert torch.all(empty[:, :, :2] == 0) and torch.all(empty[:, :, 2:] != 0)
+
+
+def test_attention_wrappers_reject_what_no_path_takes():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 4, 2, 8, 8, 16))
+    with pytest.raises(ValueError, match="window"):
+        tops.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="do not fit"):
+        tops.flash_attention(q, k[:, :, :, :8], v[:, :, :, :8])
+    with pytest.raises(ValueError, match="do not fit"):
+        tops.flash_attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    sc, dst = torch.ones(6, 2, device="meta"), torch.zeros(6, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        edge_softmax_normalize(sc, dst, torch.ones(3, 2, device="meta"))
+    with pytest.raises(ValueError, match="expected scores"):
+        edge_softmax_normalize(torch.ones(6, 2), torch.zeros(5, dtype=torch.int64),
+                               torch.ones(3, 2))
