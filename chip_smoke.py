@@ -7,7 +7,9 @@
 Phases, one JSON line each:
 
 1. build   — compile the four CUDA kernels (``src/repro_torch/csrc``), one
-             ``nvcc`` per source, started together;
+             ``nvcc`` per source, started together; count the tensor-core
+             instructions (``HGMMA``) in each library's SASS
+             (``cuobjdump --dump-sass``): ``flash_attention`` must have some;
 2. engine  — ``create_engine("device", …)`` for gcn and then gat (heads=2) on
              ``make_graph("uniform", n, avg_degree=10, weighted=True)`` with
              128-wide random features and dims [128, 128, 128], driven by a
@@ -35,8 +37,9 @@ Phases, one JSON line each:
              tests/test_archs_smoke.py);
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
-             flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3;
-             edge_softmax_normalize 1e-5), timed with CUDA events beside its
+             flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
+             fp32 and 3e-2 in bf16; edge_softmax_normalize exactly), timed
+             with CUDA events beside its
              plain version, a PyTorch yardstick where one call computes the
              same function (``index_add_``; ``scaled_dot_product_attention``)
              and its bound.
@@ -62,9 +65,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores (data sheet)
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
+SPLIT_TF32 = 3  # TF32 products per fp32 product in flash_attention (hi·hi + hi·lo + lo·hi)
 TOL_KERNEL = 1e-5  # kernel vs plain version: fp32, different summation order
 TOL_ENGINE = 2e-4  # engine vs full recompute: the reference's tests/test_backends.py TOL
 TOL_ATTN = (2e-5, 2e-3)  # flash vs plain (atol, rtol): the reference's tests/test_kernels.py
+TOL_ATTN_BF16 = (3e-2, 3e-2)  # the same in bf16
 TOL_SUMS = 1e-4  # edge-softmax sums: the reference's tests/test_kernels.py
 TOL_TEACHER = 2e-2  # teacher-forced logits: the reference's tests/test_archs_smoke.py
 WIDTH = 128  # the lane width both TPU kernels were tiled for (BD = 128)
@@ -115,17 +122,31 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels._build import BUILD_DIR, build_all
+    from repro_torch.kernels._build import BUILD_DIR, _lib_path, build_all
 
-    res = build_all(info["lib"] for info in KERNEL_INFO.values())
+    libs = [info["lib"] for info in KERNEL_INFO.values()]
+    res = build_all(libs)
     logdir = BUILD_DIR / "logs"
     logdir.mkdir(parents=True, exist_ok=True)
     regs = {}
     for name, r in res.items():
         (logdir / f"nvcc_{name}.log").write_text(r["log"])
         regs[name] = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln]
+    hgmma = {name: _sass_count(_lib_path(name), "HGMMA") for name in libs}
     emit({"phase": "build", "seconds": {k: v["seconds"] for k, v in res.items()},
-          "ptxas": regs})
+          "ptxas": regs, "sass_hgmma": hgmma})
+    if not hgmma["flash_attention"]:
+        raise AssertionError("flash_attention's SASS has no HGMMA: it misses the tensor cores")
+
+
+def _sass_count(lib: Path, opcode: str) -> int:
+    """Instructions of one opcode in a library's SASS (``cuobjdump``)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return sum(opcode in ln for ln in sass.splitlines())
 
 
 def final_features(x: np.ndarray, wl) -> np.ndarray:
@@ -216,8 +237,8 @@ def _caps(snapshot: dict) -> dict:
     return out
 
 
-def _bound(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def _bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -465,8 +486,10 @@ def phase_lm_consistency(cfg, params, seed: int) -> dict:
     return row
 
 
-def kernel_flash_attention(cfg, gen) -> dict:
-    """The prefill shape of ``cfg`` (fp32, causal, GQA)."""
+def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
+    """The prefill shape of ``cfg`` (causal, GQA) in fp32, the main path's
+    dtype, or in bf16.  The bound is the design's: fp32 runs three TF32
+    products per product (split TF32), bf16 one bf16 product."""
     import torch
     import torch.nn.functional as F
 
@@ -475,28 +498,37 @@ def kernel_flash_attention(cfg, gen) -> dict:
 
     b, hq, hkv, s, dh = (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT,
                          cfg.resolved_head_dim)
-    q = torch.randn(b, hq, s, dh, device="cuda", generator=gen)
-    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
-    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
-    out = flash_attention(q, k, v, causal=True)
-    ref = kref.flash_attention_ref(q, k, v, causal=True)
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    atol, rtol = TOL_ATTN
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
+    out = flash_attention(q, k, v, causal=True).float()
+    ref = kref.flash_attention_ref(q, k, v, causal=True).float()
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True).float()
+    atol, rtol = TOL_ATTN if dtype == "float32" else TOL_ATTN_BF16
     within = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
     err, lib_err = float((out - ref).abs().max()), float((lib - ref).abs().max())
     del out, ref, lib
-    ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True), 20)
     plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, causal=True), 3, warmup=1)
     lib_ms = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 10)
     flops = 4 * dh * b * hq * (s * (s + 1) // 2)  # q·k and p·v over the visible pairs
-    bound_ms, by = _bound(4 * (2 * q.numel() + 2 * k.numel()), flops)
-    return {"name": "flash_attention",
-            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
-                      "dtype": "float32"},
-            "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "flops": flops}
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    if dtype == "float32":
+        bound_ms, by = _bound(nbytes, SPLIT_TF32 * flops, TF32_FLOPS)
+    else:
+        bound_ms, by = _bound(nbytes, flops, BF16_FLOPS)
+    row = {"name": "flash_attention",
+           "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
+                     "dtype": dtype},
+           "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+           "library_ms": lib_ms, "flops": flops,
+           "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
+    if dtype != "float32":
+        row["variant"] = dtype  # a check beside the main path's dtype, not a summary row
+    return row
 
 
 def kernel_edge_softmax(graph, gen) -> dict:
@@ -517,14 +549,15 @@ def kernel_edge_softmax(graph, gen) -> dict:
     sums = segment_spmm(scores, row_ptr, None, r)
     out = edge_softmax_normalize(scores, dst, sums)
     ref = edge_softmax_normalize_plain(scores, dst, sums)
-    err = float((out - ref).abs().max())
+    err, exact = float((out - ref).abs().max()), bool(torch.equal(out, ref))
     del out, ref
     ms = cuda_time_ms(lambda: edge_softmax_normalize(scores, dst, sums), 50)
     plain_ms = cuda_time_ms(lambda: edge_softmax_normalize_plain(scores, dst, sums), 10)
     nbytes = 2 * e * h * 4 + e * dst.element_size() + r * h * 4
     bound_ms, by = _bound(nbytes, e * h)
     return {"name": "edge_softmax_normalize", "shape": {"E": e, "H": h, "R": r},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "max_abs_err": err, "within_tol": exact,  # the same IEEE division: bit for bit
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None,
             "library_note": "no single PyTorch call computes the gather-and-divide"}
 
@@ -591,6 +624,7 @@ def main(argv=None) -> int:
         kernel_segment_spmm_subset(caps["fe"], caps["f"], WIDTH + 2, gen, rng),  # gat
         kernel_delta_agg(caps["e"], caps["r"], WIDTH + 1, gen, rng),
         kernel_flash_attention(cfg, gen),
+        kernel_flash_attention(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
     ]
     for res in results:
@@ -601,15 +635,23 @@ def main(argv=None) -> int:
 
     summary = []
     for res in results:
-        if "plain_ms" not in res:
+        if "plain_ms" not in res or "variant" in res:
             continue
         name = res["name"]
         info = {k: KERNEL_INFO[name][k] for k in ("source", "replaces")}
-        summary.append({"name": name, "route": "cuda", **info,
-                        "launches": launches[name], "max_abs_err": res["max_abs_err"],
-                        "ms": res["ms"], "plain_ms": res["plain_ms"],
-                        "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-                        "library_ms": res["library_ms"]})
+        entry = {"name": name, "route": "cuda", **info,
+                 "launches": launches[name], "max_abs_err": res["max_abs_err"],
+                 "ms": res["ms"], "plain_ms": res["plain_ms"],
+                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                 "library_ms": res["library_ms"]}
+        if "fp32_simt_bound_ms" in res:
+            entry["fp32_simt_bound_ms"] = res["fp32_simt_bound_ms"]
+        others = [{k: r[k] for k in ("variant", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+                  for r in results if r["name"] == name and "variant" in r]
+        if others:
+            entry["variants"] = others
+        summary.append(entry)
     emit({"kernels": summary})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

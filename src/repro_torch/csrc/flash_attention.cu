@@ -1,13 +1,13 @@
 // flash_attention — blockwise streaming-softmax attention with GQA, causal and
-// sliding-window masks.
+// sliding-window masks, on Hopper's tensor cores.
 //
 //   o[b,h,i] = Σ_j softmax_j(q[b,h,i] · k[b,h/g,j] · scale) v[b,h/g,j]    (g = Hq / Hkv)
 //   over the keys j that row i may see: j < Sk, j ≤ i + q_offset (causal) and
 //   j > i + q_offset − window (window > 0).  A row that sees no key gives 0.
 //
-// q [B, Hq, Sq, dh], k and v [B, Hkv, Sk, dh], o like q; all contiguous, fp32 or
-// bf16 (o in q's type); dh ∈ {16, 32, 64, 128}.  The softmax state (m, l, acc)
-// and every product are fp32.
+// q [B, Hq, Sq, dh], k and v [B, Hkv, Sk, dh], o like q; all contiguous and
+// 16-byte aligned, fp32 or bf16 (o in q's type); dh ∈ {16, 32, 64, 128}.  The
+// softmax state (m, l, acc) is fp32.
 //
 // Replaces: the Pallas TPU kernel `flash_attention` (src/repro/kernels/flash_attention.py,
 // fn `flash_attention`, body `_kernel`), which streams (512 × 128) K/V blocks through
@@ -16,179 +16,452 @@
 // attention of every prefill and full forward of the LM (nn/attention.py
 // `attention_core` for Sq > 1).
 //
-// What bounds it on an H100: operations.  Causal attention does 4·dh fp32 operations
-// per (query, visible key) pair over ~Sq²/2 pairs per head, and reads q, k, v and
-// writes o once: at the llama3.2-1b prefill shape (B 8, Hq 32, Hkv 8, S 2048, dh 64)
-// that is 1.4e11 operations, 2.05 ms at the 67 TFLOP/s fp32 rate outside the tensor
-// cores, against 0.27 GB of tensors, 0.08 ms at 3.35 TB/s.
+// What bounds it on an H100: tensor-core operations.  Causal attention does 4·dh
+// operations per (query, visible key) pair, 1.375e11 at the llama3.2-1b prefill
+// shape (B 8, Hq 32, Hkv 8, S 2048, dh 64), against 0.27 GB of q, k, v and o
+// (0.08 ms at 3.35 TB/s).  fp32 inputs are multiplied in error-compensated split
+// TF32: x = hi + lo with hi = tf32(x) and lo = tf32(x − hi), and each product is
+// hi·hi + hi·lo + lo·hi with fp32 accumulation, which keeps about fp32's accuracy
+// (plain TF32 keeps ~3 digits, too few for the fp32 tolerance of 2e-5 + 2e-3·|o|).
+// That is 3 × 1.375e11 operations: 0.833 ms at 495 TFLOP/s dense TF32.  bf16
+// inputs take one bf16 product: 0.139 ms at 989 TFLOP/s.  The fp32 CUDA cores
+// (67 TFLOP/s) could not go below 2.05 ms.
 //
-// What the design does about it, simple and right first: one block of 256 threads
-// per (b·Hq, 64-row query tile); the query tile and each 64-key K/V tile are staged
-// in shared memory as fp32, and each thread owns a 4 × 4 patch of the score tile
-// and a 4 × dh/16 patch of the output, so every shared-memory load feeds two FMAs.
-// The running (m, l, acc) of a row stay in the registers of the 16 threads that
-// own it; the row max and sum go across those 16 lanes by shuffles; the
-// probabilities go through shared memory to the P·V product.  GQA maps head h to
-// KV head h / g instead of copying K and V g times, key tiles wholly outside the
-// causal or window band are skipped (the TPU kernel computes and masks them: the
-// result is the same), and the ragged ends of Sq and Sk are masked.  The longest
-// causal rows are scheduled first.  Left for later: wgmma on the tensor cores
-// (which needs a bf16 or TF32 decision), TMA loads and a pipelined K/V ring.
+// What the design does about it: one block of two warpgroups per (b·Hq, 128-row
+// query tile), each warpgroup owning 64 rows.  Thread 0 keeps the K/V tiles of
+// the next key blocks in flight with 1-D bulk async copies (a K or V tile of
+// one KV head is one contiguous run of rows) into a ring of raw stages, completed
+// on mbarriers.  The block splits each arrived tile once into the wgmma operand
+// layout (hopper.cuh): K as it is (K-major for S = Q·Kᵀ), V transposed (TF32
+// wgmma takes only K-major B, so the keys of each dh column must be contiguous),
+// each as hi and lo, missing rows of a ragged last tile as zeros (stale shared
+// memory could hold NaN, and 0 · NaN is NaN).  Each warpgroup then runs
+//   S  = Q_lo·K_hiᵀ + Q_hi·K_loᵀ + Q_hi·K_hiᵀ        (wgmma m64n(BK)k8 chains)
+//   online softmax in registers (quad shuffles, ex2 with the scale in log2 e)
+//   O += P_lo·V_hi + P_hi·V_lo + P_hi·V_hi           (wgmma m64n(dh)k8, P from registers)
+// At fp32 and dh ≤ 64 (the LM's path) Q is split once and its hi and lo A
+// fragments stay in registers, and the operands have two buffers: the block
+// splits tile t + 1 into one while the tensor cores run tile t's S from the
+// other, so the split (CUDA cores, shared memory) hides behind the products.
+// fp32 at dh 128 (whose Q fragments would take 128 registers a thread) and bf16
+// read Q from shared memory and use one buffer; fp32 at dh 128 also takes
+// 32-key tiles and one raw stage to fit in 227 KB.  P never leaves the
+// registers: the S accumulator gives a thread keys 2t, 2t+1 of each 8-key group
+// where the TF32 A fragment wants keys t, t+4, so the V split stores each 8-key
+// group in the order 0 2 4 6 1 3 5 7 and the product is unchanged.  (bf16 needs
+// no reordering: its k16 fragment matches the accumulator.)  Nothing branches
+// between a wgmma's issue and its wait, so ptxas keeps the wgmma pipelined.  Key
+// tiles outside a warpgroup's causal or window band are skipped, masks are
+// applied (by select) only on tiles that cross the band or the end of Sk, the
+// longest causal rows are scheduled first, and GQA reads KV head h / g in place.
+// Every output element has one owner: no atomics, the same bits on every run.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <type_traits>
 
 #include "error.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per shared-memory tile
-constexpr int kThreads = 256;  // 16 × 16: thread (ty, tx) owns rows 4·ty … 4·ty + 3
-constexpr int kLDP = kBK + 1;  // row stride of the probability tile
+using hopper::Mma;
+using hopper::Op;
+using hopper::Src;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+constexpr int kBQ = 128;      // query rows per block
+constexpr int kWG = 64;       // query rows per warpgroup
+constexpr int kThreads = 256;  // two warpgroups
 
-template <int DH>
-constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(float)) * ((kBQ + 2 * kBK) * (DH + 1) + kBQ * kLDP);
+template <typename T, int DH>
+struct Cfg {
+  static constexpr bool kSplit = std::is_same<T, float>::value;  // fp32: hi + lo
+  static constexpr Op kOp = kSplit ? Op::kTf32 : Op::kBf16;
+  static constexpr int kParts = kSplit ? 2 : 1;
+  static constexpr int kE = static_cast<int>(sizeof(T));  // operand bytes: tf32 4, bf16 2
+  static constexpr int kEPC = 16 / kE;                    // elements per 16-byte chunk
+  static constexpr int kCPR = DH / kEPC;                  // chunks per row of q or k
+  static constexpr int kKStep = 32 / kE;                  // k of one wgmma
+  // fp32 up to dh 64 keeps Q's hi and lo A fragments in registers and splits
+  // tile t + 1 into a second operand buffer while tile t computes.  fp32 at
+  // dh 128 (whose fragments would take 128 registers a thread) and bf16 read Q
+  // from shared memory and use one operand buffer; fp32 at dh 128 also shrinks
+  // the tiles to 32 keys and one raw stage to fit in 227 KB.
+  static constexpr bool kQRegs = kSplit && DH <= 64;
+  static constexpr int kBK = (kSplit && DH == 128) ? 32 : 64;
+  static constexpr int kStages = (kSplit && DH == 128) ? 1 : 2;
+  static constexpr int kBufs = kQRegs ? 2 : 1;  // two: tile t + 1 is split while t computes
+  static constexpr int kQBytes = kBQ * DH * kE;    // one part of the Q operand
+  static constexpr int kKBytes = kBK * DH * kE;    // one part of the K (or Vᵀ) operand
+  static constexpr int kBufBytes = kParts * 2 * kKBytes;  // K and Vᵀ, all parts
+  static constexpr int kRawBytes = kBK * DH * kE;  // one raw K (or V) tile
+  // with fragments in registers, Q is split into the second operand buffer
+  static constexpr int kQRegion = kQRegs ? 0 : kParts * kQBytes;
+  static constexpr int kSmem =
+      kQRegion + kBufs * kBufBytes + kStages * 2 * kRawBytes + 8 * kStages;
+  static_assert(!kQRegs || kParts * kQBytes <= kBufBytes, "Q must fit in an operand buffer");
+};
+
+// One 16-byte chunk of raw values → the operand part(s) at byte `off`.
+template <typename T>
+__device__ __forceinline__ void put_chunk(unsigned char* hi, unsigned char* lo, int off,
+                                          uint4 x) {
+  if constexpr (std::is_same<T, float>::value) {
+    uint4 h, l;
+    hopper::split_tf32(__uint_as_float(x.x), h.x, l.x);
+    hopper::split_tf32(__uint_as_float(x.y), h.y, l.y);
+    hopper::split_tf32(__uint_as_float(x.z), h.z, l.z);
+    hopper::split_tf32(__uint_as_float(x.w), h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  } else {
+    *reinterpret_cast<uint4*>(hi + off) = x;
+  }
+}
+
+// Rows [0, R) of a row-major [rows, DH] tile → a K-major operand of R rows;
+// rows ≥ nvalid become 0.  Each group of 8 threads takes 8 rows and 8
+// distinct chunks, so neither its reads nor its writes share a bank.  Every
+// thread runs the same unrolled steps: no branch.  kGlobal: the tile is in
+// device memory, where rows ≥ nvalid may not be read; in shared memory they
+// are read and dropped.
+template <typename T, int DH, int R, bool kGlobal>
+__device__ __forceinline__ void split_rows(const T* raw, unsigned char* hi, unsigned char* lo,
+                                           int nvalid) {
+  using C = Cfg<T, DH>;
+  constexpr int CPR = C::kCPR, N = R * CPR;
+#pragma unroll
+  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
+    const int q = it * kThreads + static_cast<int>(threadIdx.x);
+    if (N % kThreads != 0 && q >= N) break;
+    const int i = q & 7, j = q >> 3;
+    const int r = (j % (R / 8)) * 8 + i, c = (j / (R / 8) + i) % CPR;
+    const uint4* src = reinterpret_cast<const uint4*>(raw + r * DH + c * C::kEPC);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (kGlobal) {
+      if (r < nvalid) x = *src;
+    } else {
+      const uint4 y = *src;
+      x = r < nvalid ? y : x;
+    }
+    put_chunk<T>(hi, lo, hopper::chunk_offset(R, r, c), x);
+  }
+}
+
+// Key of element e in chunk kc of the Vᵀ operand.  TF32: each 8-key group is
+// stored as keys 0 2 4 6 | 1 3 5 7, the order in which a thread's S
+// accumulator values sit in the A fragment of P; bf16: in order.
+template <typename T>
+__device__ __forceinline__ int vt_key(int kc, int e) {
+  if constexpr (std::is_same<T, float>::value) return 8 * (kc >> 1) + 2 * e + (kc & 1);
+  return 8 * kc + e;
+}
+
+// The raw [BK, DH] V tile in shared memory → the Vᵀ operand (DH rows, BK keys
+// along K); keys ≥ nvalid become 0.  Branch-free like split_rows.
+template <typename T, int DH>
+__device__ __forceinline__ void split_vt(const T* raw, unsigned char* hi, unsigned char* lo,
+                                         int nvalid) {
+  using C = Cfg<T, DH>;
+  constexpr int NKC = C::kBK / C::kEPC, N = DH * NKC;  // key chunks, units
+  using Bits = typename std::conditional<C::kSplit, uint32_t, uint16_t>::type;
+  const Bits* bits = reinterpret_cast<const Bits*>(raw);
+#pragma unroll
+  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
+    const int q = it * kThreads + static_cast<int>(threadIdx.x);
+    if (N % kThreads != 0 && q >= N) break;
+    const int d = q % DH, kc = q / DH;
+    union {
+      uint4 u;
+      Bits v[C::kEPC];
+    } x;
+#pragma unroll
+    for (int e = 0; e < C::kEPC; ++e) {
+      const int key = vt_key<T>(kc, e);
+      const Bits y = bits[key * DH + d];
+      x.v[e] = key < nvalid ? y : Bits(0);
+    }
+    put_chunk<T>(hi, lo, hopper::chunk_offset(DH, d, kc), x.u);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int hq, int g,
-                       long long sq, long long sk, float scale, int causal,
+                       long long sq, long long sk, float scale_log2, int causal,
                        long long window, long long q_offset) {
-  constexpr int LD = DH + 1;   // odd stride: the 16 keys a half-warp reads sit in 16 banks
-  constexpr int NC = DH / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kBQ * LD;
-  float* vs = ks + kBK * LD;
-  float* ps = vs + kBK * LD;
+  using C = Cfg<T, DH>;
+  constexpr int BK = C::kBK, NS = BK / 2, NO = DH / 2;
+  constexpr int QK_STEPS = DH / C::kKStep, PV_STEPS = BK / C::kKStep;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* bufs = smem + C::kQRegion;  // [buffer][K parts, Vᵀ parts]
+  unsigned char* raw = bufs + C::kBufs * C::kBufBytes;  // [stage][K tile, V tile]
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + C::kStages * 2 * C::kRawBytes);
+  unsigned char* qs = C::kQRegs ? bufs + (C::kBufs - 1) * C::kBufBytes : smem;  // [part][Q]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const long long bh = blockIdx.x;
   const long long b = bh / hq;
   const long long kvh = b * (hq / g) + (bh % hq) / g;
   const long long q0 = (static_cast<long long>(gridDim.y) - 1 - blockIdx.y) * kBQ;
-  const T* qp = q + bh * sq * DH;
+  const T* qp = q + (bh * sq + q0) * DH;
   const T* kp = k + kvh * sk * DH;
   const T* vp = v + kvh * sk * DH;
 
-  for (int i = tid; i < kBQ * DH; i += kThreads) {
-    const int r = i / DH, c = i % DH;
-    qs[r * LD + c] = q0 + r < sq ? to_float(qp[(q0 + r) * DH + c]) : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[i][n] = 0.0f;
-  }
-
-  // the keys that some row of this tile may see: [k_lo, k_hi)
-  const long long qa_lo = q0 + q_offset;
-  const long long qa_hi = min(q0 + kBQ, sq) - 1 + q_offset;
+  // the key tiles that some row of the block may see: [t0, t0 + BK · n_tiles)
   long long k_lo = 0, k_hi = sk;
-  if (causal) k_hi = min(k_hi, qa_hi + 1);
-  if (window > 0) k_lo = max(k_lo, qa_lo - window + 1);
+  if (causal) k_hi = min(k_hi, min(q0 + kBQ, sq) - 1 + q_offset + 1);
+  if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
+  const long long t0 = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > t0 ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
 
-  for (long long k0 = (k_lo / kBK) * kBK; k0 < k_hi; k0 += kBK) {
-    __syncthreads();  // qs is stored; the last tile's reads of ks, vs and ps are done
-    for (int i = tid; i < kBK * DH; i += kThreads) {
-      const int r = i / DH, c = i % DH;
-      const bool in = k0 + r < sk;
-      ks[r * LD + c] = in ? to_float(kp[(k0 + r) * DH + c]) : 0.0f;
-      vs[r * LD + c] = in ? to_float(vp[(k0 + r) * DH + c]) : 0.0f;
-    }
-    __syncthreads();
+  auto issue = [&](int t, int stage) {  // thread 0: bulk-copy tile t into a raw stage
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const uint32_t bytes = static_cast<uint32_t>(min(static_cast<long long>(BK), sk - k0)) *
+                           DH * C::kE;
+    unsigned char* dst = raw + stage * 2 * C::kRawBytes;
+    hopper::mbar_expect_tx(&full[stage], 2 * bytes);
+    hopper::bulk_load(dst, kp + k0 * DH, bytes, &full[stage]);
+    hopper::bulk_load(dst + C::kRawBytes, vp + k0 * DH, bytes, &full[stage]);
+  };
+  auto arrived = [&](int t) {  // all threads: wait until tile t is in its raw stage
+    hopper::mbar_wait(&full[t % C::kStages], (t / C::kStages) & 1);
+  };
+  auto split_tile = [&](int t, unsigned char* buf) {  // all threads, once tile t has arrived
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const int nvalid = static_cast<int>(min(static_cast<long long>(BK), sk - k0));
+    const T* rk = reinterpret_cast<const T*>(raw + (t % C::kStages) * 2 * C::kRawBytes);
+    unsigned char* vt = buf + C::kParts * C::kKBytes;
+    split_rows<T, DH, BK, false>(rk, buf, buf + C::kKBytes, nvalid);
+    split_vt<T, DH>(rk + BK * DH, vt, vt + C::kKBytes, nvalid);
+  };
 
-    // scores of rows 4·ty + i against keys k0 + tx + 16·j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < min(C::kStages, n_tiles); ++t) issue(t, t);
+  split_rows<T, DH, kBQ, true>(qp, qs, qs + C::kQBytes,
+                               static_cast<int>(min(static_cast<long long>(kBQ), sq - q0)));
+  if (n_tiles > 0) {
+    arrived(0);
+    split_tile(0, bufs);
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+  if (tid == 0 && C::kStages < n_tiles) {
+    hopper::fence_proxy_async();
+    issue(C::kStages, 0);
+  }
 
-    // online softmax: each row's 64 scores lie in the 16 lanes of one half-warp
+  // this warpgroup's rows and the absolute positions of its first and last
+  const long long wq0 = q0 + wg * kWG;
+  const bool rows = wq0 < sq;
+  const long long qa_lo = wq0 + q_offset, qa_hi = min(wq0 + kWG, sq) - 1 + q_offset;
+  // this thread's two rows of the accumulators: r0 and r0 + 8 of the warpgroup's 64
+  const int r0 = warp * 16 + (lane >> 2), tig = lane & 3;
+
+  // Q's hi and lo A fragments where they stay in registers (k step i: row r0,
+  // column 8i + tig; r0 + 8; r0, 8i + tig + 4; r0 + 8), else Q's descriptors
+  uint32_t qf_hi[4 * QK_STEPS], qf_lo[4 * QK_STEPS];
+  if constexpr (C::kQRegs) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long qpos = q0 + 4 * ty + i + q_offset;
-      float mx = -INFINITY;
+    for (int i = 0; i < QK_STEPS; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const long long kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
-                        (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+        const int off =
+            hopper::chunk_offset(kBQ, wg * kWG + r0 + 8 * (j & 1), 2 * i + (j >> 1)) + 4 * tig;
+        qf_hi[4 * i + j] = *reinterpret_cast<const uint32_t*>(qs + off);
+        qf_lo[4 * i + j] = *reinterpret_cast<const uint32_t*>(qs + C::kQBytes + off);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // nothing seen yet: p = 0
-      const float alpha = expf(m[i] - m_use);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        ps[(4 * ty + i) * kLDP + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int n = 0; n < NC; ++n) acc[i][n] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
+    __syncthreads();  // Q's region is the second operand buffer: read before reuse
+  }
+  const uint64_t dq_hi = hopper::make_desc(qs + wg * (kWG / 8) * 128, kBQ * 16, 128);
+  const uint64_t dq_lo = dq_hi + (C::kQBytes >> 4);
 
-    // acc[rows 4·ty + i, columns tx + 16·n] += P · V
-#pragma unroll 8
-    for (int j = 0; j < kBK; ++j) {
-      float pv[4];
+  float acc[NO], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * kLDP + j];
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    unsigned char* buf = bufs + (t % C::kBufs) * C::kBufBytes;
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    // does some row of this warpgroup see a key of this tile?
+    const bool active = rows && !(causal && k0 > qa_hi) &&
+                        !(window > 0 && k0 + BK - 1 <= qa_lo - window);
+    const uint64_t dk_hi = hopper::make_desc(buf, BK * 16, 128);
+    const uint64_t dk_lo = dk_hi + (C::kKBytes >> 4);
+    const uint64_t dv_hi = hopper::make_desc(buf + C::kParts * C::kKBytes, DH * 16, 128);
+    const uint64_t dv_lo = dv_hi + (C::kKBytes >> 4);
+
+    // tile t + 1 is split while the tensor cores work on tile t: wait for it first,
+    // so that nothing between the wgmma issue and its wait branches
+    const bool ahead = C::kBufs == 2 && t + 1 < n_tiles;
+    if (ahead) arrived(t + 1);
+
+    // S = Q · Kᵀ, issued asynchronously
+    unsigned char* next = bufs + ((t + 1) % C::kBufs) * C::kBufBytes;
+    float s[NS];
+    if (!active) {
+      if (ahead) split_tile(t + 1, next);
+    } else {
+      hopper::wgmma_fence();
+      if constexpr (C::kQRegs) {
 #pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const float vv = vs[j * LD + tx + 16 * n];
+        for (int i = 0; i < QK_STEPS; ++i)
+          Mma<C::kOp, Src::kRS, BK>::run(s, qf_lo + 4 * i, dk_hi + i * (2 * BK), i > 0);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][n] = fmaf(pv[i], vv, acc[i][n]);
+        for (int i = 0; i < QK_STEPS; ++i)
+          Mma<C::kOp, Src::kRS, BK>::run(s, qf_hi + 4 * i, dk_lo + i * (2 * BK), 1);
+#pragma unroll
+        for (int i = 0; i < QK_STEPS; ++i)
+          Mma<C::kOp, Src::kRS, BK>::run(s, qf_hi + 4 * i, dk_hi + i * (2 * BK), 1);
+      } else {
+        if constexpr (C::kSplit) {
+#pragma unroll
+          for (int i = 0; i < QK_STEPS; ++i)
+            Mma<C::kOp, Src::kSS, BK>::run(s, dq_lo + i * (2 * kBQ), dk_hi + i * (2 * BK), i > 0);
+#pragma unroll
+          for (int i = 0; i < QK_STEPS; ++i)
+            Mma<C::kOp, Src::kSS, BK>::run(s, dq_hi + i * (2 * kBQ), dk_lo + i * (2 * BK), 1);
+        }
+#pragma unroll
+        for (int i = 0; i < QK_STEPS; ++i)
+          Mma<C::kOp, Src::kSS, BK>::run(s, dq_hi + i * (2 * kBQ), dk_hi + i * (2 * BK),
+                                         C::kSplit || i > 0);
       }
+      hopper::wgmma_commit();
+      // while the tensor cores work: split the next tile into the other buffer
+      if (ahead) split_tile(t + 1, next);
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+
+      // online softmax; s[4·i + 2·h + e] is row r0 + 8·h, key k0 + 8·i + 2·tig + e
+      const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
+                          (window > 0 && k0 <= qa_hi - window);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long qpos = qa_lo + r0 + 8 * h;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = s[4 * i + 2 * h + e] * scale_log2;
+            if (masked) {
+              const long long kpos = k0 + 8 * i + 2 * tig + e;
+              const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
+                              (window <= 0 || kpos > qpos - window);
+              x = ok ? x : -INFINITY;
+            }
+            s[4 * i + 2 * h + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // nothing seen yet: p = 0
+        const float alpha = hopper::exp2_approx(m[h] - m_use);
+        float sum = 0.0f;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = hopper::exp2_approx(s[4 * i + 2 * h + e] - m_use);
+            s[4 * i + 2 * h + e] = p;
+            sum += p;
+          }
+        l[h] = l[h] * alpha + sum;  // this thread's share; the quad sums it at the end
+        m[h] = m_new;
+#pragma unroll
+        for (int i = 0; i < DH / 8; ++i) {
+          acc[4 * i + 2 * h] *= alpha;
+          acc[4 * i + 2 * h + 1] *= alpha;
+        }
+      }
+
+      // O += P · V with P from registers
+      uint32_t p_hi[4 * PV_STEPS], p_lo[C::kSplit ? 4 * PV_STEPS : 1];
+      if constexpr (C::kSplit) {
+        // k step i covers keys 8i … 8i + 7; the fragment holds (row, key-slot tig)
+        // = key 2·tig, (row + 8, tig), (row, tig + 4) = key 2·tig + 1, (row + 8, tig + 4)
+#pragma unroll
+        for (int i = 0; i < PV_STEPS; ++i) {
+          hopper::split_tf32(s[4 * i + 0], p_hi[4 * i + 0], p_lo[4 * i + 0]);
+          hopper::split_tf32(s[4 * i + 2], p_hi[4 * i + 1], p_lo[4 * i + 1]);
+          hopper::split_tf32(s[4 * i + 1], p_hi[4 * i + 2], p_lo[4 * i + 2]);
+          hopper::split_tf32(s[4 * i + 3], p_hi[4 * i + 3], p_lo[4 * i + 3]);
+        }
+      } else {
+        // k step i covers keys 16i … 16i + 15: pairs (row, 2·tig), (row + 8, 2·tig),
+        // (row, 2·tig + 8), (row + 8, 2·tig + 8)
+#pragma unroll
+        for (int i = 0; i < PV_STEPS; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int src = 8 * i + 4 * (j >> 1) + 2 * (j & 1);
+            __nv_bfloat162 pr = __floats2bfloat162_rn(s[src], s[src + 1]);
+            p_hi[4 * i + j] = *reinterpret_cast<uint32_t*>(&pr);
+          }
+      }
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      if constexpr (C::kSplit) {
+#pragma unroll
+        for (int i = 0; i < PV_STEPS; ++i)
+          Mma<C::kOp, Src::kRS, DH>::run(acc, p_lo + 4 * i, dv_hi + i * (2 * DH), 1);
+#pragma unroll
+        for (int i = 0; i < PV_STEPS; ++i)
+          Mma<C::kOp, Src::kRS, DH>::run(acc, p_hi + 4 * i, dv_lo + i * (2 * DH), 1);
+      }
+#pragma unroll
+      for (int i = 0; i < PV_STEPS; ++i)
+        Mma<C::kOp, Src::kRS, DH>::run(acc, p_hi + 4 * i, dv_hi + i * (2 * DH), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(p_hi);
+      if constexpr (C::kSplit) hopper::fence_regs(p_lo);
+    }
+
+    // one buffer: the next tile is split only once both warpgroups are done
+    if (C::kBufs == 1 && t + 1 < n_tiles) {
+      __syncthreads();
+      arrived(t + 1);
+      split_tile(t + 1, next);
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();  // tile t + 1 is split, tile t's buffer and tile t + 1's raw stage are free
+    if (tid == 0 && t + 1 + C::kStages < n_tiles) {
+      hopper::fence_proxy_async();
+      issue(t + 1 + C::kStages, (t + 1) % C::kStages);
     }
   }
 
+  if (!rows) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = q0 + 4 * ty + i;
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const long long r = wq0 + r0 + 8 * h;
     if (r >= sq) continue;
-    T* out = o + (bh * sq + r) * DH;
+    T* out = o + (bh * sq + r) * DH + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < NC; ++n)
-      store(out + tx + 16 * n, l[i] > 0.0f ? acc[i][n] / l[i] : 0.0f);
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, lt > 0.0f ? acc[4 * i + 2 * h] / lt : 0.0f,
+             lt > 0.0f ? acc[4 * i + 2 * h + 1] / lt : 0.0f);
   }
 }
 
@@ -196,15 +469,15 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, long long b, long long hq,
            long long hkv, long long sq, long long sk, float scale, int causal,
            long long window, long long q_offset, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<DH>();
+  constexpr int smem = Cfg<T, DH>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(b * hq), static_cast<unsigned>((sq + kBQ - 1) / kBQ));
   flash_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk, scale,
-      causal, window, q_offset);
+      static_cast<T*>(o), static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk,
+      scale * 1.4426950408889634f, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -229,7 +502,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, long long b, 
 
 }  // namespace
 
-// window ≤ 0: no window.  The wrapper has checked shapes, types, dh and the grid.
+// window ≤ 0: no window.  The wrapper has checked shapes, types, alignment,
+// dh and the grid.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                    long long b, long long hq, long long hkv, long long sq,
                                    long long sk, long long dh, float scale, int causal,

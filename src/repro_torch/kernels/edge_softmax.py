@@ -5,8 +5,9 @@
 The port's counterpart of the Pallas TPU kernel
 ``repro.kernels.edge_softmax.edge_softmax_normalize``.  The TPU kernel gathers
 each edge's destination sum as a transposed one-hot matmul over block-CSR
-tiles; the CUDA kernel does an indexed load per element and keeps the
-caller's edge order.  Kernel source and its note on what bounds it:
+tiles; the CUDA kernel does one indexed load of the sums per edge (one
+thread per edge, vector accesses for H in 1, 2, 4, 8) and keeps the caller's
+edge order.  Kernel source and its note on what bounds it:
 ``repro_torch/csrc/edge_softmax.cu``.  Phase 1 (``sums``) is
 ``segment_spmm``; :func:`repro_torch.kernels.ops.edge_softmax` composes the
 two.  No main path of the port calls it.

@@ -11,14 +11,17 @@ The port's counterpart of the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention``.  The TPU kernel needs Sq
 and Sk divisible by its tiles and KV heads repeated g times by its wrapper;
 the CUDA kernel masks the ragged ends and reads KV head ``h // g`` in place.
-Kernel source and its note on what bounds it:
+It runs on the tensor cores (``wgmma``): fp32 inputs in error-compensated
+split TF32 (three TF32 products per product, about fp32's accuracy), bf16
+inputs in one bf16 product, both with fp32 accumulation.  Kernel source and
+its note on what bounds it:
 ``repro_torch/csrc/flash_attention.cu``.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
 :func:`flash_attention` dispatches on the device of q: CPU tensors go to the
-plain version, CUDA tensors to the kernel (fp32 or bf16, contiguous, dh in
-:data:`HEAD_DIMS`), anything else raises.  It never falls back from the card
-to the plain version.
+plain version, CUDA tensors to the kernel (fp32 or bf16, contiguous,
+16-byte aligned, dh in :data:`HEAD_DIMS`), anything else raises.  It never
+falls back from the card to the plain version.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ KERNEL = CudaKernel("flash_attention", {"flash_attention_f32": ARGTYPES,
                                         "flash_attention_bf16": ARGTYPES})
 HEAD_DIMS = (16, 32, 64, 128)
 _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
-_BQ = 64  # query rows per block; the grid's second dimension holds Sq / 64 ≤ 65535
+_BQ = 128  # query rows per block; the grid's second dimension holds Sq / 128 ≤ 65535
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
@@ -87,6 +90,8 @@ def _check_cuda(q, k, v) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on 16-byte boundaries (the kernel's bulk copies)")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
     if -(-q.shape[2] // _BQ) > 65535:

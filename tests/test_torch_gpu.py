@@ -152,6 +152,7 @@ def _attn_inputs(b, hq, hkv, sq, sk, dh, dtype, seed=0):
         (1, 2, 2, 100, 77, False, None, 0),  # not causal, Sq ≠ Sk
         (2, 4, 2, 5, 300, True, None, 295),  # a few rows at the end of a cache
         (1, 2, 1, 70, 70, True, 16, -20),  # rows that see no key give 0
+        (1, 2, 1, 2049, 2049, True, None, 0),  # one row past 16 query tiles of 128
     ],
 )
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, causal, window,
@@ -167,6 +168,22 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, causal, 
                                                  q_offset=q_offset))  # bitwise repeat
 
 
+_EDGES = (63, 64, 65, 127, 128, 129)  # around the 64-key tiles and 128-row query tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
+@pytest.mark.parametrize("sq,sk,causal",
+                         [(n, n, True) for n in _EDGES]
+                         + [(a, b_, False) for a, b_ in zip(_EDGES, reversed(_EDGES))])
+def test_flash_attention_kernel_matches_plain_at_tile_edges(cuda, sq, sk, causal, dh, dtype):
+    q, k, v = _attn_inputs(1, 4, 2, sq, sk, dh, dtype, seed=sq * 1000 + sk)
+    out = fmod.flash_attention(q, k, v, causal=causal)
+    ref = kref.flash_attention_ref(q, k, v, causal=causal)
+    tol = dict(atol=3e-2, rtol=3e-2) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=2e-3)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _attn_inputs(1, 4, 2, 64, 64, 48, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
@@ -176,12 +193,16 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fmod.flash_attention(q, k.half(), v)
     with pytest.raises(ValueError, match="contiguous"):
         fmod.flash_attention(q.transpose(2, 3), k, v)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view_as(q)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        fmod.flash_attention(shifted, k, v)
 
 
+@pytest.mark.parametrize("h", [1, 2, 3, 4, 8])  # vector widths and the generic loop
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
-def test_edge_softmax_kernel_matches_plain_and_op_matches_reference(cuda, idx_dtype):
-    rng = np.random.default_rng(5)
-    e, h, r = 20000, 4, 3000
+def test_edge_softmax_kernel_matches_plain_and_op_matches_reference(cuda, idx_dtype, h):
+    rng = np.random.default_rng(5 + h)
+    e, r = 20011, 3000  # E not a multiple of the edges a block or a thread takes
     dst = np.sort(rng.integers(0, r, e))
     dst[rng.random(e) < 0.05] = -1
     scores = torch.from_numpy(np.exp(rng.uniform(size=(e, h))).astype(np.float32)).cuda()

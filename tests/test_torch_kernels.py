@@ -247,3 +247,74 @@ def test_attention_wrappers_reject_what_no_path_takes():
     with pytest.raises(ValueError, match="expected scores"):
         edge_softmax_normalize(torch.ones(6, 2), torch.zeros(5, dtype=torch.int64),
                                torch.ones(3, 2))
+
+
+# ---------------------------------------------------------------------- #
+# the CUDA flash kernel's precision: split TF32 on the tensor cores
+# ---------------------------------------------------------------------- #
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, the low 13 mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)  # & 0xFFFFE000
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel's wgmma chains form it: x = hi + lo with hi =
+    tf32(x), lo = tf32(x - hi); lo·hi + hi·lo first, then hi·hi, fp32 sums."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _tensor_core_attention(q, k, v, causal, window, mm):
+    """The kernel's arithmetic on the CPU: S = mm(Q, Kᵀ)·scale, masked,
+    P = exp(S - rowmax) unnormalised, O = mm(P, V) / rowsum(P)."""
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    sq, sk = q.shape[2], k.shape[2]
+    s = mm(q, k.transpose(2, 3)) / np.sqrt(q.shape[3])
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    ok = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    s = s.masked_fill(~ok, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return mm(p, v) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,dh,causal,window",
+    [
+        (2, 4, 2, 256, 64, True, None),  # the reference's flash sweep (tests/test_kernels.py)
+        (1, 2, 2, 128, 32, False, None),
+        (2, 4, 1, 256, 64, True, 64),
+        (1, 8, 4, 512, 128, True, None),
+        (1, 4, 1, 512, 64, True, None),  # the LM's head dim and GQA at a longer row
+    ],
+)
+def test_split_tf32_attention_holds_the_fp32_tolerance(b, hq, hkv, s, dh, causal, window):
+    """The CUDA kernel multiplies fp32 inputs as three TF32 products
+    (hi·hi + hi·lo + lo·hi).  Emulated on the CPU bit for bit in its
+    operands, that arithmetic holds the fp32 tolerance against the
+    reference's ``flash_attention_ref``; plain TF32 (hi·hi alone) does not."""
+    arrs = _qkv(s + dh + 1, b, hq, hkv, s, s, dh)
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    ref = np.asarray(jref.flash_attention_ref(*(jnp.asarray(a) for a in arrs), causal=causal,
+                                              window=window))
+    out = _tensor_core_attention(q, k, v, causal, window, _split_mm).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-3)
+    plain = _tensor_core_attention(q, k, v, causal, window,
+                                   lambda a, b_: _tf32(a) @ _tf32(b_)).numpy()
+    assert not np.allclose(plain, ref, atol=2e-5, rtol=2e-3)
+
+
+def test_tf32_rounding_matches_cvt_rna():
+    """Ties round away from zero; the low 13 bits of the result are 0."""
+    one = 1.0 + 2.0 ** -11  # exactly half a TF32 step above 1
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 3.0], dtype=torch.float32)
+    out = _tf32(x)
+    assert out.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0]
+    assert torch.all(out.view(torch.int32) & 0x1FFF == 0)
