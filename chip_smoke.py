@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # full size: n = 1,000,000 vertices, ~10M edges
     python3 chip_smoke.py --n 20000  # a quick rehearsal at a smaller graph (the LM stays full)
+    python3 chip_smoke.py --n 20000 --serve-n 20000  # the serving phases smaller too
 
 Phases, one JSON line each:
 
@@ -44,7 +45,41 @@ Phases, one JSON line each:
              same function (``index_add_``; ``scaled_dot_product_attention``)
              and its bound.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
+The serving layer of the GNN engine runs on its own
+``make_graph("uniform", 100_000, avg_degree=10, weighted=True)`` graph
+(≈ 1M edges, features and dims 128, 2 layers; ``--serve-n`` changes n),
+with launch counts zeroed before and read after each phase:
+
+7. policy — the three ``ADVERSARIAL_REGIMES`` at the reference's size (n =
+             256, 6 batches, one layer; features 128): decision counts and
+             ``policy_edges`` equal to ``BENCH_baseline.json``'s; then on the
+             100k graph, gcn, 6 batches of 1000 edge updates:
+             ``policy="adaptive"``, the forced replay of its decisions
+             (bitwise equal), and a forced incremental/chunked/full schedule
+             (the chunked and full modes at full size, with the chunked
+             mode's layer-to-host copy timed), each within 2e-4 of
+             ``full_forward``;
+8. fusion_frontend — the reference's ring-lattice fusion cell at n =
+             100,000: 12 single-edge batches 45 rows apart under
+             ``FusionConfig(window=4)``: exactly 3 windows, 12 fused batches,
+             3 dispatches; the same state as the serial loop (every a and
+             nct bitwise, h within 1e-6: ``TOL_FUSED_CARD`` says why); then a
+             ``ServingFrontend`` on the reference's 6-batch read schedule:
+             10 reads, 8 batches of staleness, every read bitwise equal to
+             the snapshot at its pinned version;
+9. storage — ``store_h=False`` (paper §V-B) against ``store_h=True`` on the
+             same stream: within 2e-4 of each other and of
+             ``full_forward``; the ``state_bytes()`` ratio;
+10. baselines_odec — gcn and gat over 3 batches of 100 edge updates:
+             ``RTECFull`` and ``RTECUER`` within 2e-4 of ``full_forward``,
+             ``RTECSample(fanout=10)`` finite, ``MTECPeriod(period=3)`` stale
+             then fresh, edges processed Inc < UER ≤ Full, per-batch times
+             beside the engine's; ``odec_query`` for 64 vertices within 1e-5
+             of the committed engine with the engine's state unchanged;
+             ``validate_registration`` over all 11 models.
+
+Then a ``{"kernels": [...]}`` line (launches summed over every path that
+launched each kernel), the ``nvidia-smi`` name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero.  It imports neither ``jax`` nor the
 JAX package ``repro``.  Full ``nvcc`` logs go to ``build/repro_torch/logs/``.
@@ -74,6 +109,21 @@ TOL_ATTN = (2e-5, 2e-3)  # flash vs plain (atol, rtol): the reference's tests/te
 TOL_ATTN_BF16 = (3e-2, 3e-2)  # the same in bf16
 TOL_SUMS = 1e-4  # edge-softmax sums: the reference's tests/test_kernels.py
 TOL_TEACHER = 2e-2  # teacher-forced logits: the reference's tests/test_archs_smoke.py
+TOL_ODEC = 1e-5  # ODEC vs the committed engine: the reference's tests/test_baselines.py
+TOL_STALE = 1e-6  # MTEC between refreshes vs its initial state: tests/test_baselines.py
+# fused window vs serial loop on the card.  Bitwise on the CPU (the tests hold
+# it with torch.equal); on the card the update's fp32 matmul (``a @ W`` in
+# ``model.update``) runs on more rows in a fused window, and cuBLAS picks
+# another kernel for another row count (rows 0..15 of A @ W differ between
+# M = 16 and M >= 32 by up to 1.4e-6 on an H100), so h^L differs in the last
+# bits.  Every aggregation state (a, nct) stays bitwise; the phase prints which
+# tensors are equal.
+TOL_FUSED_CARD = 1e-6
+#: per-regime adaptive decisions (incremental, chunked, full) and policy_edges,
+#: the rows ``adversarial/<regime>/policy_*`` of BENCH_baseline.json
+ADVERSARIAL_EXPECTED = {"hub_burst": (4, 0, 2, 3168), "delete_heavy": (3, 0, 3, 1608),
+                        "feature_churn": (3, 3, 0, 4524)}
+FORCED_SCHEDULE = ("incremental", "chunked", "full", "incremental", "chunked", "full")
 WIDTH = 128  # the lane width both TPU kernels were tiled for (BD = 128)
 GAT_HEADS = 2
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3.2-1b", 8, 2048, 32
@@ -367,6 +417,362 @@ def phase_edge_softmax_op(graph, gen, kernels: dict) -> dict:
     return row
 
 
+def _zero_counts(kernels: dict) -> None:
+    import torch
+
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+
+
+def _counts(kernels: dict) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def _require_launched(row: dict, names) -> None:
+    for name in names:
+        if row["launches"][name] <= 0:
+            raise AssertionError(f"{row['phase']}: {name} was not launched")
+
+
+def _layer_params(model, seed: int):
+    """dims [128, 128, 128] from a seeded CPU generator, on the card."""
+    import torch
+
+    return model.init_layers(torch.Generator().manual_seed(seed), [WIDTH] * 3, device="cuda")
+
+
+def _err_vs_full_forward(emb, model, params, x_final: np.ndarray, graph) -> float:
+    import torch
+
+    from repro_torch.core import full_forward
+
+    ref = full_forward(model, params, torch.from_numpy(x_final).cuda(), graph)[-1].h
+    return float((emb - ref).abs().max())
+
+
+def _batch_row(b) -> dict:
+    return {"mode": b.mode, "graph_time_s": b.graph_time_s, "plan_time_s": b.plan_time_s,
+            "exec_time_s": b.exec_time_s, "inc_edges": b.inc_edges,
+            "full_edges": b.full_edges, "out_vertices": b.out_vertices}
+
+
+def phase_policy(serve: dict, seed: int, kernels: dict) -> dict:
+    """The execution policy: the adversarial regimes' decision counts, then
+    adaptive, its forced replay and a forced mixed schedule on the serving
+    graph (gcn, ``apply_batch``: each exec time synchronised)."""
+    import torch
+
+    from repro_torch.core import MODES, ExecutionPolicy, make_model
+    from repro_torch.graph import ADVERSARIAL_REGIMES, make_adversarial_stream, random_features
+    from repro_torch.serve import EngineConfig, create_engine
+
+    model = make_model("gcn")
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    regimes = {}
+    for regime in ADVERSARIAL_REGIMES:
+        awl = make_adversarial_stream(regime, n=256, num_batches=6, feature_dim=WIDTH, seed=seed)
+        ax, _ = random_features(awl.base.n, WIDTH, seed=seed)
+        # one layer, as the reference's adversarial cells (dims [8, 8]):
+        # the pinned decisions are for that depth
+        eng = create_engine("device", EngineConfig(
+            model=model, graph=awl.base, x=ax, dims=[WIDTH] * 2, seed=seed, policy="adaptive",
+            device="cuda"))
+        d = eng.apply_stream(awl.batches).as_dict()
+        regimes[regime] = {"decisions": [d[f"policy_{m}_batches"] for m in MODES],
+                           "policy_edges": d["policy_edges"],
+                           "modes": [dec.mode for dec in eng._orch.policy.history]}
+
+    wl, x = serve["wl"], serve["x"]
+    params = _layer_params(model, seed)
+
+    def run(policy):
+        eng = create_engine("device", EngineConfig(model=model, graph=wl.base, x=x, params=params,
+                                                   policy=policy, device="cuda"))
+        return eng, [eng.apply_batch(b) for b in wl.batches]
+
+    adaptive, a_stats = run("adaptive")
+    schedule = tuple(b.mode for b in a_stats)
+    replay, _ = run(ExecutionPolicy(force_mode=schedule))
+    bitwise = bool(torch.equal(adaptive.embeddings, replay.embeddings))
+    x_final = final_features(x, wl)
+    err_adaptive = _err_vs_full_forward(adaptive.embeddings, model, params, x_final,
+                                        adaptive.graph)
+    del replay, adaptive
+    forced, f_stats = run(ExecutionPolicy(force_mode=FORCED_SCHEDULE))
+    err_forced = _err_vs_full_forward(forced.embeddings, model, params, x_final, forced.graph)
+    # the chunked mode's layer-to-host copy (layer_input_host) at this size
+    copy_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = forced._backend.layer_input_host(1)
+        copy_s.append(time.perf_counter() - t0)
+    chunk = forced._orch._chunk_sched.stats
+    row = {"phase": "policy", "seconds": time.perf_counter() - t_phase,
+           "regimes": regimes, "n": wl.base.n, "edges": wl.base.num_edges,
+           "adaptive": [_batch_row(b) for b in a_stats],
+           "replay_bitwise": bitwise, "max_abs_err_adaptive": err_adaptive,
+           "forced": [_batch_row(b) for b in f_stats], "max_abs_err_forced": err_forced,
+           "layer_input_host": {"bytes": host.nbytes, "seconds": copy_s},
+           "chunks": {"chunks": chunk.chunks, "rows_transferred": chunk.rows_transferred,
+                      "rows_reused": chunk.rows_reused,
+                      "edges_processed": chunk.edges_processed},
+           "launches": _counts(kernels)}
+    emit(row)
+    for regime, got in regimes.items():
+        want = ADVERSARIAL_EXPECTED[regime]
+        if tuple(got["decisions"]) + (got["policy_edges"],) != want:
+            raise AssertionError(f"policy {regime}: {got} != {want}")
+    if not bitwise:
+        raise AssertionError("policy: adaptive != forced replay of its decisions")
+    if not (err_adaptive <= TOL_ENGINE and err_forced <= TOL_ENGINE):
+        raise AssertionError(f"policy vs full_forward: {err_adaptive}, {err_forced} > {TOL_ENGINE}")
+    _require_launched(row, ("delta_agg", "segment_spmm"))
+    return row
+
+
+def _ring_stream(n: int, seed: int):
+    """The reference's fusion cell (benchmarks/fig7_response_time.py
+    ``smoke_fusion``) at n rows: a ring lattice (in-edges from i+1, i+2) and
+    12 single-edge batches with one feature update, 45 rows apart."""
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.graph.streaming import UpdateBatch
+
+    idx = np.arange(n, dtype=np.int64)
+    g = CSRGraph.from_edges(n, np.concatenate([(idx + 1) % n, (idx + 2) % n]),
+                            np.concatenate([idx, idx]))
+    rng = np.random.default_rng(seed)
+    batches = []
+    for i in range(12):
+        base = (i * 45) % n
+        batches.append(UpdateBatch(
+            ins_src=np.array([(base + 1) % n], np.int64),
+            ins_dst=np.array([(base + 5) % n], np.int64),
+            del_src=np.array([], np.int64), del_dst=np.array([], np.int64),
+            feat_vertices=np.array([(base + 7) % n], np.int64),
+            feat_values=rng.standard_normal((1, WIDTH)).astype(np.float32)))
+    return g, batches
+
+
+def phase_fusion_frontend(serve: dict, seed: int, kernels: dict) -> dict:
+    """Batch-window fusion on the ring cell (fused ≡ serial, bitwise), then
+    the serving front-end's versioned reads on the serving stream."""
+    import torch
+
+    from repro_torch.core import make_model
+    from repro_torch.graph import random_features
+    from repro_torch.serve import EngineConfig, FusionConfig, create_engine
+
+    model = make_model("gcn")
+    params = _layer_params(model, seed)
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    n = serve["n"]
+    g, batches = _ring_stream(n, seed)
+    rx, _ = random_features(n, WIDTH, seed=seed)
+    runs = {}
+    for fused in (False, True):
+        eng = create_engine("device", EngineConfig(
+            model=model, graph=g, x=rx, params=params, device="cuda",
+            fusion=FusionConfig(window=4) if fused else None))
+        runs[fused] = (eng, eng.apply_stream(batches))
+    (serial, ss_s), (fused_eng, ss_f) = runs[False], runs[True]
+    pairs = {f"{kind}{l}": (u, v) for kind in ("h", "a", "nct")
+             for l, (u, v) in enumerate(zip(getattr(serial, kind), getattr(fused_eng, kind)))}
+    equal = {k: bool(torch.equal(u, v)) for k, (u, v) in pairs.items()}
+    bitwise = all(equal.values())
+    max_diff = max(float((u - v).abs().max()) for u, v in pairs.values())
+    dispatches = len(batches) - (ss_f.fused_batches - ss_f.fusion_windows)
+    fusion = {"n": n, "batches": len(batches), "windows": ss_f.fusion_windows,
+              "fused_batches": ss_f.fused_batches, "fallbacks": ss_f.fusion_fallbacks,
+              "dispatches": dispatches, "bitwise_fused_vs_serial": bitwise,
+              "equal_fused_vs_serial": equal, "max_abs_diff_fused_vs_serial": max_diff,
+              "wall_s_fused": ss_f.wall_s, "wall_s_serial": ss_s.wall_s}
+    del runs, serial, fused_eng, pairs
+
+    wl, x = serve["wl"], serve["x"]
+    eng = create_engine("device", EngineConfig(model=model, graph=wl.base, x=x, params=params,
+                                               device="cuda"))
+    fr = eng.serving_frontend(max_pending_reads=16, max_versions=4)
+    rows = np.arange(0, wl.base.n, 17)
+    snaps = {0: eng.snapshot_rows(rows)}
+    tickets = []
+    for b in wl.batches:  # the reference's smoke_frontend schedule
+        tickets.append(fr.submit_read(rows))
+        if fr.version >= 2:
+            tickets.append(fr.submit_read(rows, version=fr.version - 2))
+        fr.apply_batch(b)
+        snaps[fr.version] = eng.snapshot_rows(rows)
+    fr.drain()
+    st = fr.stats()
+    reads_bitwise = all(np.array_equal(t.value(), snaps[t.version]) for t in tickets)
+    row = {"phase": "fusion_frontend", "seconds": time.perf_counter() - t_phase,
+           "fusion": fusion,
+           "frontend": {"rows_per_read": int(rows.size), "reads_served": st.reads_served,
+                        "staleness_batches": st.staleness_batches,
+                        "reads_rejected": st.reads_rejected, "reads_bitwise": reads_bitwise,
+                        "read_p50_s": st.read_p50_s, "read_p99_s": st.read_p99_s,
+                        "wall_s": st.wall_s,
+                        "exec_time_s": [b.exec_time_s for b in st.batches]},
+           "launches": _counts(kernels)}
+    emit(row)
+    if (fusion["windows"], fusion["fused_batches"], dispatches, fusion["fallbacks"]) != (3, 12, 3, 0):
+        raise AssertionError(f"fusion counters: {fusion}")
+    agg_equal = all(v for k, v in equal.items() if not k.startswith("h"))
+    if not (bitwise or (agg_equal and max_diff <= TOL_FUSED_CARD)):
+        raise AssertionError(f"fused != serial: {equal}, max|Δ| {max_diff}")
+    if (st.reads_served, st.staleness_batches) != (10, 8) or not reads_bitwise:
+        raise AssertionError(f"frontend: {row['frontend']}")
+    _require_launched(row, ("delta_agg",))
+    return row
+
+
+def phase_storage(serve: dict, seed: int, kernels: dict) -> dict:
+    """§V-B recompute storage: ``store_h=False`` against ``store_h=True``."""
+    from repro_torch.core import make_model
+    from repro_torch.serve import EngineConfig, create_engine
+
+    model = make_model("gcn")
+    params = _layer_params(model, seed)
+    wl, x = serve["wl"], serve["x"]
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    out = {}
+    for store_h in (True, False):
+        eng = create_engine("device", EngineConfig(model=model, graph=wl.base, x=x, params=params,
+                                                   store_h=store_h, device="cuda"))
+        ss = eng.apply_stream(wl.batches)
+        out[store_h] = {"emb": eng.embeddings.clone(), "state_bytes": eng.state_bytes(),
+                        "wall_s": ss.wall_s, "graph": eng.graph}
+    launches = _counts(kernels)
+    err = float((out[True]["emb"] - out[False]["emb"]).abs().max())
+    x_final = final_features(x, wl)
+    err_full = max(_err_vs_full_forward(out[k]["emb"], model, params, x_final, out[k]["graph"])
+                   for k in (True, False))
+    row = {"phase": "storage", "seconds": time.perf_counter() - t_phase,
+           "state_bytes": {"store_h": out[True]["state_bytes"],
+                           "recompute_h": out[False]["state_bytes"]},
+           "state_bytes_ratio": out[False]["state_bytes"] / out[True]["state_bytes"],
+           "wall_s": {"store_h": out[True]["wall_s"], "recompute_h": out[False]["wall_s"]},
+           "max_abs_diff_store_vs_recompute": err, "max_abs_err_vs_full_forward": err_full,
+           "launches": launches}
+    emit(row)
+    if not (err <= TOL_ENGINE and err_full <= TOL_ENGINE):
+        raise AssertionError(f"storage: {err}, {err_full} > {TOL_ENGINE}")
+    _require_launched(row, ("delta_agg", "segment_spmm"))
+    return row
+
+
+def _state_tensors(eng) -> list:
+    return [v for v in (*eng.h, *eng.a, *eng.nct) if v is not None]
+
+
+def phase_baselines_odec(serve: dict, seed: int, kernels: dict) -> dict:
+    """The fig7 baselines beside the engine, ODEC, and the Theorem-1 gate."""
+    import torch
+
+    from repro_torch.core import (
+        ALL_MODELS,
+        RTECUER,
+        MTECPeriod,
+        RTECFull,
+        RTECSample,
+        make_model,
+        odec_query,
+        validate_registration,
+    )
+    from repro_torch.serve import EngineConfig, create_engine
+
+    wl, x = serve["wl_small"], serve["x"]
+    xt = torch.from_numpy(x).cuda()
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    models = {}
+    for name in ("gcn", "gat"):
+        model = make_model(name)
+        params = _layer_params(model, seed)
+        eng = create_engine("device", EngineConfig(model=model, graph=wl.base, x=x, params=params,
+                                                   device="cuda"))
+        systems = {"RTECFull": RTECFull(model, params, wl.base, xt),
+                   "RTECUER": RTECUER(model, params, wl.base, xt),
+                   "RTECSample": RTECSample(model, params, wl.base, xt, fanout=10, seed=seed),
+                   "MTECPeriod": MTECPeriod(model, params, wl.base, xt, period=3)}
+        mtec0 = systems["MTECPeriod"].embeddings.clone()
+        per = {k: [] for k in ("engine", *systems)}
+        stale = []
+        for i, b in enumerate(wl.batches):
+            if i == 0:
+                q = np.unique(np.concatenate([b.ins_dst, b.del_dst]))[:64]
+                before = [v.clone() for v in _state_tensors(eng)]
+                emb_q, ost = odec_query(eng, b, q)
+                unchanged = all(bool(torch.equal(u, v)) for u, v in zip(before, _state_tensors(eng)))
+                del before
+            per["engine"].append(eng.apply_batch(b))
+            if i == 0:
+                odec_err = float((emb_q - eng.embeddings[torch.from_numpy(q).cuda()]).abs().max())
+            for k, sysm in systems.items():
+                per[k].append(sysm.apply_batch(b))
+            if i < 2:
+                stale.append(float((systems["MTECPeriod"].embeddings - mtec0).abs().max()))
+        errs = {k: _err_vs_full_forward(systems[k].embeddings, model, params, x, eng.graph)
+                for k in systems}
+        edges = {k: sum(b.edges_processed for b in v) for k, v in per.items()}
+        models[name] = {
+            "exec_time_s": {k: [b.exec_time_s for b in v] for k, v in per.items()},
+            "plan_time_s": {k: [b.plan_time_s for b in v] for k, v in per.items()},
+            "edges_processed": edges, "max_abs_err_vs_full_forward": errs,
+            "sample_finite": bool(torch.isfinite(systems["RTECSample"].embeddings).all()),
+            "mtec_stale_max_abs_diff": stale,
+            "odec": {"query": int(q.size), "max_abs_err_vs_engine": odec_err,
+                     "engine_state_unchanged": unchanged, "exec_time_s": ost.exec_time_s,
+                     "plan_time_s": ost.plan_time_s, "edges_processed": ost.edges_processed}}
+        del eng, systems
+    launches = _counts(kernels)
+    certified = {}
+    for name in ALL_MODELS:
+        rep = validate_registration(make_model(name))  # raises on a contradicted flag
+        certified[name] = {"incrementalizable": rep.incrementalizable,
+                           "dest_independent": rep.dest_independent,
+                           "struct_independent": rep.struct_independent}
+    row = {"phase": "baselines_odec", "seconds": time.perf_counter() - t_phase,
+           "n": wl.base.n, "batches": len(wl.batches),
+           "updates_per_batch": int(wl.batches[0].num_updates), "models": models,
+           "certify": certified, "launches": launches}
+    emit(row)
+    for name, m in models.items():
+        e = m["edges_processed"]
+        errs = m["max_abs_err_vs_full_forward"]
+        if not all(errs[k] <= TOL_ENGINE for k in ("RTECFull", "RTECUER", "MTECPeriod")):
+            raise AssertionError(f"{name} baselines vs full_forward: {errs}")
+        if not m["sample_finite"] or not all(d <= TOL_STALE for d in m["mtec_stale_max_abs_diff"]):
+            raise AssertionError(f"{name}: RTECSample not finite or MTEC not stale: {m}")
+        if not e["engine"] < e["RTECUER"] <= e["RTECFull"]:
+            raise AssertionError(f"{name}: edges processed not Inc < UER <= Full: {e}")
+        if not (m["odec"]["engine_state_unchanged"]
+                and m["odec"]["max_abs_err_vs_engine"] <= TOL_ODEC):
+            raise AssertionError(f"{name} ODEC: {m['odec']}")
+    _require_launched(row, ("delta_agg", "segment_spmm"))
+    return row
+
+
+def serving_data(n: int, seed: int) -> dict:
+    """The serving phases' graph, features and streams."""
+    from repro_torch.graph import make_graph, make_stream, random_features
+
+    t0 = time.perf_counter()
+    graph = make_graph("uniform", n, avg_degree=10, seed=seed, weighted=True)
+    x, _ = random_features(n, WIDTH, seed=seed)
+    wl = make_stream(graph, num_batches=6, batch_edges=1000, delete_frac=0.3,
+                     feature_dim=WIDTH, feature_frac=1e-4, seed=seed + 1)
+    wl_small = make_stream(graph, num_batches=3, batch_edges=100, delete_frac=0.3,
+                           seed=seed + 2)
+    emit({"phase": "serving_data", "n": n, "edges": graph.num_edges,
+          "base_edges": wl.base.num_edges, "setup_s": time.perf_counter() - t0})
+    return {"n": n, "x": x, "wl": wl, "wl_small": wl_small}
+
+
 def _device_split_ms(prof) -> dict:
     """Device milliseconds of a ``torch.profiler`` trace by kernel kind."""
     from torch.autograd import DeviceType
@@ -565,6 +971,8 @@ def kernel_edge_softmax(graph, gen) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="vertices (default 1,000,000)")
+    ap.add_argument("--serve-n", type=int, default=100_000,
+                    help="vertices of the serving phases' graph (default 100,000)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -574,6 +982,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     try:
+        from repro_torch.core.full import next_bucket
         from repro_torch.device import set_fp32_precision
         from repro_torch.graph import make_graph, make_stream, random_features
         from repro_torch.kernels import delta_agg as dmod
@@ -605,13 +1014,19 @@ def main(argv=None) -> int:
     for name, cnt in gnn.items():
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    del graph
+    serve = serving_data(args.serve_n, args.seed)
+    serving_rows = [phase(serve, args.seed, kernels) for phase in (
+        phase_policy, phase_fusion_frontend, phase_storage, phase_baselines_odec)]
+    del serve
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     es = phase_edge_softmax_op(wl.base, gen, kernels)
     lm, cfg, params = phase_lm_serve(args.seed, kernels)
     phase_lm_consistency(cfg, params, args.seed)
     del params
-    launches = {**gnn, "flash_attention": lm["launches"]["flash_attention"],
-                "edge_softmax_normalize": es["launches"]["edge_softmax_normalize"]}
+    # every path's launches: the engine phases, the serving phases, the op, the LM
+    path_rows = engine_rows + serving_rows + [es, lm]
+    launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -619,9 +1034,12 @@ def main(argv=None) -> int:
     # kernels at the shapes their paths used (GNN: largest layer caps over both runs)
     caps = {k: max(row["caps"][k] for row in engine_rows) for k in ("e", "r", "f", "fe")}
     rng = np.random.default_rng(args.seed)
+    chunk = serving_rows[0]["chunks"]  # the policy's chunked mode: a mean chunk's shape
     results = [
         kernel_segment_spmm(wl.base, WIDTH + 1, gen),  # gcn: [ctx (1) | raw (128)]
         kernel_segment_spmm_subset(caps["fe"], caps["f"], WIDTH + 2, gen, rng),  # gat
+        kernel_segment_spmm_subset(next_bucket(chunk["edges_processed"] // chunk["chunks"]),
+                                   8192, WIDTH + 1, gen, rng),  # chunked scheduler, gcn
         kernel_delta_agg(caps["e"], caps["r"], WIDTH + 1, gen, rng),
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),

@@ -8,8 +8,9 @@ TPU block-CSR schedule for the Pallas delta scatter (``TV=8/BE=128/BD=128``
 one-hot tiles shaped for the matrix unit) is replaced by a plain row
 schedule per layer — a stable argsort of the masked ``e_rowidx`` plus
 ``row_ptr[r_cap+1]``, and the same for the ``f_rowidx`` records — shipped in
-its own int32 buffer (:attr:`PackedPlan.sched`).  Sharded, hybrid and
-fusion planning are not ported yet.
+its own int32 buffer (:attr:`PackedPlan.sched`).  Batch-window fusion
+(:class:`FusionWindow`) merges independent plans into one :class:`BatchPlan`
+that packs like any other.  Sharded and hybrid planning are not ported yet.
 
 Per layer, the planner classifies work into:
 
@@ -573,3 +574,233 @@ def build_packed_plan(
     """Alg.-4 planning straight into the packed transfer format."""
     plan = build_plan(model, g_old, g_new, batch, num_layers)
     return pack_plan(plan, batch.feat_vertices, batch.feat_values, hwm=hwm)
+
+
+# ====================================================================== #
+# Batch-window fusion — merge independent batch plans into one plan
+# (DaCe state-fusion idiom: consecutive states with disjoint interstate
+# dependencies collapse into one; here consecutive update batches with
+# disjoint plan footprints collapse into one packed plan / device step)
+# ====================================================================== #
+@dataclasses.dataclass(frozen=True)
+class FusionConfig:
+    """Typed knobs for batch-window fusion (nested in
+    :class:`repro_torch.serve.api.EngineConfig` as ``fusion=``).
+
+    ``window`` is the orchestrator's lookahead depth — up to this many
+    pending batches are planned ahead and the maximal *independent prefix*
+    (pairwise-disjoint :meth:`FusionWindow.footprint` sets) is merged into
+    one plan and dispatched as one device step.  ``window=1`` or
+    ``enabled=False`` keeps the config inert (the serial per-batch loop,
+    byte-identical behavior)."""
+
+    window: int = 4
+    enabled: bool = True
+
+    def __post_init__(self) -> None:
+        if self.window < 1:
+            raise ValueError(f"window must be >= 1, got {self.window}")
+
+
+class FusionWindow:
+    """Value-independent overlap test + plan concatenation for batch fusion.
+
+    Two batches may execute as one device step iff their plan *footprints*
+    are disjoint.  The footprint of a plan is every global row id the
+    batch's execution reads or writes, taken from the plan's own index
+    tables (never from state values — the §V overlap contract):
+
+    * ``e_src`` / ``f_src`` — previous-layer rows gathered (and, for
+      source-degree-dependent models, rows whose normalization a degree
+      change would alter);
+    * ``e_dst`` / ``touch_rows`` / ``f_rows`` / ``out_rows`` — rows whose
+      aggregation state or embedding is written, per layer;
+    * the batch's feature-update vertices;
+    * every row whose in-degree the batch changes (``deg_old != deg_new``).
+
+    Disjointness makes the merge exact (bitwise, not approximately): each
+    row's records come from exactly one constituent batch in unchanged
+    relative order, every gathered row's value is unchanged by the other
+    constituents (any writer would put it in that constituent's next-layer
+    record sets → overlap → no fusion), and the merged degree tables
+    ``(plans[0].deg_old, plans[-1].deg_new)`` agree with every
+    constituent's own view on every row it touches.  The merged plan is an
+    ordinary :class:`BatchPlan`, so the backend's ``plan(base_plan=...)``
+    path packs it unchanged — its row schedules for ``delta_agg`` come from
+    the merged ``e_rowidx`` — and capacity hysteresis
+    (:class:`BucketHysteresis`) keeps the grown fused shapes inside the
+    per-batch layouts' buckets."""
+
+    def __init__(self, config: Optional[FusionConfig] = None) -> None:
+        self.config = config or FusionConfig()
+
+    # ---------------------------------------------------------------- #
+    # overlap test (plan time, value-independent)
+    # ---------------------------------------------------------------- #
+    @staticmethod
+    def footprint(plan: BatchPlan, batch: UpdateBatch) -> np.ndarray:
+        """Sorted unique global row ids the batch's execution touches."""
+        parts = [
+            np.flatnonzero(plan.deg_old[:-1] != plan.deg_new[:-1]).astype(
+                np.int64)
+        ]
+        if batch.feat_vertices is not None:
+            parts.append(np.asarray(batch.feat_vertices, np.int64))
+        for lp in plan.layers:
+            parts.append(lp.e_src[lp.e_mask].astype(np.int64))
+            parts.append(lp.e_dst[lp.e_mask].astype(np.int64))
+            parts.append(lp.touch_rows[lp.touch_mask].astype(np.int64))
+            parts.append(lp.f_rows[lp.f_mask].astype(np.int64))
+            parts.append(lp.f_src[lp.f_emask].astype(np.int64))
+            parts.append(lp.out_rows[lp.out_mask].astype(np.int64))
+        return np.unique(np.concatenate(parts))
+
+    @staticmethod
+    def disjoint(fp: np.ndarray, other: np.ndarray) -> bool:
+        """True iff two footprints (sorted unique) share no row."""
+        if not fp.size or not other.size:
+            return True
+        return not np.isin(fp, other, assume_unique=True).any()
+
+    def select_prefix(self, footprints: List[np.ndarray]) -> int:
+        """Length of the maximal independent prefix (capped at ``window``).
+
+        Greedy left-to-right: batch j joins the window iff its footprint is
+        disjoint from the union of batches 0..j-1 — execution order inside
+        the window is irrelevant once that holds, but the *prefix* rule
+        keeps batches FIFO (batch j never dispatches before batch i < j)."""
+        limit = min(len(footprints), self.config.window)
+        if limit <= 1:
+            return limit
+        acc = footprints[0]
+        k = 1
+        while k < limit and self.disjoint(footprints[k], acc):
+            acc = np.union1d(acc, footprints[k])
+            k += 1
+        return k
+
+    # ---------------------------------------------------------------- #
+    # plan concatenation (plan time, host only)
+    # ---------------------------------------------------------------- #
+    @staticmethod
+    def merge(plans: List[BatchPlan],
+              batches: List[UpdateBatch]) -> Tuple[BatchPlan, UpdateBatch]:
+        """Concatenate independent batch plans into one merged plan.
+
+        Per layer, live incremental records concatenate in batch order
+        (each touched row's records stay contiguous and ordered, so the
+        ``delta_agg`` row sums accumulate bitwise-identically to the serial
+        per-batch dispatches) and are re-padded through the standard
+        :func:`_pad_records` bucketing; constrained rows / out rows are
+        re-sorted unions (disjoint, so plain sorted concatenation) with
+        ``f_rowidx`` re-based into the merged row list.  The merged
+        :class:`UpdateBatch` carries the concatenated edge/feature updates
+        so feature scatters and cache invalidation see one logical batch."""
+        assert len(plans) == len(batches) and len(plans) >= 1
+        n = int(plans[0].deg_old.shape[0]) - 1
+        num_layers = len(plans[0].layers)
+        layers: List[LayerPlan] = []
+        for l in range(num_layers):
+            lps = [p.layers[l] for p in plans]
+            src = np.concatenate(
+                [lp.e_src[lp.e_mask] for lp in lps]).astype(np.int64)
+            dst = np.concatenate(
+                [lp.e_dst[lp.e_mask] for lp in lps]).astype(np.int64)
+            sign = np.concatenate(
+                [lp.e_sign[lp.e_mask] for lp in lps]).astype(np.float32)
+            use_new = np.concatenate(
+                [lp.e_use_new[lp.e_mask] for lp in lps]).astype(bool)
+            w = np.concatenate(
+                [lp.e_w[lp.e_mask] for lp in lps]).astype(np.float32)
+            t = np.concatenate(
+                [lp.e_t[lp.e_mask] for lp in lps]).astype(np.int32)
+            rec = _pad_records(n, src, dst, sign, use_new, w, t)
+            (e_src, e_dst, e_rowidx, e_sign, e_use_new, e_w, e_t, e_mask,
+             touch_rows, touch_mask) = rec
+
+            # constrained full path: disjoint row sets → sorted union; each
+            # row's in-edge segment stays contiguous in its original order
+            vf = np.sort(np.concatenate(
+                [lp.f_rows[lp.f_mask] for lp in lps]).astype(np.int64))
+            f_srcs = np.concatenate(
+                [lp.f_src[lp.f_emask] for lp in lps]).astype(np.int64)
+            row_of = np.concatenate(
+                [lp.f_rows[lp.f_rowidx[lp.f_emask]] for lp in lps]
+            ).astype(np.int64)
+            f_ridx = np.searchsorted(vf, row_of)
+            f_cap = next_bucket(vf.shape[0])
+            fe_cap = next_bucket(f_srcs.shape[0])
+
+            def padv(a, cap, fill, dt):
+                out = np.full(cap, fill, dtype=dt)
+                out[: len(a)] = a
+                return out
+
+            f_ws = np.concatenate([lp.f_w[lp.f_emask] for lp in lps])
+            f_ts = np.concatenate([lp.f_t[lp.f_emask] for lp in lps])
+            out = np.sort(np.concatenate(
+                [lp.out_rows[lp.out_mask] for lp in lps]).astype(np.int64))
+            o_cap = next_bucket(out.shape[0])
+            layers.append(LayerPlan(
+                e_src=e_src, e_dst=e_dst, e_rowidx=e_rowidx, e_sign=e_sign,
+                e_use_new=e_use_new, e_w=e_w, e_t=e_t, e_mask=e_mask,
+                touch_rows=touch_rows, touch_mask=touch_mask,
+                f_rows=padv(vf, f_cap, n, np.int32),
+                f_mask=padv(np.ones(vf.shape[0], bool), f_cap, False, bool),
+                f_src=padv(f_srcs, fe_cap, n, np.int32),
+                f_rowidx=padv(f_ridx, fe_cap, f_cap, np.int32),
+                f_w=padv(f_ws, fe_cap, 0.0, np.float32),
+                f_t=padv(f_ts, fe_cap, 0, np.int32),
+                f_emask=padv(np.ones(f_srcs.shape[0], bool), fe_cap, False,
+                             bool),
+                out_rows=padv(out, o_cap, n, np.int32),
+                out_mask=padv(np.ones(out.shape[0], bool), o_cap, False,
+                              bool),
+                n_inc_edges=sum(lp.n_inc_edges for lp in lps),
+                n_full_edges=sum(lp.n_full_edges for lp in lps),
+                n_touch_rows=int(touch_mask.sum()),
+                n_full_rows=int(vf.shape[0]),
+                n_out_rows=int(out.shape[0]),
+                n_src_accessed=sum(lp.n_src_accessed for lp in lps),
+            ))
+        merged_plan = BatchPlan(
+            layers=layers,
+            deg_old=plans[0].deg_old,
+            deg_new=plans[-1].deg_new,
+            changed0=np.concatenate([p.changed0 for p in plans]),
+        )
+        return merged_plan, _merge_batches(batches)
+
+
+def _merge_batches(batches: List[UpdateBatch]) -> UpdateBatch:
+    """Concatenate independent update batches into one logical batch."""
+    def cat(arrs, dt):
+        return np.concatenate([np.asarray(a, dt) for a in arrs])
+
+    ins_n = [np.asarray(b.ins_src).shape[0] for b in batches]
+    ins_w = None
+    if any(b.ins_weights is not None for b in batches):
+        ins_w = cat([b.ins_weights if b.ins_weights is not None
+                     else np.ones(k, np.float32)
+                     for b, k in zip(batches, ins_n)], np.float32)
+    ins_t = None
+    if any(b.ins_etypes is not None for b in batches):
+        ins_t = cat([b.ins_etypes if b.ins_etypes is not None
+                     else np.zeros(k, np.int32)
+                     for b, k in zip(batches, ins_n)], np.int32)
+    feat_v = feat_x = None
+    featured = [b for b in batches if b.feat_vertices is not None]
+    if featured:
+        feat_v = cat([b.feat_vertices for b in featured], np.int64)
+        feat_x = np.concatenate(
+            [np.asarray(b.feat_values, np.float32) for b in featured])
+    return UpdateBatch(
+        ins_src=cat([b.ins_src for b in batches], np.int64),
+        ins_dst=cat([b.ins_dst for b in batches], np.int64),
+        del_src=cat([b.del_src for b in batches], np.int64),
+        del_dst=cat([b.del_dst for b in batches], np.int64),
+        ins_weights=ins_w,
+        ins_etypes=ins_t,
+        feat_vertices=feat_v,
+        feat_values=feat_x,
+    )

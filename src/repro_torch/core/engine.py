@@ -6,11 +6,16 @@ A thin facade over :class:`~repro_torch.core.backend.StreamOrchestrator`
 :class:`~repro_torch.core.backend.DeviceBackend` (scratch-extended
 ``[N+1, ·]`` device tensors updated in place by one fused L-layer step per
 batch).  Build it with ``repro_torch.serve.create_engine("device",
-EngineConfig(...))``.
+EngineConfig(...))``; :meth:`RTECEngine.serving_frontend` attaches the
+versioned-read serving layer.
+
+With ``store_h=False`` (paper §V-B) the engine caches only ``a``/``nct`` and
+recomputes ``h^l = update(h^{l-1}, a^l)`` when it needs it, for about a third
+less state.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -56,6 +61,14 @@ class RTECEngine:
         """Wait for every dispatched batch to finish on the device."""
         self._backend.synchronize()
 
+    def serving_frontend(self, max_pending_reads: int = 64, max_versions: int = 8):
+        """A :class:`~repro_torch.serve.frontend.ServingFrontend` over this
+        engine: update-batch writes + embedding reads pinned to versions."""
+        from repro_torch.serve.frontend import ServingFrontend
+
+        return ServingFrontend(self, max_pending_reads=max_pending_reads,
+                               max_versions=max_versions)
+
     # ------------------------------------------------------------------ #
     @property
     def model(self) -> GNNModel:
@@ -66,6 +79,10 @@ class RTECEngine:
         return self._backend.params
 
     @property
+    def L(self) -> int:
+        return self._backend.L
+
+    @property
     def device(self) -> torch.device:
         return self._backend.device
 
@@ -73,11 +90,31 @@ class RTECEngine:
     def graph(self) -> CSRGraph:
         return self._orch.graph
 
+    @graph.setter
+    def graph(self, g: CSRGraph) -> None:
+        self._orch.graph = g
+
+    @property
+    def refresh_every(self) -> int:
+        return self._orch.refresh_every
+
+    @property
+    def store_h(self) -> bool:
+        return self._backend.store_h
+
+    @property
+    def fused(self) -> bool:
+        return self._backend.fused
+
     # ------------------------------------------------------------------ #
     # state views (no scratch rows)
     # ------------------------------------------------------------------ #
     @property
-    def h(self) -> List[torch.Tensor]:
+    def x(self) -> torch.Tensor:
+        return self._backend.x
+
+    @property
+    def h(self) -> List[Optional[torch.Tensor]]:
         return self._backend.h
 
     @property
@@ -92,5 +129,13 @@ class RTECEngine:
     def embeddings(self) -> torch.Tensor:
         return self._backend.embeddings
 
+    def _reconstruct_h(self) -> List[torch.Tensor]:
+        return self._backend.reconstruct_h()
+
     def state_bytes(self) -> int:
         return self._backend.state_bytes()
+
+    def staging_stats(self):
+        """Host-staging counters: None for the device backend (its state
+        lives in device memory; there is no host staging to account)."""
+        return None

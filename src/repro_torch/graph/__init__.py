@@ -8,13 +8,21 @@ from repro_torch.graph.generators import (
     make_graph,
     random_features,
 )
-from repro_torch.graph.streaming import StreamWorkload, UpdateBatch, make_stream
+from repro_torch.graph.streaming import (
+    ADVERSARIAL_REGIMES,
+    StreamWorkload,
+    UpdateBatch,
+    make_adversarial_stream,
+    make_stream,
+)
 
 __all__ = [
     "CSRGraph",
     "UpdateBatch",
     "StreamWorkload",
     "make_stream",
+    "make_adversarial_stream",
+    "ADVERSARIAL_REGIMES",
     "barabasi_albert",
     "erdos_renyi",
     "make_graph",

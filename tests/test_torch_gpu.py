@@ -251,3 +251,126 @@ def _serve_steps(params, cfg, tokens, prompt=36):
 
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------- #
+# the serving layer on the card: policy, fusion, front-end, storage,
+# baselines, ODEC
+# ---------------------------------------------------------------------- #
+def _adversarial(regime):
+    from repro_torch.graph import make_adversarial_stream
+
+    wl = make_adversarial_stream(regime, feature_dim=16)
+    x, _ = random_features(wl.base.n, 16, seed=0)
+    return x, wl
+
+
+@pytest.mark.parametrize("regime", ["hub_burst", "delete_heavy", "feature_churn"])
+def test_policy_on_card_matches_cpu_and_replays_bitwise(cuda, regime):
+    from repro_torch.core import ExecutionPolicy
+
+    x, wl = _adversarial(regime)
+    gpu = _engine("gcn", wl, x, "cuda", policy="adaptive")
+    cpu = _engine("gcn", wl, x, "cpu", policy="adaptive")
+    n_seg, n_delta = smod.KERNEL.launches, dmod.KERNEL.launches
+    for b in wl.batches:
+        assert gpu.apply_batch(b).mode == cpu.apply_batch(b).mode
+        np.testing.assert_allclose(gpu.embeddings.cpu().numpy(), cpu.embeddings.numpy(), **TOL)
+    assert smod.KERNEL.launches > n_seg and dmod.KERNEL.launches > n_delta
+    schedule = [d.mode for d in gpu._orch.policy.history]
+    assert len(set(schedule)) > 1
+    replay = _engine("gcn", wl, x, "cuda", policy=ExecutionPolicy(force_mode=schedule))
+    replay.apply_stream(wl.batches)
+    assert torch.equal(replay.embeddings, gpu.embeddings)
+
+
+def _ring_cell(n=600):
+    from repro_torch.graph.csr import CSRGraph
+    from repro_torch.graph.streaming import UpdateBatch
+
+    idx = np.arange(n, dtype=np.int64)
+    g = CSRGraph.from_edges(n, np.concatenate([(idx + 1) % n, (idx + 2) % n]),
+                            np.concatenate([idx, idx]))
+    rng = np.random.default_rng(0)
+    batches = [UpdateBatch(ins_src=np.array([(i * 45 + 1) % n]), ins_dst=np.array([(i * 45 + 5) % n]),
+                           del_src=np.array([], np.int64), del_dst=np.array([], np.int64),
+                           feat_vertices=np.array([(i * 45 + 7) % n]),
+                           feat_values=rng.standard_normal((1, 16)).astype(np.float32))
+               for i in range(12)]
+    x = rng.standard_normal((n, 16)).astype(np.float32)
+    return g, batches, x
+
+
+def test_fusion_on_card_counts_and_matches_serial(cuda):
+    """3 windows / 12 fused / 3 dispatches; every aggregation state bitwise
+    the serial loop's, h within 1e-6: the update's matmul runs on more rows
+    in a window and cuBLAS picks its kernel by row count (chip_smoke.py,
+    ``TOL_FUSED_CARD``)."""
+    from repro_torch.serve import FusionConfig
+
+    g, batches, x = _ring_cell()
+    runs = {}
+    for fused in (False, True):
+        eng = create_engine("device", EngineConfig(
+            model=make_model("gcn"), graph=g, x=x, dims=[16, 16, 16], seed=0, device="cuda",
+            fusion=FusionConfig(window=4) if fused else None))
+        runs[fused] = (eng, eng.apply_stream(batches))
+    (serial, _), (fused, ss) = runs[False], runs[True]
+    assert (ss.fusion_windows, ss.fused_batches, ss.fusion_fallbacks) == (3, 12, 0)
+    for u, v in zip([*serial.a, *serial.nct], [*fused.a, *fused.nct]):
+        assert torch.equal(u, v)
+    for u, v in zip(serial.h, fused.h):
+        torch.testing.assert_close(u, v, atol=1e-6, rtol=0)
+
+
+def test_frontend_reads_on_card_are_bitwise_snapshots(cuda):
+    x, wl = _stream()
+    eng = _engine("gcn", wl, x, "cuda")
+    fr = eng.serving_frontend(max_pending_reads=64, max_versions=len(wl.batches) + 1)
+    rows = np.arange(0, wl.base.n, 5)
+    snaps = [eng.snapshot_rows(rows)]
+    for b in wl.batches:
+        fr.apply_batch(b)
+        snaps.append(eng.snapshot_rows(rows))
+    for v in range(fr.version + 1):
+        np.testing.assert_array_equal(fr.read(rows, version=v), snaps[v])
+
+
+def test_store_h_false_on_card(cuda):
+    x, wl = _stream()
+    engines = {s: _engine("gcn", wl, x, "cuda", store_h=s) for s in (True, False)}
+    for e in engines.values():
+        e.apply_stream(wl.batches)
+    torch.testing.assert_close(engines[False].embeddings, engines[True].embeddings,
+                               atol=2e-4, rtol=0)
+    assert engines[False].state_bytes() < engines[True].state_bytes()
+
+
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+def test_baselines_and_odec_on_card_match_cpu(cuda, name):
+    from repro_torch.core import RTECUER, RTECFull, RTECSample, odec_query
+
+    x, wl = _stream()
+    model = make_model(name)
+    params = model.init_layers(torch.Generator().manual_seed(0), [16, 16, 16], device="cpu")
+    on_card = [{k: v.cuda() for k, v in p.items()} for p in params]
+    xt = torch.from_numpy(x)
+    for cls, kw in ((RTECFull, {}), (RTECUER, {}), (RTECSample, {"fanout": 3})):
+        gpu = cls(model, on_card, wl.base, xt.cuda(), **kw)
+        cpu = cls(model, params, wl.base, xt, **kw)
+        n_seg = smod.KERNEL.launches
+        for b in wl.batches[:4]:
+            assert gpu.apply_batch(b).edges_processed == cpu.apply_batch(b).edges_processed
+        assert smod.KERNEL.launches > n_seg
+        np.testing.assert_allclose(gpu.embeddings.cpu().numpy(), cpu.embeddings.numpy(), **TOL)
+    eng = create_engine("device", EngineConfig(model=model, graph=wl.base, x=x, params=on_card,
+                                               device="cuda"))
+    q = np.arange(0, wl.base.n, 9)
+    before = [t.clone() for t in (*eng.h, *eng.a, *eng.nct)]
+    n_delta = dmod.KERNEL.launches
+    emb_q, _ = odec_query(eng, wl.batches[0], q)
+    assert dmod.KERNEL.launches > n_delta
+    assert all(torch.equal(u, v) for u, v in zip(before, (*eng.h, *eng.a, *eng.nct)))
+    eng.apply_batch(wl.batches[0])
+    torch.testing.assert_close(emb_q, eng.embeddings[torch.from_numpy(q).cuda()],
+                               atol=1e-5, rtol=0)
