@@ -2,8 +2,7 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # full size: n = 1,000,000 vertices, ~10M edges
-    python3 chip_smoke.py --n 20000  # a quick rehearsal at a smaller graph (the LM stays full)
-    python3 chip_smoke.py --n 20000 --serve-n 20000  # the serving phases smaller too
+    python3 chip_smoke.py --n 20000  # a quick rehearsal at smaller graphs (the LM stays full)
 
 Phases, one JSON line each:
 
@@ -47,18 +46,22 @@ Phases, one JSON line each:
 
 The serving layer of the GNN engine runs on its own
 ``make_graph("uniform", 100_000, avg_degree=10, weighted=True)`` graph
-(≈ 1M edges, features and dims 128, 2 layers; ``--serve-n`` changes n),
-with launch counts zeroed before and read after each phase:
+(≈ 1M edges, features and dims 128, 2 layers; ``--n`` below 100,000 shrinks it too),
+with launch counts zeroed before each phase and read after its drives,
+before its checks against ``full_forward``:
 
 7. policy — the three ``ADVERSARIAL_REGIMES`` at the reference's size (n =
              256, 6 batches, one layer; features 128): decision counts and
-             ``policy_edges`` equal to ``BENCH_baseline.json``'s; then on the
+             ``policy_edges`` equal to ``BENCH_baseline.json``'s, and the
+             forced replay of each mixed schedule bitwise equal; then on the
              100k graph, gcn, 6 batches of 1000 edge updates:
              ``policy="adaptive"``, the forced replay of its decisions
              (bitwise equal), and a forced incremental/chunked/full schedule
              (the chunked and full modes at full size, with the chunked
              mode's layer-to-host copy timed), each within 2e-4 of
-             ``full_forward``;
+             ``full_forward``.  Launches are counted per batch: every
+             chunked or full batch must launch ``segment_spmm``, every
+             incremental one on the 100k graph ``delta_agg``;
 8. fusion_frontend — the reference's ring-lattice fusion cell at n =
              100,000: 12 single-edge batches 45 rows apart under
              ``FusionConfig(window=4)``: exactly 3 windows, 12 fused batches,
@@ -124,6 +127,7 @@ TOL_FUSED_CARD = 1e-6
 ADVERSARIAL_EXPECTED = {"hub_burst": (4, 0, 2, 3168), "delete_heavy": (3, 0, 3, 1608),
                         "feature_churn": (3, 3, 0, 4524)}
 FORCED_SCHEDULE = ("incremental", "chunked", "full", "incremental", "chunked", "full")
+SERVE_N = 100_000  # vertices of the serving phases' graph (at most --n)
 WIDTH = 128  # the lane width both TPU kernels were tiled for (BD = 128)
 GAT_HEADS = 2
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3.2-1b", 8, 2048, 32
@@ -457,10 +461,39 @@ def _batch_row(b) -> dict:
             "full_edges": b.full_edges, "out_vertices": b.out_vertices}
 
 
+def _delta(after: dict, before: dict) -> dict:
+    return {name: after[name] - before[name] for name in after}
+
+
+def _drive_batches(eng, batches, kernels: dict):
+    """``apply_batch`` each batch (each exec time synchronised); per batch its
+    stats row with the kernel launches it made."""
+    stats, rows = [], []
+    for b in batches:
+        c0 = _counts(kernels)
+        bs = eng.apply_batch(b)
+        stats.append(bs)
+        rows.append({**_batch_row(bs), "launches": _delta(_counts(kernels), c0)})
+    return stats, rows
+
+
+def _require_mode_launches(where: str, rows: list, incremental_delta_agg: bool) -> None:
+    """Chunked and full batches must launch segment_spmm (subset_layer,
+    full_forward); incremental ones delta_agg where asked."""
+    for i, r in enumerate(rows):
+        if r["mode"] in ("chunked", "full") and r["launches"]["segment_spmm"] <= 0:
+            raise AssertionError(f"{where} batch {i} ({r['mode']}): segment_spmm not launched")
+        if (incremental_delta_agg and r["mode"] == "incremental"
+                and r["launches"]["delta_agg"] <= 0):
+            raise AssertionError(f"{where} batch {i} (incremental): delta_agg not launched")
+
+
 def phase_policy(serve: dict, seed: int, kernels: dict) -> dict:
-    """The execution policy: the adversarial regimes' decision counts, then
-    adaptive, its forced replay and a forced mixed schedule on the serving
-    graph (gcn, ``apply_batch``: each exec time synchronised)."""
+    """The execution policy: the adversarial regimes' decision counts and
+    the forced replay of their mixed schedules, then adaptive, its forced
+    replay and a forced mixed schedule on the serving graph (gcn,
+    ``apply_batch``: each exec time synchronised).  Every run is driven and
+    its launches read before the checks against ``full_forward``."""
     import torch
 
     from repro_torch.core import MODES, ExecutionPolicy, make_model
@@ -468,39 +501,49 @@ def phase_policy(serve: dict, seed: int, kernels: dict) -> dict:
     from repro_torch.serve import EngineConfig, create_engine
 
     model = make_model("gcn")
+    wl, x = serve["wl"], serve["x"]
+    params = _layer_params(model, seed)
     t_phase = time.perf_counter()
     _zero_counts(kernels)
-    regimes = {}
+    regimes, regime_rows = {}, {}
     for regime in ADVERSARIAL_REGIMES:
         awl = make_adversarial_stream(regime, n=256, num_batches=6, feature_dim=WIDTH, seed=seed)
         ax, _ = random_features(awl.base.n, WIDTH, seed=seed)
-        # one layer, as the reference's adversarial cells (dims [8, 8]):
-        # the pinned decisions are for that depth
-        eng = create_engine("device", EngineConfig(
-            model=model, graph=awl.base, x=ax, dims=[WIDTH] * 2, seed=seed, policy="adaptive",
-            device="cuda"))
-        d = eng.apply_stream(awl.batches).as_dict()
-        regimes[regime] = {"decisions": [d[f"policy_{m}_batches"] for m in MODES],
-                           "policy_edges": d["policy_edges"],
-                           "modes": [dec.mode for dec in eng._orch.policy.history]}
 
-    wl, x = serve["wl"], serve["x"]
-    params = _layer_params(model, seed)
+        def run_regime(policy):
+            # one layer, as the reference's adversarial cells (dims [8, 8]):
+            # the pinned decisions are for that depth
+            eng = create_engine("device", EngineConfig(
+                model=model, graph=awl.base, x=ax, dims=[WIDTH] * 2, seed=seed, policy=policy,
+                device="cuda"))
+            return eng, *_drive_batches(eng, awl.batches, kernels)
+
+        adaptive, a_stats, a_rows = run_regime("adaptive")
+        modes = tuple(b.mode for b in a_stats)
+        replay, _, r_rows = run_regime(ExecutionPolicy(force_mode=modes))
+        regimes[regime] = {"decisions": [modes.count(m) for m in MODES],
+                           "policy_edges": sum(b.est_edges for b in a_stats), "modes": modes,
+                           "replay_bitwise": all(bool(torch.equal(u, v)) for u, v in zip(
+                               _state_tensors(adaptive), _state_tensors(replay))),
+                           "launches": [r["launches"] for r in a_rows],
+                           "replay_launches": [r["launches"] for r in r_rows]}
+        regime_rows[regime] = a_rows + r_rows
 
     def run(policy):
         eng = create_engine("device", EngineConfig(model=model, graph=wl.base, x=x, params=params,
                                                    policy=policy, device="cuda"))
-        return eng, [eng.apply_batch(b) for b in wl.batches]
+        return eng, *_drive_batches(eng, wl.batches, kernels)
 
-    adaptive, a_stats = run("adaptive")
+    adaptive, a_stats, a_rows = run("adaptive")
     schedule = tuple(b.mode for b in a_stats)
-    replay, _ = run(ExecutionPolicy(force_mode=schedule))
-    bitwise = bool(torch.equal(adaptive.embeddings, replay.embeddings))
+    replay, _, r_rows = run(ExecutionPolicy(force_mode=schedule))
+    forced, _, f_rows = run(ExecutionPolicy(force_mode=FORCED_SCHEDULE))
+    launches = _counts(kernels)
+    bitwise = all(bool(torch.equal(u, v))
+                  for u, v in zip(_state_tensors(adaptive), _state_tensors(replay)))
     x_final = final_features(x, wl)
     err_adaptive = _err_vs_full_forward(adaptive.embeddings, model, params, x_final,
                                         adaptive.graph)
-    del replay, adaptive
-    forced, f_stats = run(ExecutionPolicy(force_mode=FORCED_SCHEDULE))
     err_forced = _err_vs_full_forward(forced.embeddings, model, params, x_final, forced.graph)
     # the chunked mode's layer-to-host copy (layer_input_host) at this size
     copy_s = []
@@ -512,23 +555,27 @@ def phase_policy(serve: dict, seed: int, kernels: dict) -> dict:
     chunk = forced._orch._chunk_sched.stats
     row = {"phase": "policy", "seconds": time.perf_counter() - t_phase,
            "regimes": regimes, "n": wl.base.n, "edges": wl.base.num_edges,
-           "adaptive": [_batch_row(b) for b in a_stats],
-           "replay_bitwise": bitwise, "max_abs_err_adaptive": err_adaptive,
-           "forced": [_batch_row(b) for b in f_stats], "max_abs_err_forced": err_forced,
+           "adaptive": a_rows, "replay_bitwise": bitwise, "max_abs_err_adaptive": err_adaptive,
+           "forced": f_rows, "max_abs_err_forced": err_forced,
            "layer_input_host": {"bytes": host.nbytes, "seconds": copy_s},
            "chunks": {"chunks": chunk.chunks, "rows_transferred": chunk.rows_transferred,
                       "rows_reused": chunk.rows_reused,
                       "edges_processed": chunk.edges_processed},
-           "launches": _counts(kernels)}
+           "launches": launches}
     emit(row)
     for regime, got in regimes.items():
         want = ADVERSARIAL_EXPECTED[regime]
         if tuple(got["decisions"]) + (got["policy_edges"],) != want:
             raise AssertionError(f"policy {regime}: {got} != {want}")
+        if len(set(got["modes"])) < 2 or not got["replay_bitwise"]:
+            raise AssertionError(f"policy {regime}: mixed schedule not replayed bitwise: {got}")
+        _require_mode_launches(f"policy {regime}", regime_rows[regime], False)
     if not bitwise:
         raise AssertionError("policy: adaptive != forced replay of its decisions")
     if not (err_adaptive <= TOL_ENGINE and err_forced <= TOL_ENGINE):
         raise AssertionError(f"policy vs full_forward: {err_adaptive}, {err_forced} > {TOL_ENGINE}")
+    for where, rows in (("adaptive", a_rows), ("replay", r_rows), ("forced", f_rows)):
+        _require_mode_launches(f"policy {where}", rows, True)
     _require_launched(row, ("delta_agg", "segment_spmm"))
     return row
 
@@ -689,10 +736,12 @@ def phase_baselines_odec(serve: dict, seed: int, kernels: dict) -> dict:
     xt = torch.from_numpy(x).cuda()
     t_phase = time.perf_counter()
     _zero_counts(kernels)
+    launches = _counts(kernels)
     models = {}
     for name in ("gcn", "gat"):
         model = make_model(name)
         params = _layer_params(model, seed)
+        c0 = _counts(kernels)
         eng = create_engine("device", EngineConfig(model=model, graph=wl.base, x=x, params=params,
                                                    device="cuda"))
         systems = {"RTECFull": RTECFull(model, params, wl.base, xt),
@@ -716,6 +765,8 @@ def phase_baselines_odec(serve: dict, seed: int, kernels: dict) -> dict:
                 per[k].append(sysm.apply_batch(b))
             if i < 2:
                 stale.append(float((systems["MTECPeriod"].embeddings - mtec0).abs().max()))
+        # this model's drives, read before the checks against full_forward
+        launches = {k: launches[k] + d for k, d in _delta(_counts(kernels), c0).items()}
         errs = {k: _err_vs_full_forward(systems[k].embeddings, model, params, x, eng.graph)
                 for k in systems}
         edges = {k: sum(b.edges_processed for b in v) for k, v in per.items()}
@@ -729,7 +780,6 @@ def phase_baselines_odec(serve: dict, seed: int, kernels: dict) -> dict:
                      "engine_state_unchanged": unchanged, "exec_time_s": ost.exec_time_s,
                      "plan_time_s": ost.plan_time_s, "edges_processed": ost.edges_processed}}
         del eng, systems
-    launches = _counts(kernels)
     certified = {}
     for name in ALL_MODELS:
         rep = validate_registration(make_model(name))  # raises on a contradicted flag
@@ -971,8 +1021,6 @@ def kernel_edge_softmax(graph, gen) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="vertices (default 1,000,000)")
-    ap.add_argument("--serve-n", type=int, default=100_000,
-                    help="vertices of the serving phases' graph (default 100,000)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1015,7 +1063,7 @@ def main(argv=None) -> int:
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     del graph
-    serve = serving_data(args.serve_n, args.seed)
+    serve = serving_data(min(args.n, SERVE_N), args.seed)
     serving_rows = [phase(serve, args.seed, kernels) for phase in (
         phase_policy, phase_fusion_frontend, phase_storage, phase_baselines_odec)]
     del serve

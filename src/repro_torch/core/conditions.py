@@ -15,9 +15,10 @@ For a candidate decoupled model it certifies, over randomized inputs:
        ``dest_dependent``, which routes it to constrained processing).
 
 The random inputs come from a seeded ``torch.Generator`` on the CPU (the
-reference draws from ``jax.random``), so the error magnitudes differ from
-the reference's while the verdicts — the booleans of
-:class:`ConditionReport` — are the same.  :func:`validate_registration` is
+reference draws from ``jax.random``) and are moved to ``device`` (the card
+unless the caller asks for the CPU), where the operators are probed.  The
+error magnitudes differ from the reference's while the verdicts — the
+booleans of :class:`ConditionReport` — are the same.  :func:`validate_registration` is
 the registration gate: it refuses models whose declared flags contradict
 the probes (an undeclared destination dependence would silently corrupt
 reuse — the failure mode the paper's SMT check guards against).
@@ -57,22 +58,25 @@ def certify(
     trials: int = 8,
     seed: int = 0,
     tol: float = 1e-4,
+    device="cuda",
 ) -> ConditionReport:
-    """Probe the model's operators on the CPU over ``trials`` random draws."""
+    """Probe the model's operators on ``device`` over ``trials`` random
+    draws; the draws come from a seeded CPU generator, so the same seed gives
+    the same inputs on every device."""
     gen = torch.Generator().manual_seed(seed)
-    p = model.init_params(gen, d_in, d_out)
+    p = {k: v.to(device) for k, v in model.init_params(gen, d_in, d_out).items()}
     agg = model.agg_dim(d_in, d_out)
     ctxd = model.ctx_dim(d_in, d_out)
     errs = {"distributive": 0.0, "invertible": 0.0, "agg_assoc": 0.0, "dest": 0.0, "struct": 0.0}
 
     def normal(*shape):
-        return torch.randn(shape, generator=gen)
+        return torch.randn(shape, generator=gen).to(device)
 
     dest_indep = True
     struct_indep = True
     for _ in range(trials):
         # positive context (counts / attention sums are positive by nature)
-        z = 0.5 + 4.5 * torch.rand((4, ctxd), generator=gen)
+        z = (0.5 + 4.5 * torch.rand((4, ctxd), generator=gen)).to(device)
         x, y = normal(4, agg), normal(4, agg)
         # C3 distributivity
         lhs = model.ms_cbn(p, z, x + y)
@@ -84,14 +88,14 @@ def certify(
         # C2 aggregate associativity: sum over permuted splits
         xs = normal(6, agg)
         s1 = xs.sum(0)
-        perm = torch.randperm(6, generator=gen)
+        perm = torch.randperm(6, generator=gen).to(device)
         s2 = xs[perm[:3]].sum(0) + xs[perm[3:]].sum(0)
         errs["agg_assoc"] = max(errs["agg_assoc"], _max_abs(s1 - s2))
         # C5 destination / structural independence of ms_local
         hu, hv1, hv2 = normal(4, d_in), normal(4, d_in), normal(4, d_in)
         su, sv = normal(4).abs() * 3, normal(4).abs() * 3
-        ew = torch.ones(4)
-        et = torch.zeros(4, dtype=torch.int32)
+        ew = torch.ones(4, device=device)
+        et = torch.zeros(4, dtype=torch.int32, device=device)
         m1 = model.ms_local(p, hu, hv1, su, sv, ew, et)
         m2 = model.ms_local(p, hu, hv2, su, sv, ew, et)
         d_err = _max_abs(m1 - m2)

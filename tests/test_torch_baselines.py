@@ -23,6 +23,7 @@ The streams are those of tests/test_baselines.py; gat meets the
 incremental engine only on streams where no destination drains (ROADMAP
 Queue 3), which ``_assert_no_draining_destination`` checks.
 """
+import inspect
 import pkgutil
 
 import jax.numpy as jnp
@@ -213,13 +214,20 @@ def test_odec_matches_committed_engine_and_reference(name, n, seed, query, store
 @pytest.mark.parametrize("name", ALL_MODELS)
 def test_certify_verdicts_equal_the_reference(name):
     assert set(ALL_MODELS) == set(J_ALL_MODELS)
-    rep, jrep = certify(_mk(name)), j_certify(_mk(name, j_make_model))
+    rep, jrep = certify(_mk(name), device="cpu"), j_certify(_mk(name, j_make_model))
     for field in ("distributive", "invertible", "aggregate_assoc", "dest_independent",
                   "struct_independent"):
         assert getattr(rep, field) == getattr(jrep, field), field
     assert rep.incrementalizable == jrep.incrementalizable
     assert set(rep.max_err) == set(jrep.max_err)
-    assert validate_registration(_mk(name)).incrementalizable
+    assert validate_registration(_mk(name), device="cpu").incrementalizable
+
+
+def test_certify_probes_on_the_card_by_default():
+    assert inspect.signature(certify).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):  # no card: it does not fall back
+            certify(_mk("gcn"))
 
 
 class _BadMean(GNNModel):
@@ -266,10 +274,10 @@ class _UndeclaredGAT(GNNModel):
 
 def test_registration_gate_rejects_contradicted_flags():
     with pytest.raises(ValueError, match="fails Theorem-1"):
-        validate_registration(_BadMean())
+        validate_registration(_BadMean(), device="cpu")
     with pytest.raises(ValueError, match="destination-dependent"):
-        validate_registration(_UndeclaredGAT())
-    rep = certify(_UndeclaredGAT())
+        validate_registration(_UndeclaredGAT(), device="cpu")
+    rep = certify(_UndeclaredGAT(), device="cpu")
     assert rep.incrementalizable and not rep.dest_independent
 
 

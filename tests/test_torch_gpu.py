@@ -374,3 +374,15 @@ def test_baselines_and_odec_on_card_match_cpu(cuda, name):
     eng.apply_batch(wl.batches[0])
     torch.testing.assert_close(emb_q, eng.embeddings[torch.from_numpy(q).cuda()],
                                atol=1e-5, rtol=0)
+
+
+def test_certify_on_card_gives_the_cpu_verdicts(cuda):
+    from repro_torch.core import ALL_MODELS, certify, validate_registration
+
+    for name in ALL_MODELS:
+        card, cpu = certify(make_model(name)), certify(make_model(name), device="cpu")
+        assert (card.distributive, card.invertible, card.aggregate_assoc, card.dest_independent,
+                card.struct_independent) == (cpu.distributive, cpu.invertible,
+                                             cpu.aggregate_assoc, cpu.dest_independent,
+                                             cpu.struct_independent), name
+        assert validate_registration(make_model(name)).incrementalizable
