@@ -79,10 +79,36 @@ before its checks against ``full_forward``:
              then fresh, edges processed Inc < UER ≤ Full, per-batch times
              beside the engine's; ``odec_query`` for 64 vertices within 1e-5
              of the committed engine with the engine's state unchanged;
-             ``validate_registration`` over all 11 models.
+             ``validate_registration`` over all 11 models;
+11. offload — ``create_engine("offload")`` (host-resident state, pinned
+             async staging) for gcn and gat (heads 2) on the 6-batch stream
+             through ``apply_stream``, each within 2e-4 of ``full_forward``;
+             gcn with ``StagingConfig(async_enabled=False)`` bitwise equal to
+             async (``prefetch_hits`` 5 and 0); gcn on the device engine
+             within ``TOL_FUSED_CARD`` (the equal tensors printed); transfer
+             rows, staged bytes, staging waits, exec seconds a batch, and the
+             stream's peak device bytes beside the device engine's state
+             bytes, with each batch's largest staged layer (rows, buffer
+             bytes); gcn again on 3 batches of 10 updates, where the
+             affected rows are a small share of V.  Every batch must launch
+             ``delta_agg`` once per layer, and gat's ``segment_spmm`` too;
+12. hot_cache — the reference's exact counters at its own sizes: the fig7
+             smoke cell (2970 transfer rows, 145,560 staged bytes, 5 prefetch
+             hits) and the hub_burst cell (580/504/0 hits/misses/evictions,
+             61,648 staged bytes against 107,968 uncached, cached ≡
+             uncached); then gcn at full width with
+             ``CacheConfig(capacity_rows=8192, prewarm_rows=8192)`` bitwise
+             equal to uncached, each run's stream peak device bytes printed;
+13. chunked_backend — ``create_engine("chunked", chunk_size=8192)`` on the
+             stream's first 3 batches within 2e-4 of ``full_forward``, every
+             batch launching ``segment_spmm``; then the ring cell of phase 8
+             through a fused window on the offload engine: 3/12/3, a and nct
+             bitwise the serial offload loop's, h within ``TOL_FUSED_CARD``.
 
-Then a ``{"kernels": [...]}`` line (launches summed over every path that
-launched each kernel), the ``nvidia-smi`` name and power limit,
+The kernel checks include ``delta_agg`` at the offload path's largest
+compact shape (a variant beside the engine's).  Then a ``{"kernels":
+[...]}`` line (launches summed over every path that launched each kernel),
+the ``nvidia-smi`` name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero.  It imports neither ``jax`` nor the
 JAX package ``repro``.  Full ``nvcc`` logs go to ``build/repro_torch/logs/``.
@@ -203,9 +229,10 @@ def _sass_count(lib: Path, opcode: str) -> int:
     return sum(opcode in ln for ln in sass.splitlines())
 
 
-def final_features(x: np.ndarray, wl) -> np.ndarray:
+def final_features(x: np.ndarray, batches) -> np.ndarray:
+    """The features after ``batches``' feature updates."""
     xc = np.array(x)
-    for b in wl.batches:
+    for b in batches:
         if b.feat_vertices is not None:
             xc[b.feat_vertices] = b.feat_values
     return xc
@@ -241,7 +268,7 @@ def phase_engine(model_name: str, x, wl, seed: int, kernels: dict) -> dict:
     if emb.shape != (wl.base.n, WIDTH) or not bool(torch.isfinite(emb).all()):
         raise AssertionError(f"{model_name}: bad embeddings {tuple(emb.shape)}")
     t1 = time.perf_counter()
-    xf = torch.from_numpy(final_features(x, wl)).cuda()
+    xf = torch.from_numpy(final_features(x, wl.batches)).cuda()
     ref = full_forward(model, eng.params, xf, eng.graph)[-1].h
     torch.cuda.synchronize()
     ref_s = time.perf_counter() - t1
@@ -352,14 +379,15 @@ def kernel_segment_spmm_subset(fe_cap: int, f_cap: int, d: int, gen, rng) -> dic
             "ms": cuda_time_ms(lambda: segment_spmm(msg, row_ptr, order, f_cap), 100)}
 
 
-def kernel_delta_agg(e_cap: int, r_cap: int, d: int, gen, rng) -> dict:
+def kernel_delta_agg(e_cap: int, r_cap: int, d: int, gen, rng, live: int = None) -> dict:
     """Step 1 of the incremental layer: the touched rows' state takes the
-    scheduled record sums in place."""
+    scheduled record sums in place (``live`` records, 3/4 of ``e_cap`` unless
+    given)."""
     import torch
 
     from repro_torch.kernels.delta_agg import delta_agg, delta_agg_plain
 
-    live = e_cap * 3 // 4
+    live = e_cap * 3 // 4 if live is None else live
     keys, msg, order, row_ptr = _scheduled_inputs(e_cap, r_cap, live, d, gen, rng)
     state0 = torch.randn(r_cap, d, device="cuda", generator=gen)
     out = delta_agg(state0.clone(), msg, row_ptr, order)
@@ -541,7 +569,7 @@ def phase_policy(serve: dict, seed: int, kernels: dict) -> dict:
     launches = _counts(kernels)
     bitwise = all(bool(torch.equal(u, v))
                   for u, v in zip(_state_tensors(adaptive), _state_tensors(replay)))
-    x_final = final_features(x, wl)
+    x_final = final_features(x, wl.batches)
     err_adaptive = _err_vs_full_forward(adaptive.embeddings, model, params, x_final,
                                         adaptive.graph)
     err_forced = _err_vs_full_forward(forced.embeddings, model, params, x_final, forced.graph)
@@ -695,7 +723,7 @@ def phase_storage(serve: dict, seed: int, kernels: dict) -> dict:
                         "wall_s": ss.wall_s, "graph": eng.graph}
     launches = _counts(kernels)
     err = float((out[True]["emb"] - out[False]["emb"]).abs().max())
-    x_final = final_features(x, wl)
+    x_final = final_features(x, wl.batches)
     err_full = max(_err_vs_full_forward(out[k]["emb"], model, params, x_final, out[k]["graph"])
                    for k in (True, False))
     row = {"phase": "storage", "seconds": time.perf_counter() - t_phase,
@@ -803,6 +831,294 @@ def phase_baselines_odec(serve: dict, seed: int, kernels: dict) -> dict:
         if not (m["odec"]["engine_state_unchanged"]
                 and m["odec"]["max_abs_err_vs_engine"] <= TOL_ODEC):
             raise AssertionError(f"{name} ODEC: {m['odec']}")
+    _require_launched(row, ("delta_agg", "segment_spmm"))
+    return row
+
+
+def _host_state(eng) -> dict:
+    """A host-resident engine's state by tensor name (h0.., a0.., nct0..)."""
+    return {f"{kind}{l}": np.asarray(v) for kind in ("h", "a", "nct")
+            for l, v in enumerate(getattr(eng, kind))}
+
+
+def _compare(u: dict, v: dict):
+    """Per tensor: bitwise equal?  And the max |Δ| over all of them."""
+    equal = {k: bool(np.array_equal(u[k], v[k])) for k in u}
+    return equal, max(float(np.abs(u[k] - v[k]).max()) for k in u)
+
+
+def _count_dispatches(eng, kernels: dict, rows: list, shapes: list = None) -> None:
+    """Record the kernel launches of each ``dispatch`` of ``eng``'s backend
+    (one per batch in ``apply_stream``) into ``rows``, with an offload
+    batch's footprint (its largest layer's staged rows and staging-buffer
+    bytes), and each layer's compact ``delta_agg`` shape (e_cap, r_cap, live
+    records) into ``shapes``."""
+    backend = eng._backend
+    inner = backend.dispatch
+
+    def dispatch(prep):
+        c0 = _counts(kernels)
+        inner(prep)
+        rows.append(_delta(_counts(kernels), c0))
+        if hasattr(prep, "transfers"):
+            rows[-1]["staged_rows_max"] = max(tr.need_h.shape[0] for tr in prep.transfers)
+            rows[-1]["layer_buffer_bytes_max"] = max(tr.layout.total for tr in prep.transfers)
+        if shapes is not None:
+            shapes.extend((lp.e_src.shape[0], lp.touch_rows.shape[0], int(lp.e_mask.sum()))
+                          for lp in prep.plan.layers)
+
+    backend.dispatch = dispatch
+
+
+def _stream_row(ss, eng=None) -> dict:
+    d = ss.as_dict()
+    row = {k: d[k] for k in ("wall_s", "plan_s", "staged_bytes", "prefetch_hits", "sync_wait_s",
+                             "compute_s", "cache_hit_rows", "cache_miss_rows", "cache_evictions")}
+    row["exec_time_s"] = [b.exec_time_s for b in ss.batches]
+    if eng is not None and hasattr(eng, "transfers"):
+        row["transfer_rows"] = eng.transfers.total_rows
+    return row
+
+
+def phase_offload(serve: dict, seed: int, kernels: dict) -> dict:
+    """The §V-B offload engine at full width: gcn and gat through
+    ``apply_stream`` (pinned async staging), gcn again with inline staging
+    (bitwise equal to async), on the device engine (``TOL_FUSED_CARD``), and
+    on a stream of 10-update batches, whose affected rows are a small share
+    of V (the device footprint then follows the affected set).  Every drive
+    is counted before the checks against ``full_forward``."""
+    import torch
+
+    from repro_torch.core import make_model
+    from repro_torch.graph import make_stream
+    from repro_torch.serve import EngineConfig, StagingConfig, create_engine
+
+    wl, x = serve["wl"], serve["x"]
+    small = make_stream(wl.base, num_batches=3, batch_edges=10, delete_frac=0.3,
+                        seed=seed + 3)
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    runs, per_batch, shapes = {}, {}, []
+    for key, name, backend, kw, w in (
+            ("gcn", "gcn", "offload", {}, wl), ("gat", "gat", "offload", {}, wl),
+            ("gcn_sync", "gcn", "offload", {"staging": StagingConfig(async_enabled=False)}, wl),
+            ("gcn_device", "gcn", "device", {}, wl),
+            ("gcn_small_batches", "gcn", "offload", {}, small)):
+        model = make_model(name)
+        params = _layer_params(model, seed)
+        t0 = time.perf_counter()
+        eng = create_engine(backend, EngineConfig(model=model, graph=w.base, x=x, params=params,
+                                                  device="cuda", **kw))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        per_batch[key] = []
+        _count_dispatches(eng, kernels, per_batch[key], shapes if key == "gcn" else None)
+        ss = eng.apply_stream(w.batches)
+        torch.cuda.synchronize()
+        runs[key] = {"eng": eng, "model": model, "params": params, "ss": ss, "init_s": init_s,
+                     "batches": w.batches,
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "stream_mem_bytes": torch.cuda.max_memory_allocated() - base}
+    launches = _counts(kernels)
+    streams = {}
+    for key, r in runs.items():
+        eng = r["eng"]
+        emb = eng.embeddings
+        emb = torch.from_numpy(np.asarray(emb)).cuda() if not torch.is_tensor(emb) else emb
+        if emb.shape != (wl.base.n, WIDTH) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"offload {key}: bad embeddings {tuple(emb.shape)}")
+        streams[key] = {**_stream_row(r["ss"], eng), "init_s": r["init_s"],
+                        "peak_mem_bytes": r["peak_mem_bytes"],
+                        "stream_mem_bytes": r["stream_mem_bytes"],
+                        "launches_per_batch": per_batch[key],
+                        "max_abs_err_vs_full_forward": _err_vs_full_forward(
+                            emb, r["model"], r["params"], final_features(x, r["batches"]),
+                            eng.graph)}
+    dev = runs["gcn_device"]["eng"]
+    dev_state = {f"{kind}{l}": v.cpu().numpy() for kind in ("h", "a", "nct")
+                 for l, v in enumerate(getattr(dev, kind))}
+    sync_equal, sync_diff = _compare(_host_state(runs["gcn"]["eng"]),
+                                     _host_state(runs["gcn_sync"]["eng"]))
+    dev_equal, dev_diff = _compare(dev_state, _host_state(runs["gcn"]["eng"]))
+    row = {"phase": "offload", "seconds": time.perf_counter() - t_phase, "n": wl.base.n,
+           "edges": wl.base.num_edges, "width": WIDTH, "layers": 2, "streams": streams,
+           "device_state_bytes": dev.state_bytes(),
+           "bitwise_async_vs_sync": all(sync_equal.values()),
+           "max_abs_diff_async_vs_sync": sync_diff,
+           "equal_device_vs_offload": dev_equal, "max_abs_diff_device_vs_offload": dev_diff,
+           "delta_agg_compact_shapes": shapes, "launches": launches}
+    emit(row)
+    for key in runs:
+        if not streams[key]["max_abs_err_vs_full_forward"] <= TOL_ENGINE:
+            raise AssertionError(f"offload {key} vs full_forward: {streams[key]}")
+    if (streams["gcn"]["prefetch_hits"], streams["gcn_sync"]["prefetch_hits"]) != (
+            len(wl.batches) - 1, 0):
+        raise AssertionError(f"offload prefetch_hits: {streams['gcn']}, {streams['gcn_sync']}")
+    if not row["bitwise_async_vs_sync"]:
+        raise AssertionError(f"offload async != sync: {sync_equal}")
+    if not dev_diff <= TOL_FUSED_CARD:
+        raise AssertionError(f"device vs offload: {dev_equal}, max|Δ| {dev_diff}")
+    for key in ("gcn", "gat", "gcn_sync", "gcn_small_batches"):
+        for i, c in enumerate(per_batch[key]):
+            # step 1 once per layer (2 layers); gat's step 3 sums through segment_spmm
+            if c["delta_agg"] != 2 or (key == "gat" and c["segment_spmm"] <= 0):
+                raise AssertionError(f"offload {key} batch {i}: launches {c}")
+    _require_launched(row, ("delta_agg", "segment_spmm"))
+    return row
+
+
+def _hub_burst():
+    """The reference's hub_burst cache cell (benchmarks/fig7_response_time.py
+    ``smoke_cache``): the adversarial stream, 6 batches, features 8."""
+    from repro_torch.graph import make_adversarial_stream, random_features
+
+    wl = make_adversarial_stream("hub_burst", num_batches=6)
+    x, _ = random_features(wl.base.n, 8, seed=0)
+    return x, wl
+
+
+def _fig7_smoke():
+    """The reference's fig7 smoke cell (benchmarks/fig7_response_time.py
+    ``smoke`` and ``benchmarks/common.py`` ``setup``): powerlaw n = 300,
+    average degree 4, features 16, 6 batches of 8 edge updates."""
+    from repro_torch.graph import make_graph, make_stream, random_features
+
+    g = make_graph("powerlaw", 300, avg_degree=4.0, seed=0, weighted=True)
+    x, _ = random_features(300, 16, seed=0)
+    return x, make_stream(g, num_batches=6, batch_edges=8, delete_frac=0.3, seed=1)
+
+
+def phase_hot_cache(serve: dict, seed: int, kernels: dict) -> dict:
+    """The reference's exact offload and cache counters at its own sizes,
+    then the hot-row cache at full width against the uncached engine."""
+    import torch
+
+    from repro_torch.core import make_model
+    from repro_torch.serve import CacheConfig, EngineConfig, create_engine
+
+    model = make_model("gcn")
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    fx, fwl = _fig7_smoke()
+    fig7 = create_engine("offload", EngineConfig(model=model, graph=fwl.base, x=fx, dims=[16, 16],
+                                                 seed=seed, device="cuda"))
+    fig7_ss = fig7.apply_stream(fwl.batches)
+    hx, hwl = _hub_burst()
+    hub, hub_ss = {}, {}
+    for cached in (False, True):
+        hub[cached] = create_engine("offload", EngineConfig(
+            model=model, graph=hwl.base, x=hx, dims=[8, 8], seed=seed, device="cuda",
+            cache=CacheConfig(capacity_rows=256) if cached else None))
+        hub_ss[cached] = hub[cached].apply_stream(hwl.batches)
+    wl, x = serve["wl"], serve["x"]
+    params = _layer_params(model, seed)
+    full, full_ss, full_mem = {}, {}, {}
+    for cached in (False, True):
+        full[cached] = create_engine("offload", EngineConfig(
+            model=model, graph=wl.base, x=x, params=params, device="cuda",
+            cache=CacheConfig(capacity_rows=8192, prewarm_rows=8192) if cached else None))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the cache's stores, when cached
+        full_ss[cached] = full[cached].apply_stream(wl.batches)
+        torch.cuda.synchronize()
+        full_mem[cached] = torch.cuda.max_memory_allocated() - base
+    launches = _counts(kernels)
+    hub_equal, hub_diff = _compare(_host_state(hub[False]), _host_state(hub[True]))
+    full_equal, full_diff = _compare(_host_state(full[False]), _host_state(full[True]))
+    h_u, h_c = hub_ss[False].staged_bytes, hub_ss[True].staged_bytes
+    f_u, f_c = full_ss[False].staged_bytes, full_ss[True].staged_bytes
+    row = {"phase": "hot_cache", "seconds": time.perf_counter() - t_phase,
+           "fig7_smoke": {"n": fwl.base.n, **_stream_row(fig7_ss, fig7)},
+           "hub_burst": {"n": hwl.base.n, "uncached": _stream_row(hub_ss[False], hub[False]),
+                         "cached": _stream_row(hub_ss[True], hub[True]),
+                         "staged_bytes_ratio": h_u / max(h_c, 1),
+                         "bitwise_cached_vs_uncached": all(hub_equal.values()),
+                         "max_abs_diff": hub_diff},
+           "full_width": {"n": wl.base.n, "capacity_rows": 8192, "prewarm_rows": 8192,
+                          "uncached": {**_stream_row(full_ss[False], full[False]),
+                                       "stream_mem_bytes": full_mem[False]},
+                          "cached": {**_stream_row(full_ss[True], full[True]),
+                                     "stream_mem_bytes": full_mem[True]},
+                          "staged_bytes_ratio": f_u / max(f_c, 1),
+                          "cache_store_bytes": full[True]._backend._cache.state_bytes(),
+                          "bitwise_cached_vs_uncached": all(full_equal.values()),
+                          "max_abs_diff": full_diff},
+           "launches": launches}
+    emit(row)
+    got = (fig7.transfers.total_rows, fig7_ss.staged_bytes, fig7_ss.prefetch_hits)
+    if got != (2970, 145_560, 5):
+        raise AssertionError(f"fig7 smoke offload counters {got} != (2970, 145560, 5)")
+    got = (hub_ss[True].cache_hit_rows, hub_ss[True].cache_miss_rows,
+           hub_ss[True].cache_evictions, h_c, h_u)
+    if got != (580, 504, 0, 61_648, 107_968):
+        raise AssertionError(f"hub_burst cache counters {got} != (580, 504, 0, 61648, 107968)")
+    if not (all(hub_equal.values()) and all(full_equal.values())):
+        raise AssertionError(f"cached != uncached: {hub_equal}, {full_equal}")
+    if not full_ss[True].cache_hit_rows > 0 or not f_c < f_u:
+        raise AssertionError(f"full-width cache: {row['full_width']}")
+    _require_launched(row, ("delta_agg", "segment_spmm"))
+    return row
+
+
+def phase_chunked_backend(serve: dict, seed: int, kernels: dict) -> dict:
+    """The chunked-recompute backend on the serving stream's first 3
+    batches, then one fused offload window (the ring cell of phase 8)."""
+    import torch
+
+    from repro_torch.core import make_model
+    from repro_torch.graph import random_features
+    from repro_torch.serve import EngineConfig, FusionConfig, create_engine
+
+    model = make_model("gcn")
+    params = _layer_params(model, seed)
+    wl, x = serve["wl"], serve["x"]
+    batches = wl.batches[:3]
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    eng = create_engine("chunked", EngineConfig(model=model, graph=wl.base, x=x, params=params,
+                                                chunk_size=8192, device="cuda"))
+    _, rows = _drive_batches(eng, batches, kernels)
+    g, ring_batches = _ring_stream(serve["n"], seed)
+    rx, _ = random_features(serve["n"], WIDTH, seed=seed)
+    ring = {}
+    for fused in (False, True):
+        e = create_engine("offload", EngineConfig(
+            model=model, graph=g, x=rx, params=params, device="cuda",
+            fusion=FusionConfig(window=4) if fused else None))
+        ring[fused] = (e, e.apply_stream(ring_batches))
+    launches = _counts(kernels)
+    emb = torch.from_numpy(np.asarray(eng.embeddings)).cuda()
+    err = _err_vs_full_forward(emb, model, params, final_features(x, batches), eng.graph)
+    (serial, ss_s), (fused_eng, ss_f) = ring[False], ring[True]
+    equal, max_diff = _compare(_host_state(serial), _host_state(fused_eng))
+    dispatches = len(ring_batches) - (ss_f.fused_batches - ss_f.fusion_windows)
+    st = eng.chunk_stats
+    row = {"phase": "chunked_backend", "seconds": time.perf_counter() - t_phase,
+           "n": wl.base.n, "chunk_size": 8192, "batches": rows,
+           "chunk_stats": {"chunks": st.chunks, "rows_transferred": st.rows_transferred,
+                           "rows_reused": st.rows_reused, "reuse_frac": st.reuse_frac,
+                           "edges_processed": st.edges_processed},
+           "max_abs_err_vs_full_forward": err,
+           "offload_fusion": {"windows": ss_f.fusion_windows, "fused_batches": ss_f.fused_batches,
+                              "fallbacks": ss_f.fusion_fallbacks, "dispatches": dispatches,
+                              "equal_fused_vs_serial": equal,
+                              "max_abs_diff_fused_vs_serial": max_diff,
+                              "wall_s_fused": ss_f.wall_s, "wall_s_serial": ss_s.wall_s},
+           "launches": launches}
+    emit(row)
+    if not err <= TOL_ENGINE:
+        raise AssertionError(f"chunked backend vs full_forward: {err} > {TOL_ENGINE}")
+    for i, r in enumerate(rows):
+        if r["launches"]["segment_spmm"] <= 0:
+            raise AssertionError(f"chunked backend batch {i}: segment_spmm not launched")
+    if (ss_f.fusion_windows, ss_f.fused_batches, dispatches, ss_f.fusion_fallbacks) != (3, 12, 3, 0):
+        raise AssertionError(f"offload fusion counters: {row['offload_fusion']}")
+    agg_equal = all(v for k, v in equal.items() if not k.startswith("h"))
+    if not (all(equal.values()) or (agg_equal and max_diff <= TOL_FUSED_CARD)):
+        raise AssertionError(f"offload fused != serial: {equal}, max|Δ| {max_diff}")
     _require_launched(row, ("delta_agg", "segment_spmm"))
     return row
 
@@ -1065,7 +1381,8 @@ def main(argv=None) -> int:
     del graph
     serve = serving_data(min(args.n, SERVE_N), args.seed)
     serving_rows = [phase(serve, args.seed, kernels) for phase in (
-        phase_policy, phase_fusion_frontend, phase_storage, phase_baselines_odec)]
+        phase_policy, phase_fusion_frontend, phase_storage, phase_baselines_odec,
+        phase_offload, phase_hot_cache, phase_chunked_backend)]
     del serve
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     es = phase_edge_softmax_op(wl.base, gen, kernels)
@@ -1082,13 +1399,19 @@ def main(argv=None) -> int:
     # kernels at the shapes their paths used (GNN: largest layer caps over both runs)
     caps = {k: max(row["caps"][k] for row in engine_rows) for k in ("e", "r", "f", "fe")}
     rng = np.random.default_rng(args.seed)
-    chunk = serving_rows[0]["chunks"]  # the policy's chunked mode: a mean chunk's shape
+    serving = {row["phase"]: row for row in serving_rows}
+    chunk = serving["policy"]["chunks"]  # the policy's chunked mode: a mean chunk's shape
+    # the offload path's largest compact delta_agg call (gcn, phase offload)
+    off_e, off_r, off_live = max(serving["offload"]["delta_agg_compact_shapes"])
+    off_check = kernel_delta_agg(off_e, off_r, WIDTH + 1, gen, rng, live=off_live)
+    off_check["variant"] = "offload_compact"
     results = [
         kernel_segment_spmm(wl.base, WIDTH + 1, gen),  # gcn: [ctx (1) | raw (128)]
         kernel_segment_spmm_subset(caps["fe"], caps["f"], WIDTH + 2, gen, rng),  # gat
         kernel_segment_spmm_subset(next_bucket(chunk["edges_processed"] // chunk["chunks"]),
                                    8192, WIDTH + 1, gen, rng),  # chunked scheduler, gcn
         kernel_delta_agg(caps["e"], caps["r"], WIDTH + 1, gen, rng),
+        off_check,
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
@@ -1112,8 +1435,8 @@ def main(argv=None) -> int:
                  "library_ms": res["library_ms"]}
         if "fp32_simt_bound_ms" in res:
             entry["fp32_simt_bound_ms"] = res["fp32_simt_bound_ms"]
-        others = [{k: r[k] for k in ("variant", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")}
+        others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}
                   for r in results if r["name"] == name and "variant" in r]
         if others:
             entry["variants"] = others

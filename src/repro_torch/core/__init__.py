@@ -2,10 +2,13 @@
 
 from repro_torch.core.backend import (
     BatchStats,
+    ChunkedBackend,
     DeviceBackend,
+    OffloadBackend,
     StateBackend,
     StreamOrchestrator,
     StreamStats,
+    TransferStats,
 )
 from repro_torch.core.baselines import RTECUER, MTECPeriod, RTECFull, RTECSample
 from repro_torch.core.conditions import ConditionReport, certify, validate_registration
@@ -35,6 +38,9 @@ __all__ = [
     "StateBackend",
     "StreamOrchestrator",
     "DeviceBackend",
+    "OffloadBackend",
+    "ChunkedBackend",
+    "TransferStats",
     "full_forward",
     "LayerState",
     "RTECFull",

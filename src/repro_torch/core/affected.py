@@ -10,7 +10,10 @@ schedule per layer — a stable argsort of the masked ``e_rowidx`` plus
 ``row_ptr[r_cap+1]``, and the same for the ``f_rowidx`` records — shipped in
 its own int32 buffer (:attr:`PackedPlan.sched`).  Batch-window fusion
 (:class:`FusionWindow`) merges independent plans into one :class:`BatchPlan`
-that packs like any other.  Sharded and hybrid planning are not ported yet.
+that packs like any other.  The host-resident substrates' compact index
+spaces (:func:`remap_compact`) and the hot-row cache's residency split
+(:func:`split_residency`) close the module.  Sharded and hybrid planning are
+not ported yet.
 
 Per layer, the planner classifies work into:
 
@@ -803,4 +806,60 @@ def _merge_batches(batches: List[UpdateBatch]) -> UpdateBatch:
         ins_etypes=ins_t,
         feat_vertices=feat_v,
         feat_values=feat_x,
+    )
+
+
+# ====================================================================== #
+# Compact residency — the host-resident substrates' index spaces
+# ====================================================================== #
+def remap_compact(indices: np.ndarray, rows: np.ndarray, n_compact: int,
+                  scratch: int) -> np.ndarray:
+    """Map global vertex ids → compact positions; unmatched → n_compact."""
+    lut = np.full(scratch + 1, n_compact, np.int32)
+    if rows.size:
+        lut[rows] = np.arange(rows.shape[0], dtype=np.int32)
+    return lut[np.asarray(indices, np.int64)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidencySplit:
+    """Plan-time ``[cached | miss]`` partition of one layer's needed rows,
+    consumed by the device hot-row cache (``repro_torch.serve.hotcache``).
+
+    Positions index the *original* ``rows`` array; ``hit`` positions are
+    served from device cache slots, ``miss`` positions from the host
+    staging gather.  ``admit_midx``/``admit_slots`` (filled in by
+    ``HotRowCache.plan_reads``) name the miss positions whose staged
+    values should additionally be installed into fresh cache slots."""
+
+    hit_pos: np.ndarray  # int64 positions into rows (cached)
+    hit_slots: np.ndarray  # int32 device slot per hit position
+    miss_pos: np.ndarray  # int64 positions into rows (staged from host)
+    miss_rows: np.ndarray  # int64 global row ids, = rows[miss_pos]
+    admit_midx: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
+    admit_slots: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int32))
+
+
+def split_residency(rows: np.ndarray, slot_of: np.ndarray,
+                    exclude_rows: Optional[np.ndarray] = None) -> ResidencySplit:
+    """Split ``rows`` into cached hits and staged misses against a slot
+    table (``slot_of[r] < 0`` → not cached).  Rows in ``exclude_rows`` are
+    forced to miss even when cached — the cache uses this for rows written
+    earlier in the same batch, whose cached value is mid-update.  Pure
+    metadata: never reads state values, so it is safe on the plan side of
+    the plan/execute overlap."""
+    rows = np.asarray(rows, np.int64)
+    slots = slot_of[rows]
+    hit = slots >= 0
+    if exclude_rows is not None and np.asarray(exclude_rows).size:
+        hit &= ~np.isin(rows, np.asarray(exclude_rows, np.int64))
+    hit_pos = np.flatnonzero(hit).astype(np.int64)
+    miss_pos = np.flatnonzero(~hit).astype(np.int64)
+    return ResidencySplit(
+        hit_pos=hit_pos,
+        hit_slots=slots[hit_pos].astype(np.int32),
+        miss_pos=miss_pos,
+        miss_rows=rows[miss_pos],
     )

@@ -50,7 +50,8 @@ from __future__ import annotations
 import abc
 import dataclasses
 import time
-from typing import Any, List, Optional, Sequence, Tuple
+from functools import partial
+from typing import TYPE_CHECKING, Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,19 +67,26 @@ from repro_torch.core.affected import (
     build_plan,
     final_write_rows,
     pack_plan,
+    remap_compact,
 )
 from repro_torch.core.full import full_forward
 from repro_torch.core.incremental import (
     fused_stream_step,
     incremental_layer,
+    incremental_layer_inplace,
     packed_fields,
     with_scratch,
 )
 from repro_torch.core.operators import GNNModel, Params
 from repro_torch.core.policy import ExecutionPolicy, PlanCostEstimate
-from repro_torch.device import host_to_device
+from repro_torch.device import Spec, byte_layout, carve, host_to_device
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.streaming import UpdateBatch
+from repro_torch.kernels.segment_spmm import prepare_row_schedule
+from repro_torch.serve.staging import HostStagingPipeline, StagingStats, StagingTicket
+
+if TYPE_CHECKING:  # the backend takes a cache, never builds one
+    from repro_torch.serve.hotcache import CacheStats, HotRowCache
 
 
 # ====================================================================== #
@@ -125,8 +133,9 @@ class StreamStats:
     counts the batches whose plan completed with no intervening backend
     barrier — ``len(batches) - 1`` for a healthy pipeline.  The read-side
     fields are filled by :class:`repro_torch.serve.frontend.ServingFrontend`,
-    the fusion fields by fused streams.  The staging, cache and halo fields
-    belong to substrates not ported yet and stay zero; they are kept so that
+    the fusion fields by fused streams, the staging and cache fields by the
+    host-resident substrate.  The halo fields belong to the sharded
+    substrates, not ported yet, and stay zero; they are kept so that
     :meth:`as_dict` has the reference's key namespace."""
 
     batches: List[BatchStats]
@@ -271,6 +280,16 @@ class StateBackend(abc.ABC):
         """Complete any work ``dispatch`` deferred (a barrier: bump the
         epoch even when there is nothing to complete)."""
         self.barrier_epoch += 1
+
+    def staging_snapshot(self) -> Optional[StagingStats]:
+        """Snapshot of the backend's host-staging counters (None when the
+        substrate has no :class:`HostStagingPipeline`)."""
+        return None
+
+    def cache_snapshot(self) -> Optional[CacheStats]:
+        """Snapshot of the backend's device hot-row-cache counters (None
+        when no :class:`HotRowCache` is attached)."""
+        return None
 
     @abc.abstractmethod
     def synchronize(self) -> None:
@@ -471,6 +490,26 @@ class StreamOrchestrator:
             batch.ins_weights, batch.ins_etypes,
         )
 
+    def _snapshots(self):
+        return self.backend.staging_snapshot(), self.backend.cache_snapshot()
+
+    def _account(self, ss: StreamStats, snaps) -> StreamStats:
+        """Fill a stream's staging and cache fields: the counters' growth
+        since ``snaps`` (taken by :meth:`_snapshots` at the stream's start)."""
+        staging0, cache0 = snaps
+        if staging0 is not None:
+            s1 = self.backend.staging_snapshot()
+            ss.staged_bytes = s1.staged_bytes - staging0.staged_bytes
+            ss.sync_wait_s = ((s1.wait_gather_s + s1.drain_wait_s)
+                              - (staging0.wait_gather_s + staging0.drain_wait_s))
+            ss.compute_s = s1.wait_device_s - staging0.wait_device_s
+        if cache0 is not None:
+            c1 = self.backend.cache_snapshot()
+            ss.cache_hit_rows = c1.hit_rows - cache0.hit_rows
+            ss.cache_miss_rows = c1.miss_rows - cache0.miss_rows
+            ss.cache_evictions = c1.evictions - cache0.evictions
+        return ss
+
     def _after_batch(self, sync_before_refresh: bool = False) -> None:
         self._batches_seen += 1
         if self.refresh_every and self._batches_seen % self.refresh_every == 0:
@@ -638,6 +677,7 @@ class StreamOrchestrator:
         stats: List[BatchStats] = []
         plan_total = 0.0
         prefetch_hits = 0  # batches whose plan was built behind execution
+        snaps = self._snapshots()
 
         tp = time.perf_counter()
         g_new = self._apply_graph(batches[0])
@@ -668,8 +708,8 @@ class StreamOrchestrator:
             self._after_batch(sync_before_refresh=True)
         self.backend.flush()
         self.backend.synchronize()
-        return StreamStats(stats, time.perf_counter() - t_start, plan_total,
-                           prefetch_hits=prefetch_hits)
+        return self._account(StreamStats(stats, time.perf_counter() - t_start, plan_total,
+                                         prefetch_hits=prefetch_hits), snaps)
 
     # ------------------------------------------------------------------ #
     # batch-window fusion: buffer up to fusion.window pending batches, fuse
@@ -747,6 +787,7 @@ class StreamOrchestrator:
         plan_total = 0.0
         prefetch_hits = 0
         fusion0 = (self.fusion_windows, self.fused_batches, self.fusion_fallbacks)
+        snaps = self._snapshots()
 
         pending: List[_PendingPlan] = []
         nxt = 0  # next batch index to plan
@@ -827,7 +868,7 @@ class StreamOrchestrator:
         ss.fusion_windows = self.fusion_windows - fusion0[0]
         ss.fused_batches = self.fused_batches - fusion0[1]
         ss.fusion_fallbacks = self.fusion_fallbacks - fusion0[2]
-        return ss
+        return self._account(ss, snaps)
 
     def apply_window(self, batches: Sequence[UpdateBatch], on_plan=None) -> List[BatchStats]:
         """Blocking fused application of a *prefix* of ``batches``.
@@ -1112,3 +1153,806 @@ class DeviceBackend(StateBackend):
         self._h = [with_scratch(v) for v in h_new]
         self._a = [with_scratch(v) for v in a_new]
         self._nct = [with_scratch(v) for v in nct_new]
+
+
+# ====================================================================== #
+# OffloadBackend — host-resident state, compact per-layer staging (§V-B)
+# ====================================================================== #
+@dataclasses.dataclass
+class TransferStats:
+    rows_up: int = 0
+    rows_down: int = 0
+    bytes_up: int = 0
+    bytes_down: int = 0
+
+    @property
+    def total_rows(self) -> int:
+        """H2D+D2H row volume — deterministic (a function of the plans)."""
+        return self.rows_up + self.rows_down
+
+
+@dataclasses.dataclass
+class _CacheLayerOps:
+    """Plan-time device hot-row-cache schedule for one layer.
+
+    Built by ``_plan_cache`` next to the transfer tables (value-independent,
+    so it keeps the plan/execute overlap contract) and shipped with the
+    layer's tables.  All ``*_pos`` arrays are positions in the layer's
+    compact device workspace (``[nh]`` gather space, ``[ns]`` state space);
+    ``h_miss_src``/``s_miss_src`` are the global row ids the staging worker
+    still gathers (the cold misses); ``patch_src`` / ``*_wb_pos`` index the
+    previous / current layer's compact device outputs."""
+
+    # h^{l-1} gather space ("h", l): hits read device slots, misses stage
+    h_hit_pos: np.ndarray
+    h_hit_slots: np.ndarray
+    h_miss_pos: np.ndarray
+    h_miss_src: np.ndarray
+    h_admit_midx: np.ndarray  # miss-buffer rows to install into fresh slots
+    h_admit_slots: np.ndarray
+    # device-side new-view patch (previous layer's still-resident outputs)
+    patch_pos: np.ndarray
+    patch_src: np.ndarray
+    # state gather space ("s", l): a/nct/h_cur rows
+    s_hit_pos: np.ndarray
+    s_hit_slots: np.ndarray
+    s_miss_pos: np.ndarray
+    s_miss_src: np.ndarray
+    # in-place slot refresh from this layer's kernel outputs
+    s_wb_pos: np.ndarray
+    s_wb_slots: np.ndarray
+    hnext_wb_pos: np.ndarray
+    hnext_wb_slots: np.ndarray
+
+    #: the fields that ship to the device with the layer's tables
+    DEVICE_FIELDS = ("h_hit_pos", "h_hit_slots", "h_miss_pos", "h_admit_midx",
+                     "h_admit_slots", "patch_pos", "patch_src", "s_hit_pos", "s_hit_slots",
+                     "s_miss_pos", "s_wb_pos", "s_wb_slots", "hnext_wb_pos", "hnext_wb_slots")
+
+
+def _patch_positions(dst_keys: np.ndarray, src_rows: np.ndarray):
+    """Workspace positions (and source indices) of the new-view patch —
+    the same match :func:`_override_rows` performs on the host path, so
+    the cached device patch is position-for-position identical."""
+    idx = np.full(dst_keys.shape[0], -1, np.int64)
+    _override_rows(idx, np.asarray(dst_keys, np.int64), src_rows,
+                   np.arange(src_rows.shape[0], dtype=np.int64))
+    pos = np.flatnonzero(idx >= 0).astype(np.int64)
+    return pos, idx[pos]
+
+
+def _cache_assemble(n_rows: int, dim: int, device, miss_pos: torch.Tensor,
+                    miss_vals: torch.Tensor, hit_pos: torch.Tensor,
+                    hit_vals: Optional[torch.Tensor]) -> torch.Tensor:
+    """Device workspace assembly: a zeroed ``[n_rows + 1, dim]`` tensor (its
+    last row the layer's scratch row) and two index writes, the staged cold
+    misses and the cached hot rows.  Hit and miss positions partition the
+    rows, so the result is bitwise the staged workspace it replaces."""
+    out = torch.zeros((n_rows + 1, dim), dtype=torch.float32, device=device)
+    if miss_pos.shape[0]:
+        out[miss_pos] = miss_vals
+    if hit_pos.shape[0]:
+        out[hit_pos] = hit_vals
+    return out
+
+
+@dataclasses.dataclass
+class _LayerTransfer:
+    """Plan-time (value-independent) compact transfer tables for one layer.
+
+    ``tables`` are the kernel's index tables in compact space under the
+    field names ``incremental_layer`` reads (``touch_rows``/``f_rows``/
+    ``out_rows`` in state space, ``f_rows_h``/``out_rows_h`` and the edge
+    endpoints in the ``need_h`` gather space), the compact degree tables,
+    the row schedules of ``delta_agg`` and ``segment_spmm``, and with the
+    hot-row cache its positions and slots.  They ship with the layer's row
+    blocks in one copy, laid out by ``layout``."""
+
+    need_h: np.ndarray  # global ids of h^{l-1} rows the device needs
+    srows: np.ndarray  # global ids of state rows updated (= out_rows live)
+    tables: dict  # name → host array
+    layout: Optional["_StagedLayout"] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class _StagedLayout:
+    """Byte layout of one layer's staging buffer: its index tables, then
+    its float row blocks (``h_old``, ``h_new``, ``a``, ``nct``, ``h_cur``,
+    each with one zeroed scratch row after its rows, so the layer updates
+    them in place; with the cache, miss rows only, no scratch row and no
+    ``h_new``)."""
+
+    names: Tuple[str, ...]
+    specs: Tuple[Spec, ...]
+    offsets: Tuple[int, ...]
+    total: int
+    blocks: Tuple[str, ...]  # the float row blocks among ``names``
+
+    @staticmethod
+    def build(tables: dict, blocks: Sequence[Tuple[str, int, int]]) -> "_StagedLayout":
+        names = tuple(tables) + tuple(b[0] for b in blocks)
+        specs = tuple((a.shape, a.dtype) for a in tables.values()) + tuple(
+            ((rows, width), np.dtype(np.float32)) for _, rows, width in blocks)
+        offsets, total = byte_layout(specs)
+        return _StagedLayout(names, specs, tuple(offsets), total, tuple(b[0] for b in blocks))
+
+
+@dataclasses.dataclass
+class _OffloadPrep:
+    """Host-side output of the planning phase for one batch."""
+
+    plan: BatchPlan
+    batch: UpdateBatch
+    transfers: List[_LayerTransfer]
+    cache_ops: Optional[List[_CacheLayerOps]] = None
+
+    @property
+    def n_inc_edges(self) -> int:
+        return self.plan.total_inc_edges()
+
+    @property
+    def n_full_edges(self) -> int:
+        return self.plan.total_full_edges()
+
+    @property
+    def n_out_rows(self) -> int:
+        return self.plan.total_vertices()
+
+
+class _HostResidentBackend(StateBackend):
+    """Host-numpy state shared by :class:`OffloadBackend` and
+    :class:`ChunkedBackend`: ``h[0..L]``, ``a`` and ``nct`` come from
+    ``full_forward`` on the backend's device at construction and at
+    ``refresh``; the Serving API and the policy primitives gather and
+    scatter host arrays directly.  With a hot-row cache attached (offload)
+    the primitives invalidate the cached rows they rewrite (keyed by rows
+    only, so value-independent)."""
+
+    #: h^1..h^L are kept (no recompute-h option here); no fused device step
+    store_h = True
+    fused = False
+    _cache: Optional["HotRowCache"] = None
+
+    def __init__(self, model: GNNModel, params: Sequence[Params], graph: CSRGraph,
+                 x: np.ndarray, device):
+        self.model = model
+        self.params = list(params)
+        self.L = len(self.params)
+        self.device = torch.device(device)
+        self.x = np.asarray(x, np.float32)
+        self._init_state(self.x.copy(), graph)
+
+    def _init_state(self, h0: np.ndarray, graph: CSRGraph) -> None:
+        """``(h, a, nct)`` from ``full_forward`` on the device over the
+        features ``h0`` (kept as ``h[0]``).  The device tensors are dropped
+        on return: the whole state sits on the device only for this call."""
+        states = full_forward(self.model, self.params, torch.from_numpy(h0).to(self.device),
+                              graph)
+
+        def host(t: torch.Tensor) -> np.ndarray:
+            return t.cpu().contiguous().numpy()
+
+        self.h = [h0] + [host(s.h) for s in states]
+        self.a = [host(s.a) for s in states]
+        self.nct = [host(s.nct) for s in states]
+
+    @property
+    def embeddings(self) -> np.ndarray:
+        self.flush()
+        return self.h[-1]
+
+    def state_bytes(self) -> int:
+        return sum(t.nbytes for t in self.h + self.a + self.nct)
+
+    def synchronize(self) -> None:
+        """The host state is final after ``flush``; this also waits for the
+        device work the cache stores may still have queued."""
+        self.flush()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def refresh(self, graph: CSRGraph) -> None:
+        self.flush()
+        self._init_state(self.h[0], graph)
+        if self._cache is not None:  # every cached row may now be stale
+            self._cache.invalidate_all()
+
+    # ------------------------------------------------------------------ #
+    # Serving API: host-numpy gather; flush() first so a deferred final
+    # write-back can never be missed (a no-op at a version boundary)
+    # ------------------------------------------------------------------ #
+    def snapshot_rows(self, rows: np.ndarray) -> np.ndarray:
+        self.flush()
+        return self.h[-1][np.asarray(rows, np.int64)]
+
+    # ------------------------------------------------------------------ #
+    # policy-execution primitives: direct host-numpy scatters (the
+    # orchestrator flushes first, so no deferred write-back is in flight)
+    # ------------------------------------------------------------------ #
+    def apply_feature_updates(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        rows = np.asarray(rows, np.int64)
+        self.h[0][rows] = np.asarray(vals, np.float32)
+        if self._cache is not None:
+            self._cache.invalidate(("h", 0), rows)
+
+    def layer_input_host(self, l: int) -> np.ndarray:
+        return self.h[l]  # host-resident already: no device copy
+
+    def scatter_layer_rows(self, l: int, rows: np.ndarray, a_rows: np.ndarray,
+                           nct_rows: np.ndarray, h_rows: np.ndarray) -> None:
+        self.a[l][rows] = a_rows
+        self.nct[l][rows] = nct_rows
+        self.h[l + 1][rows] = h_rows
+        if self._cache is not None:
+            self._cache.invalidate(("s", l), rows)
+            self._cache.invalidate(("h", l + 1), rows)
+
+
+class _DeferredWritebackMixin:
+    """Deferred final-layer write-back + staging barrier of the host-resident
+    backend.  ``dispatch`` leaves the last layer's (device → host)
+    write-back pending — a :class:`StagingTicket` in async-staging mode (the
+    worker waits on the layer's D2H event and scatters), the raw payload in
+    sync mode — and ``flush`` completes it and **drains the staging
+    worker**, re-raising any worker exception on the caller thread.  The
+    orchestrator's next plan (and, async, even the next batch's gathers,
+    queued behind the write-back) runs while the device still executes the
+    final layer."""
+
+    _pending = None
+    _staging: Optional[HostStagingPipeline] = None
+    _cache: Optional["HotRowCache"] = None
+
+    def flush(self) -> None:
+        self.barrier_epoch += 1
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            if isinstance(pending, StagingTicket):
+                pending.wait()
+            else:
+                self._final_writeback(pending)
+        if self._staging is not None:
+            self._staging.drain()
+
+    def staging_snapshot(self) -> Optional[StagingStats]:
+        return self._staging.stats.snapshot()
+
+    def cache_snapshot(self) -> Optional["CacheStats"]:
+        return None if self._cache is None else self._cache.stats.snapshot()
+
+    @property
+    def async_staging(self) -> bool:
+        return self._staging.async_mode
+
+    def _cache_layer_ops(self, l: int, n: int, rows_h: np.ndarray, rows_s: np.ndarray,
+                         prev_rows: np.ndarray, deg: np.ndarray):
+        """Per-layer cache planning: the read splits for the ``("h", l)`` /
+        ``("s", l)`` spaces and the write-back slot refresh for ``("s", l)``
+        and ``("h", l+1)``.  ``prev_rows`` (the rows the batch wrote earlier
+        — layer l-1's scatter set, or the feature vertices for l=0) are
+        excluded from hits *and* staged-value admission: their cached slots
+        were just refreshed with post-write values, while layer l's old view
+        needs the pristine pre-batch rows."""
+        cache = self._cache
+        h_split = cache.plan_reads(("h", l), n, rows_h, deg[rows_h], exclude_rows=prev_rows)
+        s_split = cache.plan_reads(("s", l), n, rows_s, deg[rows_s], admit=False)
+        s_wb = cache.plan_writeback(("s", l), n, rows_s, deg[rows_s])
+        if l + 1 < self.L:
+            hn_wb = cache.plan_writeback(("h", l + 1), n, rows_s, deg[rows_s])
+        else:  # h^L is never re-read through the cache
+            hn_wb = (np.zeros(0, np.int64), np.zeros(0, np.int32))
+        return h_split, s_split, s_wb, hn_wb
+
+    def _prewarm_cache(self, graph: CSRGraph) -> None:
+        """Seed every cache row space from the base graph's top-degree rows
+        before batch 0 (``CacheConfig.prewarm_rows``).  Runs at construction,
+        after the initial full forward: the gathered values are the pristine
+        base state, so the coherence invariant holds trivially.  Degree ties
+        admit the smallest row id (stable argsort)."""
+        cache = self._cache
+        if cache is None or not cache.config.prewarm_rows:
+            return
+        k = min(int(cache.config.prewarm_rows), graph.n)
+        deg = graph.in_degree().astype(np.int64)
+        top = np.argsort(-deg, kind="stable")[:k].astype(np.int64)
+        degs = deg[top].astype(np.float32)
+        for l in range(self.L):
+            cache.prewarm(("h", l), graph.n, top, degs, {"h": self.h[l][top]})
+            cache.prewarm(("s", l), graph.n, top, degs, {
+                "a": self.a[l][top], "nct": self.nct[l][top], "h": self.h[l + 1][top]})
+
+    def _cache_invalidate_feats(self, batch: UpdateBatch) -> np.ndarray:
+        """Plan-time, value-independent invalidation for a batch's feature
+        scatter (it rewrites h[0] rows outside the kernel write-back path);
+        returns the feature rows as layer 0's exclusion set."""
+        if batch.feat_vertices is not None and np.asarray(batch.feat_vertices).size:
+            rows = np.asarray(batch.feat_vertices, np.int64)
+            self._cache.invalidate(("h", 0), rows)
+            return rows
+        return np.zeros(0, np.int64)
+
+    def _defer_final(self, payload) -> None:
+        """Queue the final layer's write-back: on the worker (async) or as
+        a raw pending payload completed inline at ``flush`` (sync)."""
+        pipe = self._staging
+        nb = 0 if payload is None or payload[-1] is None else payload[-1].nbytes
+        if pipe.async_mode:
+            self._pending = pipe.submit_writeback(
+                partial(self._final_writeback, payload), nbytes=nb, tag="final")
+        else:
+            pipe.stats.staged_bytes += nb
+            self._pending = payload
+
+
+class OffloadBackend(_DeferredWritebackMixin, _HostResidentBackend):
+    """Out-of-memory embedding management (paper §V-B).
+
+    The per-layer state (h, a, nct) lives as **host numpy**; per batch only
+    the compact row sets the plan touches go to the device, the port's own
+    incremental layer (:func:`~repro_torch.core.incremental.incremental_layer_inplace`)
+    runs in place on the shipped compact blocks (the layer is index-based,
+    so a compact view with remapped indices is exactly equivalent: step 1
+    launches ``delta_agg``, step 3's ``subset_layer`` ``segment_spmm``), and
+    all write-backs are grouped.
+    Host staging runs through a
+    :class:`~repro_torch.serve.staging.HostStagingPipeline`: pristine
+    per-layer gathers into pinned buffers prefetch on a background worker
+    while the device computes the previous layer, write-back scatters retire
+    there too, and the final layer's write-back is deferred to the worker
+    (``flush`` is the barrier) so batch-t+1 planning — and its gathers —
+    overlap the device's execution of batch t's last layer.
+    ``async_staging=False`` runs the identical staging jobs inline
+    (bitwise-identical output).
+
+    Each layer ships in **one** host→device copy: its index tables and row
+    schedules (built at plan time) and its float row blocks are laid end to
+    end in the layer's pinned staging buffer (:class:`_StagedLayout`), and
+    the outputs come back in one ``non_blocking`` D2H per tensor into pinned
+    buffers.  CUDA work stays on the calling thread; the worker waits on
+    events only."""
+
+    def __init__(self, model: GNNModel, params: Sequence[Params], graph: CSRGraph,
+                 x: np.ndarray, device="cuda", async_staging: bool = True,
+                 cache: Optional["HotRowCache"] = None):
+        self.transfers = TransferStats()
+        self._cache = cache
+        self._staging = HostStagingPipeline(len(params), async_mode=async_staging,
+                                            name="offload",
+                                            pinned=torch.device(device).type == "cuda")
+        super().__init__(model, params, graph, x, device)
+        self._prewarm_cache(graph)
+
+    def changed_rows(self, prep: _OffloadPrep) -> np.ndarray:
+        return np.unique(prep.transfers[-1].srows)
+
+    # ------------------------------------------------------------------ #
+    # planning phase (host only, value-independent)
+    # ------------------------------------------------------------------ #
+    def plan(self, g_old: CSRGraph, g_new: CSRGraph, batch: UpdateBatch,
+             base_plan: Optional[BatchPlan] = None) -> _OffloadPrep:
+        plan = (base_plan if base_plan is not None
+                else build_plan(self.model, g_old, g_new, batch, self.L))
+        n = g_old.n
+        prev_rows = (
+            np.asarray(batch.feat_vertices, np.int64)
+            if batch.feat_vertices is not None and batch.feat_vertices.size
+            else np.zeros(0, np.int64)
+        )
+        transfers: List[_LayerTransfer] = []
+        for lp in plan.layers:
+            need_h = np.unique(np.concatenate([
+                lp.e_src[lp.e_mask].astype(np.int64),
+                lp.e_dst[lp.e_mask].astype(np.int64),
+                lp.f_src[lp.f_emask].astype(np.int64),
+                lp.f_rows[lp.f_mask].astype(np.int64),
+                lp.out_rows[lp.out_mask].astype(np.int64),
+                prev_rows,
+            ]))
+            srows = lp.out_rows[lp.out_mask].astype(np.int64)
+            transfers.append(_LayerTransfer(need_h=need_h, srows=srows,
+                                            tables=_compact_tables(plan, lp, need_h, srows, n)))
+            prev_rows = srows
+        cache_ops = None
+        if self._cache is not None:
+            cache_ops = self._plan_cache(plan, batch, transfers)
+        for l, tr in enumerate(transfers):
+            tr.layout = self._layout(l, tr, None if cache_ops is None else cache_ops[l])
+        return _OffloadPrep(plan=plan, batch=batch, transfers=transfers, cache_ops=cache_ops)
+
+    def _layout(self, l: int, tr: _LayerTransfer, cops: Optional[_CacheLayerOps]) -> _StagedLayout:
+        """The layer's staging byte layout: tables (+ the cache's device
+        positions), then the float row blocks the worker gathers."""
+        d_in, da = self.h[l].shape[1], self.a[l].shape[1]
+        dc, d_out = self.nct[l].shape[1], self.h[l + 1].shape[1]
+        tables = dict(tr.tables)
+        if cops is None:  # + the scratch row
+            nh, ns = tr.need_h.shape[0] + 1, tr.srows.shape[0] + 1
+            blocks = [("h_old", nh, d_in), ("h_new", nh, d_in)]
+        else:
+            tables.update({f: getattr(cops, f) for f in _CacheLayerOps.DEVICE_FIELDS})
+            nh, ns = cops.h_miss_src.shape[0], cops.s_miss_src.shape[0]
+            blocks = [("h_old", nh, d_in)]
+        blocks += [("a", ns, da), ("nct", ns, dc), ("h_cur", ns, d_out)]
+        return _StagedLayout.build(tables, blocks)
+
+    def _plan_cache(self, plan: BatchPlan, batch: UpdateBatch,
+                    transfers: List[_LayerTransfer]) -> List[_CacheLayerOps]:
+        """Plan-time residency split for every layer (host only,
+        value-independent — it touches slot metadata and degree tables,
+        never row values).  Runs after dispatch(t-1) returned, so all of
+        batch t-1's cache-store updates are already recorded."""
+        cache = self._cache
+        n = plan.deg_old.shape[0] - 1  # deg tables carry a scratch slot
+        deg = plan.deg_new
+        cache.decay_tick()
+        prev_rows = self._cache_invalidate_feats(batch)
+        ops: List[_CacheLayerOps] = []
+        for l, tr in enumerate(transfers):
+            h_split, s_split, s_wb, hn_wb = self._cache_layer_ops(
+                l, n, tr.need_h, tr.srows, prev_rows, deg)
+            patch_pos, patch_src = _patch_positions(tr.need_h, prev_rows)
+            ops.append(_CacheLayerOps(
+                h_hit_pos=h_split.hit_pos, h_hit_slots=h_split.hit_slots,
+                h_miss_pos=h_split.miss_pos, h_miss_src=h_split.miss_rows,
+                h_admit_midx=h_split.admit_midx, h_admit_slots=h_split.admit_slots,
+                patch_pos=patch_pos, patch_src=patch_src,
+                s_hit_pos=s_split.hit_pos, s_hit_slots=s_split.hit_slots,
+                s_miss_pos=s_split.miss_pos, s_miss_src=s_split.miss_rows,
+                s_wb_pos=s_wb[0], s_wb_slots=s_wb[1],
+                hnext_wb_pos=hn_wb[0], hnext_wb_slots=hn_wb[1]))
+            prev_rows = tr.srows
+        return ops
+
+    # ------------------------------------------------------------------ #
+    def dispatch(self, prep: _OffloadPrep) -> None:
+        """Run all layers through the staging pipeline (see
+        :mod:`repro_torch.serve.staging` for the schedule).  Pristine
+        gathers for every layer enqueue up front — the in-order worker runs
+        them after any still-in-flight write-back of the previous batch and
+        before this batch's own write-backs, so each layer's staged
+        ``h_old`` view is exactly the pre-batch state and the ``h_new`` view
+        is the same rows patched with the previous layer's freshly computed
+        outputs.  The final layer's grouped write-back (the paper's "group
+        all updated embeddings and write them back in parallel") defers
+        entirely to the worker, behind the final D2H's event."""
+        pipe = self._staging
+        if not pipe.async_mode:
+            self.flush()  # inline staging jobs read host state directly
+        pipe.begin_batch()
+        batch = prep.batch
+
+        # layer-0 "previous layer outputs" = the batch's feature updates
+        if batch.feat_vertices is not None and batch.feat_vertices.size:
+            prev_rows = np.asarray(batch.feat_vertices, np.int64)
+            prev_new = np.asarray(batch.feat_values, np.float32)
+        else:
+            prev_rows = np.zeros(0, np.int64)
+            prev_new = np.zeros((0, self.h[0].shape[1]), np.float32)
+
+        ops = prep.cache_ops
+        tickets = []
+        for l, tr in enumerate(prep.transfers):
+            bufs = pipe.buffers(l)
+            # the caller takes (and may grow) the pinned buffer; the worker fills it
+            buf = bufs.take("layer", tr.layout.total, (), np.uint8) if _staged(tr) else None
+            tickets.append(pipe.submit_gather(
+                partial(self._gather_layer, l, tr, bufs, buf, None if ops is None else ops[l]),
+                tag=l))
+        if prev_rows.size:
+            # persist the feature update into h[0]; the in-order queue puts
+            # it after gather(0)'s pristine read and before the next batch
+            pipe.submit_writeback(partial(self._scatter_feats, prev_rows, prev_new),
+                                  nbytes=int(prev_new.nbytes), tag="feat")
+
+        # cached path: the previous layer's outputs stay device-resident so
+        # the new-view patch happens on device instead of via staged h_new
+        prev_dev = None
+        if ops is not None and prev_rows.size:
+            prev_dev = host_to_device([prev_new], self.device)[0]
+        final = None
+        for l, tr in enumerate(prep.transfers):
+            bufs = pipe.buffers(l)
+            staged = pipe.wait_gather(tickets[l])
+            if ops is None:
+                outs = self._layer_exec(l, tr, staged, prev_rows, prev_new)
+            else:
+                outs = self._layer_exec_cached(l, tr, staged, ops[l], prev_dev)
+                prev_dev = None if outs is None else outs[2]
+            copy = None
+            if outs is not None:
+                copy = pipe.copy_out(outs, bufs)
+                bufs.mark_in_flight(copy.event)  # covers the H2D before it too
+            # back to the allocator before the next layer: the stream orders
+            # any reuse after the D2H just queued
+            del outs
+            if l + 1 < self.L:
+                if copy is None:  # empty layer: nothing written back
+                    prev_rows = tr.srows
+                    prev_new = np.zeros((0, self.h[l + 1].shape[1]), np.float32)
+                else:
+                    a_np, nct_np, h_np = pipe.wait_device(copy)
+                    pipe.submit_writeback(
+                        partial(self._writeback_host, l, tr.srows, a_np, nct_np, h_np),
+                        nbytes=copy.nbytes, tag=l)
+                    prev_rows, prev_new = tr.srows, h_np
+            else:
+                final = (l, tr.srows, copy)
+        self._defer_final(final)
+
+    def _scatter_feats(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        self.h[0][rows] = vals
+
+    def _gather_layer(self, l: int, tr: _LayerTransfer, bufs, buf: Optional[np.ndarray],
+                      cops: Optional[_CacheLayerOps] = None):
+        """Staging-worker job: copy layer ``l``'s tables into its staging
+        buffer ``buf`` (of the set ``bufs``) and gather its compact rows
+        pristine (``h_new`` starts as a copy of ``h_old``; the caller patches
+        it before the H2D).  With the hot-row cache only the plan's cold
+        misses stage and no ``h_new`` view stages at all (the new-view patch
+        happens on the device).  Waits first until no queued copy still uses
+        the buffer set; numpy only."""
+        if buf is None:
+            return None
+        bufs.wait_free()
+        lay = tr.layout
+        views = dict(zip(lay.names, carve(buf, lay.specs, lay.offsets)))
+        for name, arr in tr.tables.items():
+            views[name][...] = arr
+        if cops is not None:
+            for name in _CacheLayerOps.DEVICE_FIELDS:
+                views[name][...] = getattr(cops, name)
+            h_src, s_src = cops.h_miss_src, cops.s_miss_src
+        else:
+            h_src, s_src = tr.need_h, tr.srows
+        staged = {"_buf": buf}
+        for name, src, rows in (("h_old", self.h[l], h_src), ("a", self.a[l], s_src),
+                                ("nct", self.nct[l], s_src), ("h_cur", self.h[l + 1], s_src)):
+            view = views[name]
+            staged[name] = np.take(src, rows, axis=0, out=view[:rows.shape[0]])
+            view[rows.shape[0]:] = 0  # the scratch row (uncached blocks)
+        if cops is None:
+            np.copyto(views["h_new"], views["h_old"])
+            staged["h_new"] = views["h_new"][:h_src.shape[0]]
+        return staged
+
+    def _put(self, tr: _LayerTransfer, staged) -> dict:
+        """The layer's one host→device copy (``non_blocking`` from the
+        pinned staging buffer on a card); returns the device views by
+        name.  On the CPU the views alias the staging buffer."""
+        lay = tr.layout
+        buf = torch.from_numpy(staged["_buf"])
+        if self.device.type == "cuda":
+            buf = buf.to(self.device, non_blocking=True)
+        return dict(zip(lay.names, carve(buf, lay.specs, lay.offsets)))
+
+    def _layer_exec(self, l: int, tr: _LayerTransfer, staged,
+                    prev_rows: np.ndarray, prev_new: np.ndarray):
+        """Patch the staged new-view rows with the previous layer's fresh
+        outputs, ship the layer in one copy, run the layer in place on the
+        shipped blocks; returns views of its ``a``/``nct``/``h_cur`` rows."""
+        if staged is None:
+            return None
+        nh, ns = tr.need_h.shape[0], tr.srows.shape[0]
+        h_new_rows = staged["h_new"]
+        _override_rows(h_new_rows, tr.need_h, prev_rows, prev_new)
+        self.transfers.rows_up += 2 * nh + 3 * ns
+        self.transfers.bytes_up += (2 * h_new_rows.nbytes + staged["a"].nbytes
+                                    + staged["nct"].nbytes + staged["h_cur"].nbytes)
+        dev = self._put(tr, staged)
+        incremental_layer_inplace(
+            self.model, self.params[l], dev["h_old"], dev["h_new"], dev["deg_old"],
+            dev["deg_new"], dev["a"], dev["nct"], dev["h_cur"],
+            {name: dev[name] for name in tr.tables})
+        return dev["a"][:ns], dev["nct"][:ns], dev["h_cur"][:ns]
+
+    def _layer_exec_cached(self, l: int, tr: _LayerTransfer, staged,
+                           cops: _CacheLayerOps, prev_dev: Optional[torch.Tensor]):
+        """Cached variant of :meth:`_layer_exec`: assemble the device
+        workspaces from staged cold misses + cached hot slots, patch the new
+        view on device from the previous layer's still-resident outputs, run
+        the identical layer, then refresh written slots in place from its
+        outputs (bitwise-equal to the uncached path — hits/misses partition
+        the rows, and the float32 round trip the uncached patch takes is
+        value-preserving).  Every store is read before this layer writes
+        it."""
+        if staged is None:
+            return None
+        cache = self._cache
+        nh, ns = tr.need_h.shape[0], tr.srows.shape[0]
+        self.transfers.rows_up += staged["h_old"].shape[0] + 3 * staged["a"].shape[0]
+        self.transfers.bytes_up += (staged["h_old"].nbytes + staged["a"].nbytes
+                                    + staged["nct"].nbytes + staged["h_cur"].nbytes)
+        dev = self._put(tr, staged)
+        d_in = self.h[l].shape[1]
+
+        def hits(key, name, width):
+            """The hit rows of one store (read before any write to it)."""
+            if not (cops.h_hit_pos if key[0] == "h" else cops.s_hit_pos).size:
+                return None
+            return cache.store(key, name, (width,))[dev[f"{key[0]}_hit_slots"]]
+
+        h_old_d = _cache_assemble(nh, d_in, self.device, dev["h_miss_pos"], dev["h_old"],
+                                  dev["h_hit_pos"], hits(("h", l), "h", d_in))
+        # install freshly admitted rows from the staged pristine values
+        if cops.h_admit_midx.size:
+            cache.update_store(("h", l), "h", dev["h_admit_slots"],
+                               dev["h_old"][dev["h_admit_midx"]])
+        if cops.patch_pos.size:
+            h_new_d = h_old_d.index_put((dev["patch_pos"],), prev_dev[dev["patch_src"]])
+        else:
+            h_new_d = h_old_d
+
+        s_key = ("s", l)
+        state = {}
+        for name, width in (("a", self.a[l].shape[1]), ("nct", self.nct[l].shape[1]),
+                            ("h", self.h[l + 1].shape[1])):
+            state[name] = _cache_assemble(ns, width, self.device, dev["s_miss_pos"],
+                                          dev["h_cur" if name == "h" else name],
+                                          dev["s_hit_pos"], hits(s_key, name, width))
+        incremental_layer_inplace(
+            self.model, self.params[l], h_old_d, h_new_d, dev["deg_old"], dev["deg_new"],
+            state["a"], state["nct"], state["h"], {name: dev[name] for name in tr.tables})
+        outs = (state["a"][:ns], state["nct"][:ns], state["h"][:ns])
+        # in-place slot refresh from the outputs: hot written rows skip the
+        # D2H→host→H2D re-staging round trip on the next batch
+        if cops.s_wb_pos.size:
+            for name, o in zip(("a", "nct", "h"), outs):
+                cache.update_store(s_key, name, dev["s_wb_slots"], o[dev["s_wb_pos"]])
+        if cops.hnext_wb_pos.size:
+            cache.update_store(("h", l + 1), "h", dev["hnext_wb_slots"],
+                               outs[2][dev["hnext_wb_pos"]])
+        return outs
+
+    def _writeback_host(self, l: int, srows: np.ndarray, a_new: np.ndarray,
+                        nct_new: np.ndarray, h_new: np.ndarray) -> None:
+        """Grouped host scatter of one layer's written-back rows (runs on
+        the staging worker in async mode)."""
+        self.a[l][srows] = a_new
+        self.nct[l][srows] = nct_new
+        self.h[l + 1][srows] = h_new
+        self.transfers.rows_down += 3 * srows.shape[0]
+        self.transfers.bytes_down += int(a_new.nbytes + nct_new.nbytes + h_new.nbytes)
+
+    def _final_writeback(self, payload) -> None:
+        """Final layer's scatter, once its D2H has landed — runs on the
+        staging worker (async) or at ``flush`` (sync escape hatch).  It
+        waits on the copy's event and touches no tensor."""
+        if payload is None:
+            return
+        l, srows, copy = payload
+        if copy is None:
+            return
+        a_new, nct_new, h_new = copy.wait()
+        self._writeback_host(l, srows, a_new, nct_new, h_new)
+
+
+def _staged(tr: _LayerTransfer) -> bool:
+    """Whether a layer has any row to stage (else it runs nothing)."""
+    return tr.need_h.shape[0] > 0 or tr.srows.shape[0] > 0
+
+
+def _compact_tables(plan: BatchPlan, lp, need_h: np.ndarray, srows: np.ndarray,
+                    n: int) -> dict:
+    """One layer's index tables in compact space, by the field names
+    :func:`~repro_torch.core.incremental.incremental_layer` reads.  Vertex
+    ids are remapped (gather space ``need_h``, state space ``srows``);
+    ``e_rowidx``/``f_rowidx`` are not, so the row schedules — built from the
+    same keys ``pack_plan`` uses — sum each row's records in the device
+    backend's order."""
+    nh, ns = need_h.shape[0], srows.shape[0]
+    e_order, e_row_ptr = prepare_row_schedule(np.where(lp.e_mask, lp.e_rowidx, -1),
+                                              lp.touch_rows.shape[0])
+    f_order, f_row_ptr = prepare_row_schedule(np.where(lp.f_emask, lp.f_rowidx, -1),
+                                              lp.f_rows.shape[0])
+    return {
+        "deg_old": np.concatenate([plan.deg_old[need_h], [0.0]]).astype(np.float32),
+        "deg_new": np.concatenate([plan.deg_new[need_h], [0.0]]).astype(np.float32),
+        "e_src": remap_compact(lp.e_src, need_h, nh, n),
+        "e_dst": remap_compact(lp.e_dst, need_h, nh, n),
+        "e_rowidx": lp.e_rowidx, "e_sign": lp.e_sign, "e_use_new": lp.e_use_new,
+        "e_w": lp.e_w, "e_t": lp.e_t, "e_mask": lp.e_mask,
+        "touch_rows": remap_compact(lp.touch_rows, srows, ns, n), "touch_mask": lp.touch_mask,
+        "f_rows": remap_compact(lp.f_rows, srows, ns, n), "f_mask": lp.f_mask,
+        "f_src": remap_compact(lp.f_src, need_h, nh, n), "f_rowidx": lp.f_rowidx,
+        "f_w": lp.f_w, "f_t": lp.f_t, "f_emask": lp.f_emask,
+        "out_rows": remap_compact(lp.out_rows, srows, ns, n), "out_mask": lp.out_mask,
+        "f_rows_h": remap_compact(lp.f_rows, need_h, nh, n),
+        "out_rows_h": remap_compact(lp.out_rows, need_h, nh, n),
+        "e_order": e_order, "e_row_ptr": e_row_ptr,
+        "f_order": f_order, "f_row_ptr": f_row_ptr,
+    }
+
+
+# ====================================================================== #
+# ChunkedBackend — host-resident state, chunked full-recompute execution
+# ====================================================================== #
+@dataclasses.dataclass
+class _ChunkedPrep:
+    """Prepared plan for the chunked substrate: the Alg.-4 affected sets
+    plus the post-batch graph (the chunk scheduler re-reads CSR edges at
+    execution time instead of baking transfer tables at plan time)."""
+
+    plan: BatchPlan
+    batch: UpdateBatch
+    g_new: CSRGraph
+    rows_per_layer: List[np.ndarray]  # live out_rows per layer (global ids)
+
+    @property
+    def n_inc_edges(self) -> int:
+        return self.plan.total_inc_edges()
+
+    @property
+    def n_full_edges(self) -> int:
+        return self.plan.total_full_edges()
+
+    @property
+    def n_out_rows(self) -> int:
+        return self.plan.total_vertices()
+
+
+class ChunkedBackend(_HostResidentBackend):
+    """Host-resident state executed through the §V-C chunked scheduler.
+
+    The per-layer state lives as host numpy (like :class:`OffloadBackend`)
+    but each batch executes by *constrained re-computation*: per layer, the
+    planner's live ``out_rows`` (every row whose a/nct/h may change) are
+    recomputed from the post-batch graph through
+    :class:`repro_torch.serve.scheduler.ChunkedLayerScheduler` on the
+    backend's device — destination-vertex chunks with inter-chunk
+    shard-embedding reuse, each chunk's sums through ``segment_spmm``, so
+    device residency is bounded by ``chunk_size`` however large a batch's
+    affected subgraph grows.  Output matches the incremental substrates to
+    numerical tolerance (recompute vs. signed incremental accumulation),
+    not bitwise.
+
+    Serving API: state is plain host numpy with no deferred write-back, so
+    ``snapshot_rows`` is a direct gather and ``changed_rows`` is the final
+    layer's planned recompute set."""
+
+    def __init__(self, model: GNNModel, params: Sequence[Params], graph: CSRGraph,
+                 x: np.ndarray, device="cuda", chunk_size: int = 8192,
+                 chunk_reuse: bool = True):
+        # deferred import: repro_torch.serve.scheduler pulls repro_torch.core.full
+        # while this module may itself be mid-import under repro_torch.core
+        from repro_torch.serve.scheduler import ChunkedLayerScheduler
+
+        self.scheduler = ChunkedLayerScheduler(model, chunk_size=chunk_size,
+                                               reuse=chunk_reuse, device=torch.device(device))
+        super().__init__(model, params, graph, x, device)
+
+    def changed_rows(self, prep: _ChunkedPrep) -> np.ndarray:
+        return prep.rows_per_layer[-1]
+
+    # ------------------------------------------------------------------ #
+    # policy-execution primitives: this substrate's native dispatch *is*
+    # the chunked mode — the policy path shares its scheduler (and its
+    # reuse/transfer counters), so policy-chosen chunked batches are
+    # bitwise-identical to native ones
+    # ------------------------------------------------------------------ #
+    def chunk_scheduler(self):
+        return self.scheduler
+
+    # ------------------------------------------------------------------ #
+    def plan(self, g_old: CSRGraph, g_new: CSRGraph, batch: UpdateBatch,
+             base_plan: Optional[BatchPlan] = None) -> _ChunkedPrep:
+        plan = (base_plan if base_plan is not None
+                else build_plan(self.model, g_old, g_new, batch, self.L))
+        rows = [np.unique(lp.out_rows[lp.out_mask].astype(np.int64)) for lp in plan.layers]
+        return _ChunkedPrep(plan=plan, batch=batch, g_new=g_new, rows_per_layer=rows)
+
+    def dispatch(self, prep: _ChunkedPrep) -> None:
+        """Layer-by-layer chunked recompute of the affected rows.  Layer
+        ``l`` reads ``h[l]`` *after* the previous layer's write-back (and
+        the batch's feature scatter for layer 0), so the recompute sees
+        exactly the incremental substrates' layer inputs."""
+        batch = prep.batch
+        if batch.feat_vertices is not None and batch.feat_vertices.size:
+            self.apply_feature_updates(batch.feat_vertices, batch.feat_values)
+        deg = prep.plan.deg_new[:-1]  # [n] new-graph degrees (drop scratch)
+        for l in range(self.L):
+            rows = prep.rows_per_layer[l]
+            if not rows.size:
+                continue
+            a_r, nct_r, h_r = self.scheduler.run_layer(self.params[l], prep.g_new,
+                                                       self.h[l], rows, deg)
+            self.scatter_layer_rows(l, rows, a_r, nct_r, h_r)

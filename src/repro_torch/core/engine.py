@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.core.backend import (
     BatchStats,
-    DeviceBackend,
+    StateBackend,
     StreamOrchestrator,
     StreamStats,
 )
@@ -32,10 +32,11 @@ from repro_torch.graph.streaming import UpdateBatch
 
 
 class RTECEngine:
-    """Device-resident engine facade: control goes to the orchestrator,
-    state to the backend."""
+    """Engine facade: control goes to the orchestrator, state to the
+    backend.  The host-resident facades (``OffloadedRTECEngine``,
+    ``ChunkedRTECEngine``) subclass it; their state views are host numpy."""
 
-    def __init__(self, backend: DeviceBackend, orch: StreamOrchestrator):
+    def __init__(self, backend: StateBackend, orch: StreamOrchestrator):
         self._backend = backend
         self._orch = orch
 
@@ -58,7 +59,8 @@ class RTECEngine:
         return self._backend.snapshot_rows(rows)
 
     def synchronize(self) -> None:
-        """Wait for every dispatched batch to finish on the device."""
+        """Wait for every dispatched batch to finish (on the device and, for
+        the offload backend, its deferred host write-back)."""
         self._backend.synchronize()
 
     def serving_frontend(self, max_pending_reads: int = 64, max_versions: int = 8):

@@ -50,7 +50,10 @@ from repro_torch.core.operators import GNNModel, Params
 from repro_torch.kernels.ops import delta_agg
 
 #: one layer's plan fields by name (LayerPlan / PackedPlan field names, plus
-#: the row schedules e_order, e_row_ptr, f_order, f_row_ptr)
+#: the row schedules e_order, e_row_ptr, f_order, f_row_ptr; and, in the
+#: host-resident backend's compact spaces, f_rows_h / out_rows_h: f_rows and
+#: out_rows remapped into the h^{l-1} workspace, which there is compacted
+#: apart from the state rows)
 Fields = Mapping[str, torch.Tensor]
 
 
@@ -112,7 +115,7 @@ def _layer_body(
     f_rows = g["f_rows"]
     if f_rows.shape[0] > 0:
         fa, fnct, _ = subset_layer(
-            model, p, h_prev_new, f_rows, g["f_mask"], g["f_src"], g["f_rowidx"],
+            model, p, h_prev_new, g.get("f_rows_h", f_rows), g["f_mask"], g["f_src"], g["f_rowidx"],
             g["f_w"], g["f_t"], g["f_emask"], deg_new, f_rows.shape[0],
             g["f_order"], g["f_row_ptr"],
         )
@@ -121,7 +124,7 @@ def _layer_body(
 
     # ---------------- step 4: vertex-wise update (Alg.1 l.7) ------------
     out = g["out_rows"]
-    return model.update(p, h_prev_new[out], a_ext[out])
+    return model.update(p, h_prev_new[g.get("out_rows_h", out)], a_ext[out])
 
 
 def incremental_layer(
@@ -139,11 +142,29 @@ def incremental_layer(
     """Per-layer API: returns new (a [N,agg], nct [N,C], h_cur [N,d_out])."""
     n = a.shape[0]
     a_ext, nct_ext, h_ext = with_scratch(a), with_scratch(nct), with_scratch(h_cur_old)
-    old_src, old_dst = gather_old(model, h_prev_old, g)
-    h_rows = _layer_body(model, p, old_src, old_dst, h_prev_new, deg_old, deg_new,
-                         a_ext, nct_ext, g)
-    h_ext[g["out_rows"]] = h_rows
+    incremental_layer_inplace(model, p, h_prev_old, h_prev_new, deg_old, deg_new,
+                              a_ext, nct_ext, h_ext, g)
     return a_ext[:n], nct_ext[:n], h_ext[:n]
+
+
+def incremental_layer_inplace(
+    model: GNNModel,
+    p: Params,
+    h_prev_old: torch.Tensor,  # WITH scratch row [N+1,·]
+    h_prev_new: torch.Tensor,  # WITH scratch row [N+1,·]
+    deg_old: torch.Tensor,  # [N+1]
+    deg_new: torch.Tensor,  # [N+1]
+    a_ext: torch.Tensor,  # [N+1, agg]  cached layer state, updated in place
+    nct_ext: torch.Tensor,  # [N+1, C]   updated in place
+    h_ext: torch.Tensor,  # [N+1, d_out] updated in place
+    g: Fields,
+) -> None:
+    """:func:`incremental_layer` on state that already carries its zeroed
+    scratch row (index N), updated in place: no copy of the state is made.
+    The host-resident backend stages its compact blocks this way."""
+    old_src, old_dst = gather_old(model, h_prev_old, g)
+    h_ext[g["out_rows"]] = _layer_body(model, p, old_src, old_dst, h_prev_new, deg_old,
+                                       deg_new, a_ext, nct_ext, g)
 
 
 def packed_fields(layout: PackedLayout, idx, flt, msk, sched) -> List[Dict[str, torch.Tensor]]:

@@ -1,31 +1,40 @@
 """Serving surface of the port: the engine factory (``create_engine``), the
 online read/write front-end with versioned snapshot reads
-(``ServingFrontend``), and the §V-C chunked scheduler (``serve.scheduler``)."""
+(``ServingFrontend``), the §V-C chunked scheduler (``serve.scheduler``), the
+host staging pipeline (``serve.staging``), the device hot-row cache
+(``serve.hotcache``) and the host-resident engine facade
+(``serve.offload``).
 
-from repro_torch.core.affected import FusionConfig
-from repro_torch.serve.api import (
-    BACKENDS,
-    EngineConfig,
-    create_engine,
-    resolve_device,
-    serving_frontend,
-)
-from repro_torch.serve.frontend import (
-    ReadRejectedError,
-    ReadTicket,
-    ServingFrontend,
-    StaleVersionError,
-)
+Exports resolve lazily (PEP 562): ``repro_torch.core.backend`` imports
+``repro_torch.serve.staging`` at module load, so an eager ``from .api import
+…`` here would close an import cycle through the partially-initialised core
+package."""
+from __future__ import annotations
 
-__all__ = [
-    "BACKENDS",
-    "EngineConfig",
-    "create_engine",
-    "resolve_device",
-    "serving_frontend",
-    "FusionConfig",
-    "ServingFrontend",
-    "ReadTicket",
-    "ReadRejectedError",
-    "StaleVersionError",
-]
+_API = ("BACKENDS", "PORTED_BACKENDS", "EngineConfig", "ChunkedRTECEngine",
+        "create_engine", "resolve_device", "serving_frontend")
+_FRONTEND = ("ServingFrontend", "ReadTicket", "ReadRejectedError", "StaleVersionError")
+_CACHE = ("CacheConfig", "CacheStats", "HotRowCache")
+_STAGING = ("StagingConfig", "StagingStats", "HostStagingPipeline")
+_OFFLOAD = ("OffloadedRTECEngine", "TransferStats")
+_AFFECTED = ("FusionConfig",)
+
+__all__ = list(_API + _FRONTEND + _CACHE + _STAGING + _OFFLOAD + _AFFECTED)
+
+
+def __getattr__(name: str):
+    if name in _API:
+        from repro_torch.serve import api as mod
+    elif name in _FRONTEND:
+        from repro_torch.serve import frontend as mod
+    elif name in _CACHE:
+        from repro_torch.serve import hotcache as mod
+    elif name in _STAGING:
+        from repro_torch.serve import staging as mod
+    elif name in _OFFLOAD:
+        from repro_torch.serve import offload as mod
+    elif name in _AFFECTED:
+        from repro_torch.core import affected as mod
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(mod, name)

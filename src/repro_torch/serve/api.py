@@ -1,16 +1,30 @@
 """The port's public engine API: one config, one factory.  Mirrors
 ``repro.serve.api``.
 
-``create_engine("device", EngineConfig(...))`` builds the single-device
-incremental engine: a :class:`~repro_torch.core.backend.DeviceBackend`
-under a :class:`~repro_torch.core.backend.StreamOrchestrator` (with the
-config's execution policy and batch-window fusion), behind the
-:class:`~repro_torch.core.engine.RTECEngine` facade.
-:func:`serving_frontend` (or ``engine.serving_frontend()``) attaches the
-read/write serving layer with versioned snapshot reads.  The other backends of
-the reference (offload, sharded, sharded_offload, chunked) are not ported
-yet; naming one raises ``NotImplementedError`` (ROADMAP.md, Queue 1 items
-8–9, says where each comes).
+``create_engine(backend, EngineConfig(...))`` builds a
+:class:`~repro_torch.core.backend.StateBackend` substrate under a
+:class:`~repro_torch.core.backend.StreamOrchestrator` (with the config's
+execution policy and batch-window fusion) behind its facade:
+
+* ``"device"`` — state in device memory, one fused in-place step a batch
+  (:class:`~repro_torch.core.backend.DeviceBackend`,
+  :class:`~repro_torch.core.engine.RTECEngine`);
+* ``"offload"`` — host-resident state, compact per-layer staging through
+  pinned buffers, optional device hot-row cache
+  (:class:`~repro_torch.core.backend.OffloadBackend`,
+  :class:`~repro_torch.serve.offload.OffloadedRTECEngine`; knobs
+  ``staging=StagingConfig(...)``, ``cache=CacheConfig(...)``);
+* ``"chunked"`` — host-resident state, every batch recomputed through the
+  §V-C chunked scheduler (:class:`~repro_torch.core.backend.ChunkedBackend`,
+  :class:`ChunkedRTECEngine`; knobs ``chunk_size``, ``chunk_reuse``).
+
+Knobs a backend does not consume are ignored by it, so one config can drive
+a backend sweep.  :func:`serving_frontend` (or ``engine.serving_frontend()``)
+attaches the read/write serving layer with versioned snapshot reads.  The
+reference's sharded backends (``"sharded"``, ``"sharded_offload"``) are not
+ported yet; naming one raises ``NotImplementedError`` (ROADMAP.md, Queue 1
+item 9).  The port has no deprecated alias constructors: build every facade
+through :func:`create_engine`.
 
 The engine runs on ``EngineConfig.device``, ``"cuda"`` unless the caller
 asks for the CPU; asking for ``"cuda"`` without a card raises.  The factory
@@ -25,28 +39,39 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.affected import FusionConfig
-from repro_torch.core.backend import DeviceBackend, StreamOrchestrator
+from repro_torch.core.backend import (
+    ChunkedBackend,
+    DeviceBackend,
+    OffloadBackend,
+    StreamOrchestrator,
+)
 from repro_torch.core.engine import RTECEngine
 from repro_torch.core.operators import GNNModel, Params
 from repro_torch.core.policy import DEFAULT_CHUNKED_WEIGHT, make_policy
 from repro_torch.device import resolve_device, set_fp32_precision
 from repro_torch.graph.csr import CSRGraph
+from repro_torch.serve.hotcache import CacheConfig, HotRowCache
+from repro_torch.serve.offload import OffloadedRTECEngine
+from repro_torch.serve.staging import StagingConfig
 
 #: every backend name the reference's ``create_engine`` accepts
 BACKENDS: Tuple[str, ...] = ("device", "offload", "sharded", "sharded_offload", "chunked")
 #: the ones the port implements
-PORTED_BACKENDS: Tuple[str, ...] = ("device",)
+PORTED_BACKENDS: Tuple[str, ...] = ("device", "offload", "chunked")
 
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Construction knobs of the device backend.
+    """Construction knobs of every ported backend.
 
     Required: ``model``, ``graph``, ``x``, and either ``params`` or
-    ``dims`` (+ ``seed``) to initialise them from a ``torch.Generator``."""
+    ``dims`` (+ ``seed``) to initialise them from a ``torch.Generator``.
+    Backend-specific knobs are ignored by backends that do not consume them
+    (``cache`` by everything but ``"offload"``)."""
 
     model: GNNModel
     graph: CSRGraph
@@ -61,7 +86,16 @@ class EngineConfig:
     store_h: bool = True
     #: one fused in-place step per batch; False runs the per-layer reference
     fused: bool = True
-    #: where the state lives and the kernels run
+    #: host-resident backend: staging pipeline + device hot-row cache.
+    #: ``staging=None`` means ``StagingConfig()`` (async); ``cache=None`` (or
+    #: ``CacheConfig(enabled=False)``) runs uncached
+    staging: Optional[StagingConfig] = None
+    cache: Optional[CacheConfig] = None
+    #: chunked backend: destination rows per chunk, inter-chunk reuse
+    chunk_size: int = 8192
+    chunk_reuse: bool = True
+    #: where the kernels run (and, for "device", where the state lives; the
+    #: host-resident backends keep it in host memory and stage to this device)
     device: str = "cuda"
     #: execution policy: None → every batch takes the incremental path;
     #: "adaptive" → per-batch cost-model choice of incremental / chunked /
@@ -84,6 +118,16 @@ class EngineConfig:
                            hysteresis=self.policy_hysteresis,
                            calibrate=self.policy_calibrate)
 
+    def resolved_staging(self) -> StagingConfig:
+        return self.staging if self.staging is not None else StagingConfig()
+
+    def resolved_cache(self) -> Optional[HotRowCache]:
+        """A fresh :class:`HotRowCache` per engine on the config's device
+        (slot state is engine state), or None when caching is off."""
+        if self.cache is None or not self.cache.enabled:
+            return None
+        return HotRowCache(self.cache, device=resolve_device(self.device))
+
     def resolved_params(self) -> Sequence[Params]:
         dev = resolve_device(self.device)
         if self.params is not None:
@@ -95,27 +139,65 @@ class EngineConfig:
         return self.model.init_layers(gen, list(self.dims), device=dev)
 
 
-def create_engine(backend: str, config: EngineConfig) -> RTECEngine:
+class ChunkedRTECEngine(RTECEngine):
+    """Facade of the chunked-recompute substrate
+    (:class:`~repro_torch.core.backend.ChunkedBackend`): host-resident
+    state, every batch executed through the §V-C
+    :class:`~repro_torch.serve.scheduler.ChunkedLayerScheduler` so device
+    residency is bounded by ``chunk_size``.  Output matches the incremental
+    engines to numerical tolerance (recompute vs. incremental
+    accumulation)."""
+
+    _backend: ChunkedBackend
+
+    @property
+    def chunk_stats(self):
+        """Chunk/transfer/reuse counters (:class:`ChunkStats`)."""
+        return self._backend.scheduler.stats
+
+
+def create_engine(backend: str, config: EngineConfig):
     """Construct a streaming engine for ``backend`` from one config.
 
-    Only ``"device"`` is ported; the reference's other backend names raise
-    ``NotImplementedError`` and unknown names ``ValueError``.  Turns TF32
-    off (see the module docstring)."""
+    ``"device"``, ``"offload"`` and ``"chunked"`` are ported; the
+    reference's sharded backend names raise ``NotImplementedError`` and
+    unknown names ``ValueError``.  Turns TF32 off (see the module
+    docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend not in PORTED_BACKENDS:
         raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (see ROADMAP.md, Queue 1); "
+            f"backend {backend!r} is not ported yet (see ROADMAP.md, Queue 1 item 9); "
             f"ported: {PORTED_BACKENDS}")
     set_fp32_precision()
     dev = resolve_device(config.device)
     params = config.resolved_params()
-    x = torch.as_tensor(config.x, dtype=torch.float32).to(dev)
-    sb = DeviceBackend(config.model, params, config.graph, x, store_h=config.store_h,
-                       fused=config.fused)
+    if backend == "device":
+        x = torch.as_tensor(config.x, dtype=torch.float32).to(dev)
+        sb = DeviceBackend(config.model, params, config.graph, x, store_h=config.store_h,
+                           fused=config.fused)
+        cls = RTECEngine
+    elif backend == "offload":
+        staging = config.resolved_staging()
+        sb = OffloadBackend(config.model, params, config.graph, _host_array(config.x),
+                            device=dev, async_staging=staging.async_enabled,
+                            cache=config.resolved_cache())
+        cls = OffloadedRTECEngine
+    else:
+        sb = ChunkedBackend(config.model, params, config.graph, _host_array(config.x),
+                            device=dev, chunk_size=config.chunk_size,
+                            chunk_reuse=config.chunk_reuse)
+        cls = ChunkedRTECEngine
     orch = StreamOrchestrator(sb, config.graph, refresh_every=config.refresh_every,
                               policy=config.resolved_policy(), fusion=config.fusion)
-    return RTECEngine(sb, orch)
+    return cls(sb, orch)
+
+
+def _host_array(x) -> np.ndarray:
+    """Features as a host float32 array (the host-resident state's h[0])."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.array(x, np.float32)
 
 
 def serving_frontend(engine, max_pending_reads: int = 64, max_versions: int = 8):

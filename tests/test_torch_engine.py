@@ -179,10 +179,12 @@ def test_factory_device_and_backend_errors():
     cfg = EngineConfig(model=make_model("gcn"), graph=wl.base, x=x, dims=[8, 8])
     assert cfg.device == "cuda"  # the card unless the caller asks for the CPU
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            create_engine("device", cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        create_engine("offload", cfg)
+        for backend in ("device", "offload", "chunked"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                create_engine(backend, cfg)
+    for backend in ("sharded", "sharded_offload"):
+        with pytest.raises(NotImplementedError, match="not ported.*item 9"):
+            create_engine(backend, cfg)
     with pytest.raises(ValueError, match="unknown backend"):
         create_engine("nope", cfg)
     eng = create_engine("device", EngineConfig(model=make_model("gcn"), graph=wl.base, x=x,

@@ -1,6 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, the
-engine's invariants with the kernels on its path, and the reduced LM on the
-card against the same LM on the CPU.
+engine's invariants with the kernels on its path, the host-resident engines
+(offload with pinned staging and the hot-row cache, chunked) against the
+same engines on the CPU, and the reduced LM on the card against the same LM
+on the CPU.
 
 Every test here needs a card and is marked ``gpu``; on a host without one
 each skips with its reason.  The file imports neither ``jax`` nor ``repro``
@@ -386,3 +388,89 @@ def test_certify_on_card_gives_the_cpu_verdicts(cuda):
                                              cpu.aggregate_assoc, cpu.dest_independent,
                                              cpu.struct_independent), name
         assert validate_registration(make_model(name)).incrementalizable
+
+
+# ---------------------------------------------------------------------- #
+# the host-resident substrates on the card: offload (pinned staging, the
+# hot-row cache) and the chunked backend
+# ---------------------------------------------------------------------- #
+def _host_engine(backend, name, wl, x, device, **kw):
+    return create_engine(backend, EngineConfig(
+        model=make_model(name), graph=wl.base, x=x, dims=[16, 16, 16], seed=0,
+        device=device, **kw))
+
+
+def _host_state(eng):
+    return [np.array(v) for kind in ("h", "a", "nct") for v in getattr(eng, kind)]
+
+
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+def test_offload_on_card_matches_cpu_and_launches_its_kernels(cuda, name):
+    x, wl = _stream()
+    gpu, cpu = _host_engine("offload", name, wl, x, "cuda"), _host_engine("offload", name, wl, x,
+                                                                           "cpu")
+    for i, b in enumerate(wl.batches):
+        n_seg, n_delta = smod.KERNEL.launches, dmod.KERNEL.launches
+        gpu.apply_batch(b)
+        cpu.apply_batch(b)
+        assert dmod.KERNEL.launches - n_delta == gpu.L  # step 1, once per layer
+        if name == "gat":
+            assert smod.KERNEL.launches > n_seg  # step 3's subset_layer
+        np.testing.assert_allclose(gpu.embeddings, cpu.embeddings, **TOL, err_msg=f"batch {i}")
+    assert gpu.transfers == cpu.transfers
+
+
+def test_chunked_on_card_matches_cpu(cuda):
+    x, wl = _stream()
+    gpu = _host_engine("chunked", "gcn", wl, x, "cuda", chunk_size=32)
+    cpu = _host_engine("chunked", "gcn", wl, x, "cpu", chunk_size=32)
+    for b in wl.batches[:4]:
+        n_seg = smod.KERNEL.launches
+        gpu.apply_batch(b)
+        cpu.apply_batch(b)
+        assert smod.KERNEL.launches > n_seg
+        np.testing.assert_allclose(gpu.embeddings, cpu.embeddings, **TOL)
+    assert gpu.chunk_stats == cpu.chunk_stats
+
+
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+def test_offload_on_card_cached_and_sync_are_bitwise(cuda, name):
+    from repro_torch.serve import CacheConfig, StagingConfig
+
+    x, wl = _stream()
+    runs = [_host_engine("offload", name, wl, x, "cuda", **kw) for kw in (
+        {}, {"cache": CacheConfig(capacity_rows=64)},
+        {"staging": StagingConfig(async_enabled=False)})]
+    stats = [eng.apply_stream(wl.batches) for eng in runs]
+    base = _host_state(runs[0])
+    for eng in runs[1:]:
+        assert all(np.array_equal(u, v) for u, v in zip(base, _host_state(eng)))
+    assert stats[1].cache_hit_rows > 0 and stats[1].staged_bytes < stats[0].staged_bytes
+    assert (stats[0].prefetch_hits, stats[2].prefetch_hits) == (len(wl.batches) - 1, 0)
+
+
+def test_offload_staging_buffers_are_pinned(cuda):
+    x, wl = _stream()
+    eng = _host_engine("offload", "gcn", wl, x, "cuda")
+    eng.apply_batch(wl.batches[0])
+    bufs = eng.staging.buffers(0)
+    assert bufs.pinned and bufs._bufs
+    for arr in bufs._bufs.values():
+        assert torch.from_numpy(arr).is_pinned()
+
+
+def test_offload_slow_gather_never_reuses_a_buffer_in_flight(cuda):
+    """A gather slowed on the worker shifts every buffer refill against the
+    device's copies: the state stays the sync engine's, bit for bit (a
+    refill that overran an in-flight copy would corrupt it)."""
+    import time
+
+    from repro_torch.serve import StagingConfig
+
+    x, wl = _stream()
+    slow = _host_engine("offload", "gat", wl, x, "cuda")
+    slow.staging.gather_hook = lambda tag: time.sleep(0.005)
+    sync = _host_engine("offload", "gat", wl, x, "cuda", staging=StagingConfig(async_enabled=False))
+    slow.apply_stream(wl.batches)
+    sync.apply_stream(wl.batches)
+    assert all(np.array_equal(u, v) for u, v in zip(_host_state(slow), _host_state(sync)))
