@@ -6,7 +6,7 @@
 
 Phases, one JSON line each:
 
-1. build   — compile the four CUDA kernels (``src/repro_torch/csrc``), one
+1. build   — compile the five CUDA kernels (``src/repro_torch/csrc``), one
              ``nvcc`` per source, started together; count the tensor-core
              instructions (``HGMMA``) in each library's SASS
              (``cuobjdump --dump-sass``): ``flash_attention`` must have some;
@@ -19,7 +19,9 @@ Phases, one JSON line each:
              busy time); the final embeddings are held against the
              port's own ``full_forward`` over the post-stream graph at 2e-4.
              Kernel launch counts are zeroed before and read after these
-             runs: each kernel must have launched on the main path;
+             runs: each GNN kernel (``delta_agg``, ``segment_spmm``,
+             ``row_linear``: every model product) must have launched on the
+             main path;
 3. edge_softmax_op — the standalone op ``ops.edge_softmax`` (no main path
              calls it) on the base graph's ≈10M in-edges with H = 2 (gat's
              heads), counts zeroed before and read after; held against
@@ -38,11 +40,13 @@ Phases, one JSON line each:
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
-             fp32 and 3e-2 in bf16; edge_softmax_normalize exactly), timed
-             with CUDA events beside its
-             plain version, a PyTorch yardstick where one call computes the
-             same function (``index_add_``; ``scaled_dot_product_attention``)
-             and its bound.
+             fp32 and 3e-2 in bf16; edge_softmax_normalize exactly;
+             row_linear ≤ 1e-5, and rows of ``A[:m] @ W`` bitwise rows of
+             ``A @ W`` for m ∈ {1, 2, 15, 16, 17, 32, 33, 1000} at K = N = 128
+             and K = 256), timed with CUDA events beside its plain version, a
+             PyTorch yardstick where one call computes the same function
+             (``index_add_``; ``scaled_dot_product_attention``;
+             ``torch.matmul``) and its bound.
 
 The serving layer of the GNN engine runs on its own
 ``make_graph("uniform", 100_000, avg_degree=10, weighted=True)`` graph
@@ -65,8 +69,9 @@ before its checks against ``full_forward``:
 8. fusion_frontend — the reference's ring-lattice fusion cell at n =
              100,000: 12 single-edge batches 45 rows apart under
              ``FusionConfig(window=4)``: exactly 3 windows, 12 fused batches,
-             3 dispatches; the same state as the serial loop (every a and
-             nct bitwise, h within 1e-6: ``TOL_FUSED_CARD`` says why); then a
+             3 dispatches; the same state as the serial loop, every h, a and
+             nct bitwise (``row_linear``'s rows do not depend on how many
+             rows a window puts into the update's product); then a
              ``ServingFrontend`` on the reference's 6-batch read schedule:
              10 reads, 8 batches of staleness, every read bitwise equal to
              the snapshot at its pinned version;
@@ -85,7 +90,7 @@ before its checks against ``full_forward``:
              through ``apply_stream``, each within 2e-4 of ``full_forward``;
              gcn with ``StagingConfig(async_enabled=False)`` bitwise equal to
              async (``prefetch_hits`` 5 and 0); gcn on the device engine
-             within ``TOL_FUSED_CARD`` (the equal tensors printed); transfer
+             bitwise equal (the equal tensors printed); transfer
              rows, staged bytes, staging waits, exec seconds a batch, and the
              stream's peak device bytes beside the device engine's state
              bytes, with each batch's largest staged layer (rows, buffer
@@ -102,8 +107,26 @@ before its checks against ``full_forward``:
 13. chunked_backend — ``create_engine("chunked", chunk_size=8192)`` on the
              stream's first 3 batches within 2e-4 of ``full_forward``, every
              batch launching ``segment_spmm``; then the ring cell of phase 8
-             through a fused window on the offload engine: 3/12/3, a and nct
-             bitwise the serial offload loop's, h within ``TOL_FUSED_CARD``.
+             through a fused window on the offload engine: 3/12/3, every
+             tensor bitwise the serial offload loop's;
+14. sharded — ``create_engine("sharded")`` with S logical shards on the
+             card (the loopback exchange): the reference's fig7 sharded
+             cell at its own size (powerlaw n = 300, dims [16, 16], S = 8):
+             ``halo_rows_sent`` 157 under ppermute and 584 under psum
+             (``benchmarks/check_regression.py`` ``COMMS_EXPECTED``), psum ≡
+             ppermute ≡ the device engine bitwise; then the serving graph at
+             full width, gcn and gat at S = 8 and S = 1: gcn bitwise the
+             device engine, gat within 2e-4 of ``full_forward``; every
+             batch launches ``delta_agg`` once per shard and layer, init
+             ``segment_spmm``; exec seconds a batch, halo rows and bytes,
+             state bytes;
+15. sharded_offload — ``create_engine("sharded_offload")`` at S = 8: the
+             fig7 cell's 731 transfer rows a shard, 470,016 staged bytes and
+             5 prefetch hits; hub_burst cached 616/532/0 (``CACHE_EXPECTED``)
+             and bitwise the uncached run; at full width gcn and gat bitwise
+             the offload engine, psum ≡ ppermute; staged bytes, transfer rows
+             a shard, ``sync_wait_s``, and the stream's peak device bytes
+             beside the offload engine's.
 
 The kernel checks include ``delta_agg`` at the offload path's largest
 compact shape (a variant beside the engine's).  Then a ``{"kernels":
@@ -140,14 +163,6 @@ TOL_SUMS = 1e-4  # edge-softmax sums: the reference's tests/test_kernels.py
 TOL_TEACHER = 2e-2  # teacher-forced logits: the reference's tests/test_archs_smoke.py
 TOL_ODEC = 1e-5  # ODEC vs the committed engine: the reference's tests/test_baselines.py
 TOL_STALE = 1e-6  # MTEC between refreshes vs its initial state: tests/test_baselines.py
-# fused window vs serial loop on the card.  Bitwise on the CPU (the tests hold
-# it with torch.equal); on the card the update's fp32 matmul (``a @ W`` in
-# ``model.update``) runs on more rows in a fused window, and cuBLAS picks
-# another kernel for another row count (rows 0..15 of A @ W differ between
-# M = 16 and M >= 32 by up to 1.4e-6 on an H100), so h^L differs in the last
-# bits.  Every aggregation state (a, nct) stays bitwise; the phase prints which
-# tensors are equal.
-TOL_FUSED_CARD = 1e-6
 #: per-regime adaptive decisions (incremental, chunked, full) and policy_edges,
 #: the rows ``adversarial/<regime>/policy_*`` of BENCH_baseline.json
 ADVERSARIAL_EXPECTED = {"hub_burst": (4, 0, 2, 3168), "delete_heavy": (3, 0, 3, 1608),
@@ -178,7 +193,14 @@ KERNEL_INFO = {  # TPU kernel name → its library (csrc/<lib>.cu), source and T
         "source": "src/repro_torch/csrc/edge_softmax.cu",
         "replaces": "src/repro/kernels/edge_softmax.py:60",
     },
+    "row_linear": {  # no TPU kernel: the models' fp32 products, left to XLA by the reference
+        "lib": "row_linear",
+        "source": "src/repro_torch/csrc/row_linear.cu",
+        "replaces": "none (port-only: the dense products of src/repro/core/models.py)",
+    },
 }
+ROW_COUNTS = (1, 2, 15, 16, 17, 32, 33, 1000)  # row_linear's row-count probe
+SHARDS = 8  # logical shards of the sharded phases (the reference's CI mesh)
 
 
 def emit(obj) -> None:
@@ -695,8 +717,7 @@ def phase_fusion_frontend(serve: dict, seed: int, kernels: dict) -> dict:
     emit(row)
     if (fusion["windows"], fusion["fused_batches"], dispatches, fusion["fallbacks"]) != (3, 12, 3, 0):
         raise AssertionError(f"fusion counters: {fusion}")
-    agg_equal = all(v for k, v in equal.items() if not k.startswith("h"))
-    if not (bitwise or (agg_equal and max_diff <= TOL_FUSED_CARD)):
+    if not bitwise:
         raise AssertionError(f"fused != serial: {equal}, max|Δ| {max_diff}")
     if (st.reads_served, st.staleness_batches) != (10, 8) or not reads_bitwise:
         raise AssertionError(f"frontend: {row['frontend']}")
@@ -836,9 +857,9 @@ def phase_baselines_odec(serve: dict, seed: int, kernels: dict) -> dict:
 
 
 def _host_state(eng) -> dict:
-    """A host-resident engine's state by tensor name (h0.., a0.., nct0..)."""
-    return {f"{kind}{l}": np.asarray(v) for kind in ("h", "a", "nct")
-            for l, v in enumerate(getattr(eng, kind))}
+    """An engine's state by tensor name (h0.., a0.., nct0..) as host arrays."""
+    return {f"{kind}{l}": v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+            for kind in ("h", "a", "nct") for l, v in enumerate(getattr(eng, kind))}
 
 
 def _compare(u: dict, v: dict):
@@ -883,7 +904,7 @@ def _stream_row(ss, eng=None) -> dict:
 def phase_offload(serve: dict, seed: int, kernels: dict) -> dict:
     """The §V-B offload engine at full width: gcn and gat through
     ``apply_stream`` (pinned async staging), gcn again with inline staging
-    (bitwise equal to async), on the device engine (``TOL_FUSED_CARD``), and
+    (bitwise equal to async), on the device engine (bitwise equal), and
     on a stream of 10-update batches, whose affected rows are a small share
     of V (the device footprint then follows the affected set).  Every drive
     is counted before the checks against ``full_forward``."""
@@ -937,8 +958,7 @@ def phase_offload(serve: dict, seed: int, kernels: dict) -> dict:
                             emb, r["model"], r["params"], final_features(x, r["batches"]),
                             eng.graph)}
     dev = runs["gcn_device"]["eng"]
-    dev_state = {f"{kind}{l}": v.cpu().numpy() for kind in ("h", "a", "nct")
-                 for l, v in enumerate(getattr(dev, kind))}
+    dev_state = _host_state(dev)
     sync_equal, sync_diff = _compare(_host_state(runs["gcn"]["eng"]),
                                      _host_state(runs["gcn_sync"]["eng"]))
     dev_equal, dev_diff = _compare(dev_state, _host_state(runs["gcn"]["eng"]))
@@ -958,7 +978,7 @@ def phase_offload(serve: dict, seed: int, kernels: dict) -> dict:
         raise AssertionError(f"offload prefetch_hits: {streams['gcn']}, {streams['gcn_sync']}")
     if not row["bitwise_async_vs_sync"]:
         raise AssertionError(f"offload async != sync: {sync_equal}")
-    if not dev_diff <= TOL_FUSED_CARD:
+    if not all(dev_equal.values()):
         raise AssertionError(f"device vs offload: {dev_equal}, max|Δ| {dev_diff}")
     for key in ("gcn", "gat", "gcn_sync", "gcn_small_batches"):
         for i, c in enumerate(per_batch[key]):
@@ -1116,10 +1136,199 @@ def phase_chunked_backend(serve: dict, seed: int, kernels: dict) -> dict:
             raise AssertionError(f"chunked backend batch {i}: segment_spmm not launched")
     if (ss_f.fusion_windows, ss_f.fused_batches, dispatches, ss_f.fusion_fallbacks) != (3, 12, 3, 0):
         raise AssertionError(f"offload fusion counters: {row['offload_fusion']}")
-    agg_equal = all(v for k, v in equal.items() if not k.startswith("h"))
-    if not (all(equal.values()) or (agg_equal and max_diff <= TOL_FUSED_CARD)):
+    if not all(equal.values()):
         raise AssertionError(f"offload fused != serial: {equal}, max|Δ| {max_diff}")
     _require_launched(row, ("delta_agg", "segment_spmm"))
+    return row
+
+
+def phase_sharded(serve: dict, seed: int, kernels: dict) -> dict:
+    """The row-sharded engine, S logical shards on the card: the
+    reference's fig7 sharded cell at its own size, then the serving graph
+    at full width against the device engine and ``full_forward``.  Every
+    drive is counted before the checks."""
+    import torch
+
+    from repro_torch.core import make_model
+    from repro_torch.serve import CommsConfig, EngineConfig, create_engine
+
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    gcn = make_model("gcn")
+    fx, fwl = _fig7_smoke()
+    fparams = gcn.init_layers(torch.Generator().manual_seed(seed), [16, 16], device="cuda")
+    fig7 = {}
+    for key, backend, kw in (("device", "device", {}),
+                             ("psum", "sharded", {"comms": CommsConfig(halo="psum")}),
+                             ("ppermute", "sharded", {"comms": CommsConfig(halo="ppermute")})):
+        if backend == "sharded":
+            kw["num_shards"] = SHARDS
+        eng = create_engine(backend, EngineConfig(model=gcn, graph=fwl.base, x=fx, params=fparams,
+                                                  device="cuda", **kw))
+        fig7[key] = (eng, eng.apply_stream(fwl.batches))
+    wl, x = serve["wl"], serve["x"]
+    runs = {}
+    for key, name, shards in (("gcn_device", "gcn", None), ("gcn_s8", "gcn", SHARDS),
+                              ("gcn_s1", "gcn", 1), ("gat_s8", "gat", SHARDS),
+                              ("gat_s1", "gat", 1)):
+        model = make_model(name)
+        params = _layer_params(model, seed)
+        kw = {} if shards is None else {"num_shards": shards}
+        c0 = _counts(kernels)
+        t0 = time.perf_counter()
+        eng = create_engine("device" if shards is None else "sharded", EngineConfig(
+            model=model, graph=wl.base, x=x, params=params, device="cuda", **kw))
+        torch.cuda.synchronize()
+        run = {"eng": eng, "model": model, "params": params, "shards": shards,
+               "init_s": time.perf_counter() - t0, "init_launches": _delta(_counts(kernels), c0)}
+        _, run["batches"] = _drive_batches(eng, wl.batches, kernels)  # each exec synchronised
+        runs[key] = run
+    launches = _counts(kernels)
+
+    fig7_state = {k: _host_state(e) for k, (e, _) in fig7.items()}
+    fig7_eq = {k: _compare(fig7_state["device"], fig7_state[k])[0] for k in ("psum", "ppermute")}
+    dev_state = _host_state(runs["gcn_device"]["eng"])
+    x_final = final_features(x, wl.batches)
+    full = {}
+    for key, r in runs.items():
+        eng = r["eng"]
+        comms = eng._backend.comms_snapshot()
+        row = {"shards": r["shards"], "init_s": r["init_s"], "init_launches": r["init_launches"],
+               "batches": r["batches"], "state_bytes": eng.state_bytes(),
+               "max_abs_err_vs_full_forward": _err_vs_full_forward(
+                   eng.embeddings, r["model"], r["params"], x_final, eng.graph)}
+        if comms is not None:
+            row.update(halo_rows=eng.halo_rows_total, halo_rows_sent=comms.halo_rows_sent,
+                       halo_bytes=comms.halo_bytes, halo_mode=eng.halo_mode)
+        if key.startswith("gcn_s"):
+            row["equal_vs_device"], row["max_abs_diff_vs_device"] = _compare(
+                dev_state, _host_state(eng))
+        full[key] = row
+    row = {"phase": "sharded", "seconds": time.perf_counter() - t_phase,
+           "fig7": {"n": fwl.base.n, "shards": SHARDS,
+                    "halo_rows_sent": {k: fig7[k][1].comms_halo_rows_sent
+                                       for k in ("psum", "ppermute")},
+                    "halo_bytes": {k: fig7[k][1].comms_halo_bytes for k in ("psum", "ppermute")},
+                    "wall_s": {k: fig7[k][1].wall_s for k in fig7},
+                    "equal_vs_device": fig7_eq},
+           "n": wl.base.n, "edges": wl.base.num_edges, "width": WIDTH, "layers": 2,
+           "full_width": full, "launches": launches}
+    emit(row)
+    got = (fig7["ppermute"][1].comms_halo_rows_sent, fig7["psum"][1].comms_halo_rows_sent)
+    if got != (157, 584):
+        raise AssertionError(f"fig7 sharded halo rows {got} != (157, 584)")
+    if not all(all(eq.values()) for eq in fig7_eq.values()):
+        raise AssertionError(f"fig7 sharded != device engine: {fig7_eq}")
+    for key in ("gcn_s8", "gcn_s1"):
+        if not all(full[key]["equal_vs_device"].values()):
+            raise AssertionError(f"sharded {key} != device engine: {full[key]['equal_vs_device']}")
+    for key, r in full.items():
+        if not r["max_abs_err_vs_full_forward"] <= TOL_ENGINE:
+            raise AssertionError(f"sharded {key} vs full_forward: {r['max_abs_err_vs_full_forward']}")
+        if r["init_launches"]["segment_spmm"] <= 0:
+            raise AssertionError(f"sharded {key}: init did not launch segment_spmm")
+        per = runs[key]["shards"] or 1
+        for i, b in enumerate(r["batches"]):
+            if b["launches"]["delta_agg"] != per * 2:
+                raise AssertionError(f"sharded {key} batch {i}: launches {b['launches']}")
+    _require_launched(row, ("delta_agg", "segment_spmm", "row_linear"))
+    return row
+
+
+def phase_sharded_offload(serve: dict, seed: int, kernels: dict) -> dict:
+    """The sharded-offload hybrid at S = 8: the reference's fig7 and
+    hub_burst counters at their own sizes, then the serving graph at full
+    width against the offload engine (bitwise) in both halo modes."""
+    import torch
+
+    from repro_torch.core import make_model
+    from repro_torch.serve import CacheConfig, CommsConfig, EngineConfig, create_engine
+
+    t_phase = time.perf_counter()
+    _zero_counts(kernels)
+    gcn = make_model("gcn")
+    fx, fwl = _fig7_smoke()
+    fig7_kw = dict(model=gcn, graph=fwl.base, x=fx, dims=[16, 16], seed=seed, device="cuda",
+                   num_shards=SHARDS)
+    fig7 = create_engine("sharded_offload", EngineConfig(**fig7_kw))
+    for b in fwl.batches:
+        fig7.apply_batch(b)
+    fig7_pipe = create_engine("sharded_offload", EngineConfig(**fig7_kw))
+    fig7_ss = fig7_pipe.apply_stream(fwl.batches)
+    hx, hwl = _hub_burst()
+    hub, hub_ss = {}, {}
+    for cached in (False, True):
+        hub[cached] = create_engine("sharded_offload", EngineConfig(
+            model=gcn, graph=hwl.base, x=hx, dims=[8, 8], seed=seed, device="cuda",
+            num_shards=SHARDS, cache=CacheConfig(capacity_rows=256) if cached else None))
+        hub_ss[cached] = hub[cached].apply_stream(hwl.batches)
+    wl, x = serve["wl"], serve["x"]
+    runs, per_batch = {}, {}
+    for key, name, backend, halo in (
+            ("gcn_offload", "gcn", "offload", None), ("gcn_hybrid", "gcn", "sharded_offload", "ppermute"),
+            ("gcn_hybrid_psum", "gcn", "sharded_offload", "psum"),
+            ("gat_offload", "gat", "offload", None), ("gat_hybrid", "gat", "sharded_offload", "ppermute"),
+            ("gat_hybrid_psum", "gat", "sharded_offload", "psum")):
+        model = make_model(name)
+        params = _layer_params(model, seed)
+        kw = {} if halo is None else {"num_shards": SHARDS, "comms": CommsConfig(halo=halo)}
+        eng = create_engine(backend, EngineConfig(model=model, graph=wl.base, x=x, params=params,
+                                                  device="cuda", **kw))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        per_batch[key] = []
+        _count_dispatches(eng, kernels, per_batch[key])
+        ss = eng.apply_stream(wl.batches)
+        torch.cuda.synchronize()
+        runs[key] = {"eng": eng, "ss": ss,
+                     "stream_mem_bytes": torch.cuda.max_memory_allocated() - base}
+    launches = _counts(kernels)
+
+    hub_equal, hub_diff = _compare(_host_state(hub[False]), _host_state(hub[True]))
+    states = {key: _host_state(r["eng"]) for key, r in runs.items()}
+    full = {}
+    for key, r in runs.items():
+        eng = r["eng"]
+        full[key] = {**_stream_row(r["ss"], eng), "stream_mem_bytes": r["stream_mem_bytes"],
+                     "launches_per_batch": per_batch[key], "state_bytes": eng.state_bytes()}
+        if "hybrid" in key:
+            full[key].update(
+                transfer_rows_per_shard=eng.per_shard_rows.tolist(),
+                peak_device_bytes=eng.peak_device_bytes,
+                halo_rows_sent=r["ss"].comms_halo_rows_sent,
+                halo_bytes=r["ss"].comms_halo_bytes)
+            ref = key.split("_")[0] + "_offload"
+            full[key]["equal_vs_offload"], full[key]["max_abs_diff_vs_offload"] = _compare(
+                states[ref], states[key])
+    row = {"phase": "sharded_offload", "seconds": time.perf_counter() - t_phase,
+           "fig7": {"n": fwl.base.n, "shards": SHARDS,
+                    "transfer_rows_per_shard_max": int(fig7.per_shard_rows.max()),
+                    **_stream_row(fig7_ss, fig7_pipe)},
+           "hub_burst": {"n": hwl.base.n, "uncached": _stream_row(hub_ss[False], hub[False]),
+                         "cached": _stream_row(hub_ss[True], hub[True]),
+                         "bitwise_cached_vs_uncached": all(hub_equal.values()),
+                         "max_abs_diff": hub_diff},
+           "n": wl.base.n, "edges": wl.base.num_edges, "width": WIDTH, "layers": 2,
+           "full_width": full, "launches": launches}
+    emit(row)
+    got = (row["fig7"]["transfer_rows_per_shard_max"], fig7_ss.staged_bytes,
+           fig7_ss.prefetch_hits)
+    if got != (731, 470_016, 5):
+        raise AssertionError(f"fig7 hybrid counters {got} != (731, 470016, 5)")
+    got = (hub_ss[True].cache_hit_rows, hub_ss[True].cache_miss_rows,
+           hub_ss[True].cache_evictions)
+    if got != (616, 532, 0) or not all(hub_equal.values()):
+        raise AssertionError(f"hub_burst hybrid cache {got} != (616, 532, 0) or cached != "
+                             f"uncached: {hub_equal}")
+    for key in ("gcn_hybrid", "gcn_hybrid_psum", "gat_hybrid", "gat_hybrid_psum"):
+        if not all(full[key]["equal_vs_offload"].values()):
+            raise AssertionError(f"hybrid {key} != offload: {full[key]['equal_vs_offload']}")
+        for i, c in enumerate(per_batch[key]):
+            # step 1 once per shard and layer; gat's step 3 through segment_spmm
+            if c["delta_agg"] != SHARDS * 2 or (key.startswith("gat") and c["segment_spmm"] <= 0):
+                raise AssertionError(f"hybrid {key} batch {i}: launches {c}")
+    _require_launched(row, ("delta_agg", "segment_spmm", "row_linear"))
     return row
 
 
@@ -1334,6 +1543,49 @@ def kernel_edge_softmax(graph, gen) -> dict:
             "library_note": "no single PyTorch call computes the gather-and-divide"}
 
 
+def _row_linear_inputs(m: int, k: int, n: int, gen):
+    """Embedding-like rows and a glorot weight, as the models' products get."""
+    import torch
+
+    a = torch.randn(m, k, device="cuda", generator=gen)
+    w = torch.randn(k, n, device="cuda", generator=gen) * (2.0 / (k + n)) ** 0.5
+    return a, w
+
+
+def kernel_row_linear(m: int, gen) -> dict:
+    """``row_linear`` at the update's shape on the main path (``a @ W`` over
+    all n rows in ``full_forward``, K = N = 128): kernel vs plain version,
+    the row-count probe at K = N = 128 and K = 256, times beside
+    ``torch.matmul`` (TF32 off) and the bound."""
+    import torch
+
+    from repro_torch.kernels.row_linear import row_linear, row_linear_plain
+
+    probe = {}
+    for k, n in ((WIDTH, WIDTH), (2 * WIDTH, WIDTH)):
+        a, w = _row_linear_inputs(ROW_COUNTS[-1], k, n, gen)
+        full = row_linear(a, w)
+        probe[f"K{k}_N{n}"] = {
+            "rows_independent": all(bool(torch.equal(row_linear(a[:r], w), full[:r]))
+                                    for r in ROW_COUNTS),
+            "matmul_max_row_diff": max(float(((a[:r] @ w) - (a @ w)[:r]).abs().max())
+                                       for r in ROW_COUNTS)}
+    a, w = _row_linear_inputs(m, WIDTH, WIDTH, gen)
+    out, ref = row_linear(a, w), row_linear_plain(a, w)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    del out, ref
+    ms = cuda_time_ms(lambda: row_linear(a, w), 20)
+    plain_ms = cuda_time_ms(lambda: row_linear_plain(a, w), 3, warmup=1)
+    lib_ms = cuda_time_ms(lambda: torch.matmul(a, w), 20)
+    bound_ms, by = _bound((m * WIDTH + WIDTH * WIDTH + m * WIDTH) * 4, 2 * m * WIDTH * WIDTH)
+    return {"name": "row_linear", "shape": {"M": m, "K": WIDTH, "N": WIDTH},
+            "max_abs_err": err, "within_tol": err <= TOL_KERNEL and all(
+                p["rows_independent"] for p in probe.values()),
+            "row_count_probe": probe, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms, "library": "torch.matmul (TF32 off)"}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="vertices (default 1,000,000)")
@@ -1352,13 +1604,15 @@ def main(argv=None) -> int:
         from repro_torch.kernels import delta_agg as dmod
         from repro_torch.kernels import edge_softmax as emod
         from repro_torch.kernels import flash_attention as fmod
+        from repro_torch.kernels import row_linear as rmod
         from repro_torch.kernels import segment_spmm as smod
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
         return 2
     set_fp32_precision()
     kernels = {"segment_spmm": smod.KERNEL, "delta_agg": dmod.KERNEL,
-               "flash_attention": fmod.KERNEL, "edge_softmax_normalize": emod.KERNEL}
+               "flash_attention": fmod.KERNEL, "edge_softmax_normalize": emod.KERNEL,
+               "row_linear": rmod.KERNEL}
 
     phase_build()
 
@@ -1373,7 +1627,7 @@ def main(argv=None) -> int:
     # each path: counts set to 0 just before it is driven, read just after
     engine_rows = [phase_engine(m, x, wl, args.seed, kernels) for m in ("gcn", "gat")]
     gnn = {name: sum(row["launches"][name] for row in engine_rows)
-           for name in ("segment_spmm", "delta_agg")}
+           for name in ("segment_spmm", "delta_agg", "row_linear")}
     emit({"phase": "main_path_launches", **gnn})
     for name, cnt in gnn.items():
         if cnt <= 0:
@@ -1382,7 +1636,8 @@ def main(argv=None) -> int:
     serve = serving_data(min(args.n, SERVE_N), args.seed)
     serving_rows = [phase(serve, args.seed, kernels) for phase in (
         phase_policy, phase_fusion_frontend, phase_storage, phase_baselines_odec,
-        phase_offload, phase_hot_cache, phase_chunked_backend)]
+        phase_offload, phase_hot_cache, phase_chunked_backend, phase_sharded,
+        phase_sharded_offload)]
     del serve
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     es = phase_edge_softmax_op(wl.base, gen, kernels)
@@ -1415,6 +1670,7 @@ def main(argv=None) -> int:
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
+        kernel_row_linear(wl.base.n, gen),
     ]
     for res in results:
         emit({"phase": "kernel", **res})

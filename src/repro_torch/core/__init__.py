@@ -3,8 +3,11 @@
 from repro_torch.core.backend import (
     BatchStats,
     ChunkedBackend,
+    CommsStats,
     DeviceBackend,
     OffloadBackend,
+    ShardBackend,
+    ShardedOffloadBackend,
     StateBackend,
     StreamOrchestrator,
     StreamStats,
@@ -18,6 +21,7 @@ from repro_torch.core.models import ALL_MODELS, make_model
 from repro_torch.core.odec import odec_query, query_cone
 from repro_torch.core.operators import GNNModel
 from repro_torch.core.params import params_from_numpy
+from repro_torch.core.sharded_engine import ShardedRTECEngine
 from repro_torch.core.policy import (
     MODES,
     ExecutionPolicy,
@@ -40,6 +44,10 @@ __all__ = [
     "DeviceBackend",
     "OffloadBackend",
     "ChunkedBackend",
+    "ShardBackend",
+    "ShardedOffloadBackend",
+    "ShardedRTECEngine",
+    "CommsStats",
     "TransferStats",
     "full_forward",
     "LayerState",

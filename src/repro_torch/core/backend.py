@@ -1,5 +1,5 @@
-"""Residency-backend architecture of the port: one orchestrator, one state
-substrate so far.  Mirrors the single-device part of ``repro.core.backend``.
+"""Residency-backend architecture of the port: one orchestrator, five state
+substrates.  Mirrors ``repro.core.backend``.
 
     UpdateBatch stream → StreamOrchestrator  (plan t+1 on the host while the
                               │               device executes t; honest timing;
@@ -8,10 +8,12 @@ substrate so far.  Mirrors the single-device part of ``repro.core.backend``.
                               │  StateBackend protocol (plan / dispatch /
                               │  flush / synchronize + serving and policy
                               │  primitives)
-                         DeviceBackend        (state in device memory as
-                                               scratch-extended [N+1, ·]
-                                               tensors; one fused in-place
-                                               L-layer step per batch)
+        ┌──────────────┬──────┴───────┬─────────────────┬──────────────────┐
+   DeviceBackend  OffloadBackend  ChunkedBackend   ShardBackend   ShardedOffloadBackend
+   ([N+1, ·]      (host numpy,    (host numpy,     ([S, rows_per  (per-shard host
+    tensors, one   compact staged  §V-C chunked     + 1, ·] row    row blocks,
+    fused step)    layers)         recompute)       blocks, halo   compact per-shard
+                                                    exchange)      staging)
 
 Protocol contract (what ``StreamOrchestrator`` relies on):
 
@@ -33,22 +35,23 @@ serving layer:
   chunked and full run on any substrate through three primitives
   (``apply_feature_updates`` / ``layer_input_host`` / ``scatter_layer_rows``);
 * batch-window fusion (:class:`~repro_torch.core.affected.FusionWindow`)
-  merges runs of independent batches into one packed plan and one device
-  step, bitwise-equal to the serial loop on the CPU; on a card every
-  aggregation state stays bitwise, while h may differ in the last bits
-  because cuBLAS picks the update matmul's kernel by row count;
+  merges runs of independent batches into one plan and one device step,
+  bitwise-equal to the serial loop on the CPU and on a card (the models'
+  products run in ``row_linear``, whose rows do not depend on how many rows
+  a window puts into them);
 * the serving API (``snapshot_rows`` / ``changed_rows``) on which
   :class:`repro_torch.serve.frontend.ServingFrontend` answers reads pinned
   to past versions.
 
-The host-resident and sharded substrates of the reference are not ported
-yet; ``StreamStats`` keeps the reference's full ``as_dict()`` key namespace,
-with their staging, cache and halo counters at zero.
+``StreamStats`` keeps the reference's full ``as_dict()`` key namespace; the
+host-resident substrates fill its staging and cache counters, the sharded
+ones its halo counters.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
+import threading
 import time
 from functools import partial
 from typing import TYPE_CHECKING, Any, List, Optional, Sequence, Tuple
@@ -61,25 +64,34 @@ from repro_torch.core.affected import (
     BucketHysteresis,
     FusionConfig,
     FusionWindow,
+    HybridLayerPlan,
     PackedLayout,
     PackedPlan,
+    ShardedPlan,
     build_packed_plan,
     build_plan,
     final_write_rows,
+    hybrid_plan,
     pack_plan,
     remap_compact,
+    shard_plan,
+    shard_rows,
 )
 from repro_torch.core.full import full_forward
 from repro_torch.core.incremental import (
     fused_stream_step,
+    hybrid_layer_step,
     incremental_layer,
     incremental_layer_inplace,
     packed_fields,
+    sharded_step,
     with_scratch,
 )
 from repro_torch.core.operators import GNNModel, Params
 from repro_torch.core.policy import ExecutionPolicy, PlanCostEstimate
 from repro_torch.device import Spec, byte_layout, carve, host_to_device
+from repro_torch.dist.exchange import LoopbackExchange
+from repro_torch.dist.sharding import CommsConfig, stream_shards
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.streaming import UpdateBatch
 from repro_torch.kernels.segment_spmm import prepare_row_schedule
@@ -134,9 +146,8 @@ class StreamStats:
     barrier — ``len(batches) - 1`` for a healthy pipeline.  The read-side
     fields are filled by :class:`repro_torch.serve.frontend.ServingFrontend`,
     the fusion fields by fused streams, the staging and cache fields by the
-    host-resident substrate.  The halo fields belong to the sharded
-    substrates, not ported yet, and stay zero; they are kept so that
-    :meth:`as_dict` has the reference's key namespace."""
+    host-resident substrates, the halo fields by the sharded substrates
+    (plan-derived: :class:`CommsStats`)."""
 
     batches: List[BatchStats]
     wall_s: float
@@ -239,6 +250,21 @@ class StreamStats:
 STREAM_STAT_KEYS: Tuple[str, ...] = tuple(StreamStats([], 0.0, 0.0).as_dict().keys())
 
 
+@dataclasses.dataclass(frozen=True)
+class CommsStats:
+    """Cumulative halo-exchange volume of a sharded backend.
+
+    Plan-derived — computed from the value-independent per-consumer
+    delivery sets, never measured off the device — so the counters are
+    bit-stable.  ``halo_rows_sent`` counts (row, consumer) deliveries: under
+    ``halo="ppermute"`` each halo row once per shard that gathers it; under
+    ``"psum"`` once per shard (the broadcast ceiling).  ``halo_bytes``
+    weights each delivery by its payload (the old and new views)."""
+
+    halo_rows_sent: int = 0
+    halo_bytes: int = 0
+
+
 # ====================================================================== #
 # StateBackend protocol
 # ====================================================================== #
@@ -289,6 +315,11 @@ class StateBackend(abc.ABC):
     def cache_snapshot(self) -> Optional[CacheStats]:
         """Snapshot of the backend's device hot-row-cache counters (None
         when no :class:`HotRowCache` is attached)."""
+        return None
+
+    def comms_snapshot(self) -> Optional[CommsStats]:
+        """Snapshot of the backend's halo-exchange counters (None for
+        unsharded substrates: no traffic between shards exists)."""
         return None
 
     @abc.abstractmethod
@@ -491,12 +522,14 @@ class StreamOrchestrator:
         )
 
     def _snapshots(self):
-        return self.backend.staging_snapshot(), self.backend.cache_snapshot()
+        return (self.backend.staging_snapshot(), self.backend.cache_snapshot(),
+                self.backend.comms_snapshot())
 
     def _account(self, ss: StreamStats, snaps) -> StreamStats:
-        """Fill a stream's staging and cache fields: the counters' growth
-        since ``snaps`` (taken by :meth:`_snapshots` at the stream's start)."""
-        staging0, cache0 = snaps
+        """Fill a stream's staging, cache and halo fields: the counters'
+        growth since ``snaps`` (taken by :meth:`_snapshots` at the stream's
+        start)."""
+        staging0, cache0, comms0 = snaps
         if staging0 is not None:
             s1 = self.backend.staging_snapshot()
             ss.staged_bytes = s1.staged_bytes - staging0.staged_bytes
@@ -508,6 +541,10 @@ class StreamOrchestrator:
             ss.cache_hit_rows = c1.hit_rows - cache0.hit_rows
             ss.cache_miss_rows = c1.miss_rows - cache0.miss_rows
             ss.cache_evictions = c1.evictions - cache0.evictions
+        if comms0 is not None:
+            m1 = self.backend.comms_snapshot()
+            ss.comms_halo_rows_sent = m1.halo_rows_sent - comms0.halo_rows_sent
+            ss.comms_halo_bytes = m1.halo_bytes - comms0.halo_bytes
         return ss
 
     def _after_batch(self, sync_before_refresh: bool = False) -> None:
@@ -1456,10 +1493,17 @@ class _DeferredWritebackMixin:
         deg = graph.in_degree().astype(np.int64)
         top = np.argsort(-deg, kind="stable")[:k].astype(np.int64)
         degs = deg[top].astype(np.float32)
+        rows = self._gather_state_rows
         for l in range(self.L):
-            cache.prewarm(("h", l), graph.n, top, degs, {"h": self.h[l][top]})
+            cache.prewarm(("h", l), graph.n, top, degs, {"h": rows(self.h[l], top)})
             cache.prewarm(("s", l), graph.n, top, degs, {
-                "a": self.a[l][top], "nct": self.nct[l][top], "h": self.h[l + 1][top]})
+                "a": rows(self.a[l], top), "nct": rows(self.nct[l], top),
+                "h": rows(self.h[l + 1], top)})
+
+    def _gather_state_rows(self, arr: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        """Global state rows of a host array (the sharded hybrid overrides
+        this with its per-shard block gather)."""
+        return arr[rows]
 
     def _cache_invalidate_feats(self, batch: UpdateBatch) -> np.ndarray:
         """Plan-time, value-independent invalidation for a batch's feature
@@ -1956,3 +2000,681 @@ class ChunkedBackend(_HostResidentBackend):
             a_r, nct_r, h_r = self.scheduler.run_layer(self.params[l], prep.g_new,
                                                        self.h[l], rows, deg)
             self.scatter_layer_rows(l, rows, a_r, nct_r, h_r)
+
+
+# ====================================================================== #
+# Row-sharded substrates: S shards own contiguous row blocks
+# ====================================================================== #
+class _ShardedMixin:
+    """Shard setup shared by the two row-sharded backends: the shard count
+    ``S``, the block size ``rows_per``, the resolved halo mode, and the
+    plan-derived halo counters (:class:`CommsStats`)."""
+
+    def _init_shards(self, graph: CSRGraph, num_shards: Optional[int], comms,
+                     exchange=None) -> None:
+        self.n = graph.n
+        self.S = stream_shards(num_shards, exchange)
+        self.rows_per = shard_rows(graph.n, self.S)
+        self.comms = comms if comms is not None else CommsConfig()
+        # resolved once: the mode must not flip batch to batch
+        self.halo_mode = self.comms.resolve_halo(self.S)
+        self.hwm = BucketHysteresis()
+        self._comms_rows_sent = 0
+        self._comms_bytes = 0
+
+    def comms_snapshot(self) -> CommsStats:
+        return CommsStats(halo_rows_sent=self._comms_rows_sent, halo_bytes=self._comms_bytes)
+
+
+class ShardBackend(_ShardedMixin, StateBackend):
+    """Scratch-extended per-layer state row-partitioned over ``S`` shards as
+    stacked ``[S, rows_per + 1, ·]`` device tensors (the last row of each
+    block is that shard's scratch row).  Each batch's plan is partitioned
+    per shard at plan time (:func:`~repro_torch.core.affected.shard_plan`)
+    and runs as one L-layer step (:func:`~repro_torch.core.incremental.sharded_step`):
+    per layer and shard one ``delta_agg`` launch over the shard's own row
+    schedule; init and refresh run ``full_forward`` (``segment_spmm``).
+
+    The halo moves through a :class:`~repro_torch.dist.exchange.HaloExchange`
+    under :class:`~repro_torch.dist.sharding.CommsConfig`: ``"psum"``
+    broadcasts the global frontier, ``"ppermute"`` (the ``"auto"`` choice
+    for S > 1) runs the per-consumer rotation rounds; both are bitwise
+    equal.  With the default :class:`~repro_torch.dist.exchange.LoopbackExchange`
+    all S shards live in this process on one device; with a
+    :class:`~repro_torch.dist.exchange.DistExchange` this process holds
+    its rank's block only, and the state views gather every block."""
+
+    store_h = True
+    fused = True
+
+    def __init__(self, model: GNNModel, params: Sequence[Params], graph: CSRGraph,
+                 x: torch.Tensor, num_shards: Optional[int] = None, comms=None,
+                 exchange=None):
+        self.model = model
+        self.params = list(params)
+        self.L = len(self.params)
+        self.device = x.device
+        self._init_shards(graph, num_shards, comms, exchange)
+        self.exchange = exchange if exchange is not None else LoopbackExchange(self.S)
+        self._local = np.asarray(self.exchange.local_shards, np.int64)
+        self.halo_rows_total = 0
+        self._init_state(graph, x)
+
+    # ------------------------------------------------------------------ #
+    # state: this process's [S_loc, rows_per+1, ·] blocks (last row scratch)
+    # ------------------------------------------------------------------ #
+    def _to_blocks(self, t: torch.Tensor) -> torch.Tensor:
+        out = t.new_zeros((len(self._local), self.rows_per + 1) + tuple(t.shape[1:]))
+        for i, s in enumerate(self._local):
+            lo = int(s) * self.rows_per
+            hi = min(self.n, lo + self.rows_per)
+            if hi > lo:
+                out[i, : hi - lo] = t[lo:hi]
+        return out
+
+    def _from_blocks(self, blocks: torch.Tensor) -> torch.Tensor:
+        full = self.exchange.all_gather(blocks)[:, : self.rows_per]
+        return full.reshape((self.S * self.rows_per,) + tuple(full.shape[2:]))[: self.n]
+
+    def _init_state(self, graph: CSRGraph, x: torch.Tensor) -> None:
+        states = full_forward(self.model, self.params, x, graph)
+        self._h: List[torch.Tensor] = [self._to_blocks(x)] + [self._to_blocks(s.h)
+                                                             for s in states]
+        self._a: List[torch.Tensor] = [self._to_blocks(s.a) for s in states]
+        self._nct: List[torch.Tensor] = [self._to_blocks(s.nct) for s in states]
+
+    def refresh(self, graph: CSRGraph) -> None:
+        """Full recomputation over ``graph`` and the *current* features (the
+        feature updates of the stream live in the h[0] blocks)."""
+        self._init_state(graph, self.x)
+
+    @property
+    def x(self) -> torch.Tensor:
+        return self._from_blocks(self._h[0])
+
+    @property
+    def h(self) -> List[torch.Tensor]:
+        return [self._from_blocks(v) for v in self._h]
+
+    @property
+    def a(self) -> List[torch.Tensor]:
+        return [self._from_blocks(v) for v in self._a]
+
+    @property
+    def nct(self) -> List[torch.Tensor]:
+        return [self._from_blocks(v) for v in self._nct]
+
+    @property
+    def embeddings(self) -> torch.Tensor:
+        return self._from_blocks(self._h[-1])
+
+    def state_bytes(self) -> int:
+        return sum(v.numel() * v.element_size() for v in (*self._h, *self._a, *self._nct))
+
+    def synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ #
+    # serving API: one gather over the blocks — row g lives at block
+    # [g // rows_per, g % rows_per] (the scratch row is never read)
+    # ------------------------------------------------------------------ #
+    def _block_index(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(shard, row within the shard's block) of global rows."""
+        r = np.asarray(rows, np.int64)
+        return r // self.rows_per, r % self.rows_per
+
+    def snapshot_rows(self, rows: np.ndarray) -> np.ndarray:
+        shard, local = (torch.from_numpy(v).to(self.device) for v in self._block_index(rows))
+        return self.exchange.all_gather(self._h[-1])[shard, local].cpu().numpy()
+
+    def changed_rows(self, prep: ShardedPlan) -> np.ndarray:
+        return prep.out_rows_final
+
+    # ------------------------------------------------------------------ #
+    # policy-execution primitives: in-place row writes into this process's
+    # blocks (rows owned elsewhere belong to another rank's writes)
+    # ------------------------------------------------------------------ #
+    def _scatter(self, blocks: torch.Tensor, rows: np.ndarray, vals: np.ndarray) -> None:
+        shard, local = self._block_index(rows)
+        slot = np.full(self.S, -1, np.int64)  # shard → its block here, -1: another rank's
+        slot[self._local] = np.arange(len(self._local))
+        i = slot[shard]
+        mine = i >= 0
+        idx, vals_d = host_to_device(
+            (np.stack([i[mine], local[mine]]), np.asarray(vals, np.float32)[mine]), self.device)
+        blocks[idx[0], idx[1]] = vals_d
+
+    def apply_feature_updates(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        self._scatter(self._h[0], rows, vals)
+
+    def layer_input_host(self, l: int) -> np.ndarray:
+        return self._from_blocks(self._h[l]).to("cpu", copy=True).numpy()
+
+    def scatter_layer_rows(self, l: int, rows: np.ndarray, a_rows: np.ndarray,
+                           nct_rows: np.ndarray, h_rows: np.ndarray) -> None:
+        self._scatter(self._a[l], rows, a_rows)
+        self._scatter(self._nct[l], rows, nct_rows)
+        self._scatter(self._h[l + 1], rows, h_rows)
+
+    # ------------------------------------------------------------------ #
+    def plan(self, g_old: CSRGraph, g_new: CSRGraph, batch: UpdateBatch,
+             base_plan: Optional[BatchPlan] = None) -> ShardedPlan:
+        plan = (base_plan if base_plan is not None
+                else build_plan(self.model, g_old, g_new, batch, self.L))
+        return shard_plan(plan, self.S, batch.feat_vertices, batch.feat_values, hwm=self.hwm,
+                          halo_mode=self.halo_mode,
+                          pair_hysteresis=self.comms.pair_capacity_hysteresis)
+
+    def dispatch(self, sp: ShardedPlan) -> None:
+        """One host→device copy of this process's plan rows (and the
+        replicated tables), then the step."""
+        loc = self._local
+        d0 = self._h[0].shape[2]
+        fv = sp.feat_vals if sp.feat_vals is not None else np.zeros((0, d0), np.float32)
+        arrays = [sp.idx_sh[loc], sp.flt_sh[loc], sp.msk_sh[loc], sp.sched_sh[loc],
+                  sp.idx_rep, sp.msk_rep, fv]
+        for send, recv in sp.comms_sh or ():
+            arrays += [send[loc], recv[loc]]
+        dev = host_to_device(arrays, self.device)
+        idx, flt, msk, sched, idx_rep, msk_rep, feat_vals = dev[:7]
+        comms = [(dev[7 + 2 * l], dev[8 + 2 * l]) for l in range(len(sp.comms_sh or ()))]
+        # plan-derived halo traffic: each delivered row carries its old and
+        # new previous-layer views
+        for l, rows_l in enumerate(sp.comms_rows or ()):
+            self._comms_rows_sent += rows_l
+            self._comms_bytes += rows_l * 2 * int(self._h[l].shape[-1]) * 4
+        self._h = sharded_step(self.model, sp.layout, self.params, self._h, self._a, self._nct,
+                               idx, flt, msk, sched, idx_rep, msk_rep,
+                               feat_vals if sp.layout.feat_cap else None, comms or None,
+                               self.exchange)
+        self.halo_rows_total += sp.n_halo_rows
+
+
+@dataclasses.dataclass
+class _HybridPrep:
+    """Host-side output of hybrid planning for one batch: the per-shard
+    compact tables, the cache schedule, and each layer's staging tables and
+    byte layout."""
+
+    plan: BatchPlan
+    batch: UpdateBatch
+    layers: List[HybridLayerPlan]
+    tables: List[dict]  # per layer: name → host array shipped with the layer
+    layouts: List["_StagedLayout"]
+    cache_ops: Optional[List[_CacheLayerOps]] = None
+
+    @property
+    def n_inc_edges(self) -> int:
+        return self.plan.total_inc_edges()
+
+    @property
+    def n_full_edges(self) -> int:
+        return self.plan.total_full_edges()
+
+    @property
+    def n_out_rows(self) -> int:
+        return self.plan.total_vertices()
+
+
+def _scratch_pos(pos: np.ndarray, cap: int) -> np.ndarray:
+    """Flat positions in ``[S·cap]`` → the same slots in ``[S·(cap+1)]``,
+    where each shard's compact block carries its scratch row at ``cap``."""
+    pos = np.asarray(pos, np.int64)
+    return pos + pos // cap
+
+
+class ShardedOffloadBackend(_ShardedMixin, _DeferredWritebackMixin, StateBackend):
+    """Row sharding × host-resident state: every shard keeps **only its own
+    row block** of the per-layer state in host memory (stacked ``[S,
+    rows_per, ·]`` numpy).  Per batch and layer the plan is partitioned by
+    destination-row owner (:func:`~repro_torch.core.affected.hybrid_plan`;
+    scatters stay owner-local) and each shard stages a compact ``[halo |
+    local]`` workspace: the rows it needs but does not own are gathered from
+    the other shards' *host* blocks — the host is the exchange medium, so no
+    device collective runs.  Device residency is O(per-shard affected
+    subgraph), never O(V).
+
+    Staging is :class:`OffloadBackend`'s: a
+    :class:`~repro_torch.serve.staging.HostStagingPipeline` gathers each
+    layer's tables and every shard's blocks (each with its zeroed scratch
+    row) into one pinned buffer, shipped in one host→device copy; each
+    shard then runs :func:`~repro_torch.core.incremental.incremental_layer_inplace`
+    on its blocks (:func:`~repro_torch.core.incremental.hybrid_layer_step`:
+    ``delta_agg`` per shard, a constrained model's ``segment_spmm`` too),
+    and the write-back scatters into the host blocks retire on the worker.
+    Under ``halo="ppermute"`` the new view is patched on the device from
+    the previous layer's still-resident outputs (``patch_pos`` /
+    ``patch_src``) instead of a staged ``h_new`` copy; bitwise the same.
+    The device hot-row cache works as on :class:`OffloadBackend`, its
+    positions in the flat ``[S·(cap+1)]`` workspaces."""
+
+    store_h = True
+    fused = False
+
+    def __init__(self, model: GNNModel, params: Sequence[Params], graph: CSRGraph,
+                 x: np.ndarray, device="cuda", num_shards: Optional[int] = None, comms=None,
+                 async_staging: bool = True, cache: Optional["HotRowCache"] = None):
+        self.model = model
+        self.params = list(params)
+        self.L = len(self.params)
+        self.device = torch.device(device)
+        self._init_shards(graph, num_shards, comms)
+        self.transfers = TransferStats()
+        self._cache = cache
+        self._staging = HostStagingPipeline(self.L, async_mode=async_staging, name="hybrid",
+                                            pinned=self.device.type == "cuda")
+        # the caller (rows up) and the staging worker (rows down) both count
+        self._acc_lock = threading.Lock()
+        # per-shard H2D+D2H row volume: each shard's traffic is bounded by
+        # its own affected subgraph
+        self.per_shard_rows = np.zeros(self.S, np.int64)
+        # largest one-layer device footprint (the state stays on the host)
+        self.peak_device_bytes = 0
+        self._init_state(graph, np.asarray(x, np.float32))
+        self._prewarm_cache(graph)
+
+    # ------------------------------------------------------------------ #
+    # state: host-resident per-shard row blocks [S, rows_per, ·]
+    # ------------------------------------------------------------------ #
+    def _to_blocks(self, arr: np.ndarray) -> np.ndarray:
+        flat = np.asarray(arr, np.float32)
+        out = np.zeros((self.S, self.rows_per) + flat.shape[1:], np.float32)
+        out.reshape((self.S * self.rows_per,) + flat.shape[1:])[: self.n] = flat
+        return out
+
+    def _from_blocks(self, blocks: np.ndarray) -> np.ndarray:
+        return blocks.reshape((self.S * self.rows_per,) + blocks.shape[2:])[: self.n]
+
+    def _flat(self, blocks: np.ndarray) -> np.ndarray:
+        """The blocks as one ``[S·rows_per, ·]`` view: block-contiguous
+        ownership makes the flat index the global row id."""
+        return blocks.reshape((self.S * self.rows_per,) + blocks.shape[2:])
+
+    def _gather_state_rows(self, arr: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        return self._flat(arr)[np.asarray(rows, np.int64)]
+
+    def _scatter_rows(self, blocks: np.ndarray, rows: np.ndarray, vals: np.ndarray) -> None:
+        self._flat(blocks)[np.asarray(rows, np.int64)] = vals
+
+    def _init_state(self, graph: CSRGraph, x: Optional[np.ndarray] = None) -> None:
+        if x is None:
+            x = self._from_blocks(self.h[0]).copy()
+        states = full_forward(self.model, self.params, torch.from_numpy(x).to(self.device),
+                              graph)
+
+        def blocks(t: torch.Tensor) -> np.ndarray:
+            return self._to_blocks(t.cpu().numpy())
+
+        self.h: List[np.ndarray] = [self._to_blocks(x)] + [blocks(s.h) for s in states]
+        self.a: List[np.ndarray] = [blocks(s.a) for s in states]
+        self.nct: List[np.ndarray] = [blocks(s.nct) for s in states]
+
+    def refresh(self, graph: CSRGraph) -> None:
+        self.flush()
+        self._init_state(graph)
+        if self._cache is not None:  # every cached row may now be stale
+            self._cache.invalidate_all()
+
+    @property
+    def embeddings(self) -> np.ndarray:
+        self.flush()
+        return self._from_blocks(self.h[-1])
+
+    def state_bytes(self) -> int:
+        return sum(v.nbytes for v in (*self.h, *self.a, *self.nct))
+
+    def synchronize(self) -> None:
+        self.flush()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ #
+    # serving API: flush first (a no-op at a version boundary), then gather
+    # from the per-shard host blocks
+    # ------------------------------------------------------------------ #
+    def snapshot_rows(self, rows: np.ndarray) -> np.ndarray:
+        self.flush()
+        return self._gather_state_rows(self.h[-1], rows)
+
+    def changed_rows(self, prep: _HybridPrep) -> np.ndarray:
+        tr = prep.layers[-1]
+        return np.unique(tr.srows[tr.srows_mask].astype(np.int64))
+
+    # ------------------------------------------------------------------ #
+    # policy-execution primitives (the orchestrator flushes first)
+    # ------------------------------------------------------------------ #
+    def apply_feature_updates(self, rows: np.ndarray, vals: np.ndarray) -> None:
+        rows = np.asarray(rows, np.int64)
+        self._scatter_rows(self.h[0], rows, np.asarray(vals, np.float32))
+        if self._cache is not None:
+            self._cache.invalidate(("h", 0), rows)
+
+    def layer_input_host(self, l: int) -> np.ndarray:
+        return self._from_blocks(self.h[l])
+
+    def scatter_layer_rows(self, l: int, rows: np.ndarray, a_rows: np.ndarray,
+                           nct_rows: np.ndarray, h_rows: np.ndarray) -> None:
+        r = np.asarray(rows, np.int64)
+        self._scatter_rows(self.a[l], r, a_rows)
+        self._scatter_rows(self.nct[l], r, nct_rows)
+        self._scatter_rows(self.h[l + 1], r, h_rows)
+        if self._cache is not None:  # keyed by rows only: value-independent
+            self._cache.invalidate(("s", l), r)
+            self._cache.invalidate(("h", l + 1), r)
+
+    # ------------------------------------------------------------------ #
+    # planning phase (host only, value-independent)
+    # ------------------------------------------------------------------ #
+    def plan(self, g_old: CSRGraph, g_new: CSRGraph, batch: UpdateBatch,
+             base_plan: Optional[BatchPlan] = None) -> _HybridPrep:
+        plan = (base_plan if base_plan is not None
+                else build_plan(self.model, g_old, g_new, batch, self.L))
+        hp = hybrid_plan(plan, self.S, hwm=self.hwm, feat_vertices=batch.feat_vertices,
+                         halo_mode=self.halo_mode)
+        cache_ops = (self._plan_cache(plan, batch, hp.layers)
+                     if self._cache is not None else None)
+        tables_all, layouts = [], []
+        prev_ns = None
+        for l, tr in enumerate(hp.layers):
+            tables = {"idx": tr.idx_sh, "flt": tr.flt_sh, "msk": tr.msk_sh,
+                      "sched": tr.sched_sh}
+            cops = None if cache_ops is None else cache_ops[l]
+            if cops is not None:
+                tables.update({f: getattr(cops, f) for f in _CacheLayerOps.DEVICE_FIELDS})
+            elif self.halo_mode != "psum" and tr.patch_pos is not None:
+                src = tr.patch_src if l == 0 else _scratch_pos(tr.patch_src, prev_ns)
+                tables["patch_pos"] = _scratch_pos(tr.patch_pos, tr.nh_cap)
+                tables["patch_src"] = src
+            tables_all.append(tables)
+            layouts.append(self._layout(l, tr, tables, cops))
+            prev_ns = tr.ns_cap
+        return _HybridPrep(plan=plan, batch=batch, layers=hp.layers, tables=tables_all,
+                           layouts=layouts, cache_ops=cache_ops)
+
+    def _layout(self, l: int, tr: HybridLayerPlan, tables: dict,
+                cops: Optional[_CacheLayerOps]) -> _StagedLayout:
+        """The layer's staging byte layout: its tables, then the float row
+        blocks — every shard's ``cap + 1`` rows (scratch last) uncached, the
+        cold misses only with the cache."""
+        d_in, da = self.h[l].shape[2], self.a[l].shape[2]
+        dc, d_out = self.nct[l].shape[2], self.h[l + 1].shape[2]
+        if cops is None:
+            nh, ns = self.S * (tr.nh_cap + 1), self.S * (tr.ns_cap + 1)
+            blocks = [("h_old", nh, d_in)]
+            if self.halo_mode == "psum":
+                blocks.append(("h_new", nh, d_in))
+        else:
+            nh, ns = cops.h_miss_src.shape[0], cops.s_miss_src.shape[0]
+            blocks = [("h_old", nh, d_in)]
+        blocks += [("a", ns, da), ("nct", ns, dc), ("h_cur", ns, d_out)]
+        return _StagedLayout.build(tables, blocks)
+
+    def _plan_cache(self, plan: BatchPlan, batch: UpdateBatch,
+                    layers: List[HybridLayerPlan]) -> List[_CacheLayerOps]:
+        """Plan-time residency split over the stacked per-shard workspaces.
+        Cache keys are global row ids (a hot halo row is cached once and
+        served to every shard that stages it); positions are flat indices
+        into the ``[S·(cap+1)]`` workspaces."""
+        cache = self._cache
+        n = plan.deg_old.shape[0] - 1  # deg tables carry a scratch slot
+        deg = plan.deg_new
+        cache.decay_tick()
+        prev_rows = self._cache_invalidate_feats(batch)
+        prev_live_pos: Optional[np.ndarray] = None
+        ops: List[_CacheLayerOps] = []
+        for l, tr in enumerate(layers):
+            live_pos_h = np.flatnonzero(tr.need_mask.reshape(-1)).astype(np.int64)
+            rows_h = tr.need_h.reshape(-1)[live_pos_h].astype(np.int64)
+            live_pos_s = np.flatnonzero(tr.srows_mask.reshape(-1)).astype(np.int64)
+            rows_s = tr.srows.reshape(-1)[live_pos_s].astype(np.int64)
+            h_split, s_split, s_wb, hn_wb = self._cache_layer_ops(
+                l, n, rows_h, rows_s, prev_rows, deg)
+            dst_keys = np.where(tr.need_mask, tr.need_h, -1).reshape(-1)
+            patch_pos, patch_src = _patch_positions(dst_keys, prev_rows)
+            if l > 0:  # compose: index into the previous live srows → its slot
+                patch_src = prev_live_pos[patch_src]
+            hpos = partial(_scratch_pos, cap=tr.nh_cap)
+            spos = partial(_scratch_pos, cap=tr.ns_cap)
+            ops.append(_CacheLayerOps(
+                h_hit_pos=hpos(live_pos_h[h_split.hit_pos]), h_hit_slots=h_split.hit_slots,
+                h_miss_pos=hpos(live_pos_h[h_split.miss_pos]), h_miss_src=h_split.miss_rows,
+                h_admit_midx=h_split.admit_midx, h_admit_slots=h_split.admit_slots,
+                patch_pos=hpos(patch_pos), patch_src=patch_src,
+                s_hit_pos=spos(live_pos_s[s_split.hit_pos]), s_hit_slots=s_split.hit_slots,
+                s_miss_pos=spos(live_pos_s[s_split.miss_pos]), s_miss_src=s_split.miss_rows,
+                s_wb_pos=spos(live_pos_s[s_wb[0]]), s_wb_slots=s_wb[1],
+                hnext_wb_pos=spos(live_pos_s[hn_wb[0]]), hnext_wb_slots=hn_wb[1]))
+            prev_rows, prev_live_pos = rows_s, spos(live_pos_s)
+        return ops
+
+    # ------------------------------------------------------------------ #
+    def dispatch(self, prep: _HybridPrep) -> None:
+        """:meth:`OffloadBackend.dispatch`'s staging schedule over per-shard
+        stacked blocks: pristine gathers for every layer enqueue up front,
+        each layer's new view is patched with the previous layer's fresh
+        outputs, and the write-back scatters into the host blocks (the
+        exchange medium between layers) retire on the worker while the
+        device computes the next layer."""
+        pipe = self._staging
+        if not pipe.async_mode:
+            self.flush()  # inline staging jobs read host state directly
+        pipe.begin_batch()
+        batch = prep.batch
+        if batch.feat_vertices is not None and batch.feat_vertices.size:
+            prev_rows = np.asarray(batch.feat_vertices, np.int64)
+            prev_new = np.asarray(batch.feat_values, np.float32)
+        else:
+            prev_rows = np.zeros(0, np.int64)
+            prev_new = np.zeros((0, self.h[0].shape[2]), np.float32)
+
+        ops = prep.cache_ops
+        tickets = []
+        for l, tr in enumerate(prep.layers):
+            bufs = pipe.buffers(l)
+            buf = bufs.take("layer", prep.layouts[l].total, (), np.uint8)
+            tickets.append(pipe.submit_gather(
+                partial(self._gather_layer, l, tr, prep.tables[l], prep.layouts[l], bufs, buf,
+                        None if ops is None else ops[l]), tag=l))
+        if prev_rows.size:
+            pipe.submit_writeback(partial(self._scatter_rows, self.h[0], prev_rows, prev_new),
+                                  nbytes=int(prev_new.nbytes), tag="feat")
+
+        # plan-derived halo traffic: every live need row with a remote owner
+        # crosses the exchange medium once (psum twice: the staged h_new
+        # copy ships the same remote rows again)
+        copies = 1 if self.halo_mode == "ppermute" else 2
+        for l, tr in enumerate(prep.layers):
+            self._comms_rows_sent += tr.n_halo_remote * copies
+            self._comms_bytes += tr.n_halo_remote * int(self.h[l].shape[2]) * 4 * copies
+
+        # device-served and cached paths patch the new view on the device
+        # from the previous layer's still-resident outputs
+        device_patch = ops is not None or self.halo_mode != "psum"
+        prev_dev = None
+        if device_patch and prev_rows.size:
+            prev_dev = host_to_device([prev_new], self.device)[0]
+        final = None
+        for l, tr in enumerate(prep.layers):
+            bufs = pipe.buffers(l)
+            staged = pipe.wait_gather(tickets[l])
+            if ops is None:
+                outs = self._layer_exec(l, tr, prep.layouts[l], staged, prev_rows, prev_new,
+                                        prev_dev)
+            else:
+                outs = self._layer_exec_cached(l, tr, prep.layouts[l], staged, ops[l], prev_dev)
+            if device_patch:
+                prev_dev = outs[2].reshape(-1, outs[2].shape[2])
+            copy = pipe.copy_out(tuple(o[:, : tr.ns_cap] for o in outs), bufs)
+            bufs.mark_in_flight(copy.event)  # covers the H2D before it too
+            del outs
+            srows_flat = tr.srows[tr.srows_mask]
+            if l + 1 < self.L:
+                a_np, nct_np, h_np = pipe.wait_device(copy)
+                pipe.submit_writeback(
+                    partial(self._writeback_host, l, tr, srows_flat, a_np, nct_np, h_np),
+                    nbytes=copy.nbytes, tag=l)
+                prev_rows, prev_new = srows_flat, h_np[tr.srows_mask]
+            else:
+                final = (l, tr, srows_flat, copy)
+        self._defer_final(final)
+
+    def _gather_layer(self, l: int, tr: HybridLayerPlan, tables: dict, lay: _StagedLayout,
+                      bufs, buf: np.ndarray, cops: Optional[_CacheLayerOps] = None):
+        """Staging-worker job: copy layer ``l``'s tables into its staging
+        buffer and gather every shard's compact rows pristine out of the
+        per-shard host blocks (one fancy index each: the flat view's index
+        is the global row id).  Dead slots and scratch rows are zeroed.
+        Uncached psum mode stages an ``h_new`` copy the caller patches; it
+        is keyed ``"_h_new"`` so ``staged_bytes`` counts only bytes read
+        from host state.  With the cache only the cold misses stage.
+        Numpy only; waits first until no queued copy uses the buffer set."""
+        bufs.wait_free()
+        views = dict(zip(lay.names, carve(buf, lay.specs, lay.offsets)))
+        for name, arr in tables.items():
+            views[name][...] = arr
+        staged = {"_buf": buf}
+        srcs = (("h_old", self.h[l]), ("a", self.a[l]), ("nct", self.nct[l]),
+                ("h_cur", self.h[l + 1]))
+        if cops is not None:
+            for name, blocks in srcs:
+                rows = cops.h_miss_src if name == "h_old" else cops.s_miss_src
+                staged[name] = np.take(self._flat(blocks), rows, axis=0, out=views[name])
+            return staged
+        for name, blocks in srcs:
+            rows, live = ((tr.need_h, tr.need_mask) if name == "h_old"
+                          else (tr.srows, tr.srows_mask))
+            cap = rows.shape[1]
+            v = views[name].reshape(self.S, cap + 1, -1)
+            v[:, :cap] = self._flat(blocks)[rows]
+            v[:, :cap][~live] = 0.0
+            v[:, cap] = 0.0  # each shard's scratch row
+            staged[name] = v[:, :cap]
+        if "h_new" in views:
+            np.copyto(views["h_new"], views["h_old"])
+            staged["_h_new"] = views["h_new"]
+        return staged
+
+    def _put(self, lay: _StagedLayout, staged) -> dict:
+        """The layer's one host→device copy; device views by name."""
+        buf = torch.from_numpy(staged["_buf"])
+        if self.device.type == "cuda":
+            buf = buf.to(self.device, non_blocking=True)
+        return dict(zip(lay.names, carve(buf, lay.specs, lay.offsets)))
+
+    def _count_up(self, h_rows: np.ndarray, s_rows: np.ndarray, nbytes: int) -> None:
+        with self._acc_lock:
+            self.transfers.rows_up += int(h_rows.sum() + 3 * s_rows.sum())
+            self.transfers.bytes_up += int(nbytes)
+            self.per_shard_rows += h_rows + 3 * s_rows
+
+    def _step(self, l: int, tr: HybridLayerPlan, dev: dict, h_old: torch.Tensor,
+              h_new: torch.Tensor, a: torch.Tensor, nct: torch.Tensor, h_cur: torch.Tensor):
+        """The compact layer over ``[S, cap + 1, ·]`` views of the blocks."""
+        S, nh, ns = self.S, tr.nh_cap + 1, tr.ns_cap + 1
+        outs = (a.view(S, ns, -1), nct.view(S, ns, -1), h_cur.view(S, ns, -1))
+        hybrid_layer_step(self.model, tr.layout, self.params[l], h_old.view(S, nh, -1),
+                          h_new.view(S, nh, -1), *outs, dev["idx"], dev["flt"], dev["msk"],
+                          dev["sched"])
+        return outs
+
+    def _layer_exec(self, l: int, tr: HybridLayerPlan, lay: _StagedLayout, staged,
+                    prev_rows: np.ndarray, prev_new: np.ndarray,
+                    prev_dev: Optional[torch.Tensor]):
+        """Ship the layer in one copy and run it.  psum mode: the staged
+        ``h_new`` copy is patched on the host first (and ships too).
+        Device-served mode: the new view is the shipped old view with the
+        previous layer's outputs written into ``patch_pos`` on the device —
+        halo rows are pristine in the old view, and the patch covers every
+        row the previous layer wrote, whichever shard owns it."""
+        nh_live, ns_live = tr.need_mask.sum(axis=1), tr.srows_mask.sum(axis=1)
+        payload = sum(staged[k].nbytes for k in ("h_old", "a", "nct", "h_cur"))
+        if self.halo_mode == "psum":
+            flat_new = staged["_h_new"]
+            keys = np.full((self.S, tr.nh_cap + 1), -1, np.int64)
+            keys[:, :-1] = np.where(tr.need_mask, tr.need_h, -1)
+            _override_rows(flat_new, keys.reshape(-1), prev_rows, prev_new)
+            self._count_up(2 * nh_live, ns_live, payload + staged["h_old"].nbytes)
+            dev = self._put(lay, staged)
+            h_new = dev["h_new"]
+            extra = 0
+        else:
+            self._count_up(nh_live, ns_live, payload)
+            dev = self._put(lay, staged)
+            h_new = dev["h_old"]
+            if "patch_pos" in dev and dev["patch_pos"].shape[0] and prev_dev is not None:
+                h_new = h_new.index_put((dev["patch_pos"],), prev_dev[dev["patch_src"]])
+            extra = 0 if h_new is dev["h_old"] else h_new.nbytes
+        self.peak_device_bytes = max(self.peak_device_bytes, lay.total + extra)
+        return self._step(l, tr, dev, dev["h_old"], h_new, dev["a"], dev["nct"], dev["h_cur"])
+
+    def _layer_exec_cached(self, l: int, tr: HybridLayerPlan, lay: _StagedLayout, staged,
+                           cops: _CacheLayerOps, prev_dev: Optional[torch.Tensor]):
+        """Cached variant: assemble the flat ``[S·(cap+1)]`` workspaces from
+        the staged cold misses and the cached hot slots (dead slots and
+        scratch rows stay 0, as the uncached gather leaves them), patch the
+        new view on the device, run the identical step, then refresh the
+        written slots in place from its outputs."""
+        cache = self._cache
+        S, nh, ns = self.S, tr.nh_cap + 1, tr.ns_cap + 1
+        self._count_up(np.bincount(cops.h_miss_pos // nh, minlength=S),
+                       np.bincount(cops.s_miss_pos // ns, minlength=S),
+                       sum(staged[k].nbytes for k in ("h_old", "a", "nct", "h_cur")))
+        dev = self._put(lay, staged)
+        d_in = self.h[l].shape[2]
+
+        def hits(key, name, width):
+            if not (cops.h_hit_pos if key[0] == "h" else cops.s_hit_pos).size:
+                return None
+            return cache.store(key, name, (width,))[dev[f"{key[0]}_hit_slots"]]
+
+        h_old = _cache_assemble(S * nh - 1, d_in, self.device, dev["h_miss_pos"], dev["h_old"],
+                                dev["h_hit_pos"], hits(("h", l), "h", d_in))
+        if cops.h_admit_midx.size:
+            cache.update_store(("h", l), "h", dev["h_admit_slots"],
+                               dev["h_old"][dev["h_admit_midx"]])
+        h_new = h_old
+        if cops.patch_pos.size:
+            h_new = h_old.index_put((dev["patch_pos"],), prev_dev[dev["patch_src"]])
+        s_key = ("s", l)
+        state = {}
+        for name, width in (("a", self.a[l].shape[2]), ("nct", self.nct[l].shape[2]),
+                            ("h", self.h[l + 1].shape[2])):
+            state[name] = _cache_assemble(S * ns - 1, width, self.device, dev["s_miss_pos"],
+                                          dev["h_cur" if name == "h" else name],
+                                          dev["s_hit_pos"], hits(s_key, name, width))
+        self.peak_device_bytes = max(
+            self.peak_device_bytes,
+            lay.total + sum(t.nbytes for t in (h_old, h_new, *state.values())))
+        outs = self._step(l, tr, dev, h_old, h_new, state["a"], state["nct"], state["h"])
+        if cops.s_wb_pos.size:
+            for name, o in zip(("a", "nct", "h"), outs):
+                cache.update_store(s_key, name, dev["s_wb_slots"],
+                                   o.reshape(S * ns, -1)[dev["s_wb_pos"]])
+        if cops.hnext_wb_pos.size:
+            cache.update_store(("h", l + 1), "h", dev["hnext_wb_slots"],
+                               outs[2].reshape(S * ns, -1)[dev["hnext_wb_pos"]])
+        return outs
+
+    def _writeback_host(self, l: int, tr: HybridLayerPlan, srows_flat: np.ndarray,
+                        a_new: np.ndarray, nct_new: np.ndarray, h_new: np.ndarray) -> None:
+        """Grouped per-shard host scatter of one layer's written-back rows
+        (on the staging worker in async mode): the host blocks are the
+        halo-exchange medium between layers."""
+        live = tr.srows_mask
+        rows = (a_new[live], nct_new[live], h_new[live])
+        for blocks, vals in zip((self.a[l], self.nct[l], self.h[l + 1]), rows):
+            self._scatter_rows(blocks, srows_flat, vals)
+        with self._acc_lock:
+            self.transfers.rows_down += 3 * int(srows_flat.shape[0])
+            self.transfers.bytes_down += int(sum(v.nbytes for v in rows))
+            self.per_shard_rows += 3 * live.sum(axis=1)
+
+    def _final_writeback(self, payload) -> None:
+        """The final layer's scatter once its D2H has landed (worker or
+        ``flush``); waits on the copy's event, touches no tensor."""
+        if payload is None:
+            return
+        l, tr, srows_flat, copy = payload
+        a_new, nct_new, h_new = copy.wait()
+        self._writeback_host(l, tr, srows_flat, a_new, nct_new, h_new)

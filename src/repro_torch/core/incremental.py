@@ -1,7 +1,7 @@
 """Device-side reordered incremental RTEC — paper Alg. 1, batched + fused,
-in PyTorch.  Mirrors the single-device part of ``repro.core.incremental``.
+in PyTorch.  Mirrors ``repro.core.incremental``.
 
-Two entry points share one layer body (:func:`_layer_body`):
+Four entry points share one layer body (:func:`_layer_body`):
 
 * :func:`incremental_layer` — the per-layer function over un-extended state
   (returns new tensors); the unfused reference the fused step is held
@@ -44,7 +44,16 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.affected import PackedLayout, layout_slices, sched_slices
+from repro_torch.core.affected import (
+    HybridLayerLayout,
+    PackedLayout,
+    ShardedLayout,
+    hybrid_layout_slices,
+    hybrid_sched_slices,
+    layout_slices,
+    sched_slices,
+    sharded_layout_slices,
+)
 from repro_torch.core.full import edge_messages, masked_messages, subset_layer, zero_rows
 from repro_torch.core.operators import GNNModel, Params
 from repro_torch.kernels.ops import delta_agg
@@ -224,3 +233,156 @@ def fused_stream_step(
         a_exts[l][n] = 0.0
         nct_exts[l][n] = 0.0
         h_exts[l + 1][n] = 0.0
+
+
+# ====================================================================== #
+# Sharded step — the multi-shard analogue of fused_stream_step
+# ====================================================================== #
+def sharded_fields(layout: ShardedLayout, idx_sh, flt_sh, msk_sh, sched_sh):
+    """Per local shard (rows of the stacked buffers), per layer: the field
+    views of :func:`_layer_body` (with the workspace degree tables
+    ``deg_old``/``deg_new``)."""
+    idx_sl, flt_sl, msk_sl, _, _ = sharded_layout_slices(layout)
+    s_sl, _ = sched_slices(layout)
+    out = []
+    for i in range(idx_sh.shape[0]):
+        per_layer = []
+        for l in range(len(layout.caps)):
+            g = {name: idx_sh[i, sl] for name, sl in idx_sl[l].items()}
+            g.update({name: flt_sh[i, sl] for name, sl in flt_sl[l].items()})
+            g.update({name: msk_sh[i, sl] for name, sl in msk_sl[l].items()})
+            g.update({name: sched_sh[i, sl] for name, sl in s_sl[l].items()})
+            per_layer.append(g)
+        out.append(per_layer)
+    return out
+
+
+def _halo(layout: ShardedLayout, l: int, exchange, h_old: torch.Tensor, h_new: torch.Tensor,
+          idx_rep: torch.Tensor, comms) -> List[torch.Tensor]:
+    """Each local shard's ``[halo_cap, 2·d]`` frontier buffer of layer
+    ``l``: the ``[old | new]`` previous-layer rows of its halo slots.
+
+    ``"ppermute"``: ``S − 1`` rotation rounds over the plan's per-consumer
+    schedules; send pads gather the owner's scratch row, receive pads land in
+    a dump row (index ``halo_cap``, cut off), and slots this shard never
+    gathers stay 0.  ``"psum"``: each shard contributes the halo rows it owns
+    (zeros elsewhere) to one sum over shards — a select of the owner's exact
+    bytes, so both modes feed the layer the same values."""
+    rows_per, s_total = layout.rows_per, layout.n_shards
+    halo_cap = layout.caps[l][5]
+    d = h_old.shape[2]
+    local = exchange.local_shards
+    if layout.halo_mode == "ppermute" and s_total > 1:
+        send_pos, recv_pos = comms[l]
+        bufs = [h_old.new_zeros((halo_cap + 1, 2 * d)) for _ in local]
+        for k in range(1, s_total):
+            parts = [torch.cat([h_old[i][send_pos[i, k - 1]], h_new[i][send_pos[i, k - 1]]], 1)
+                     for i in range(len(local))]
+            for i, rec in enumerate(exchange.rotate(parts, k)):
+                bufs[i][recv_pos[i, k - 1]] = rec
+        return [b[:halo_cap] for b in bufs]
+    _, _, _, halo_sl, _ = sharded_layout_slices(layout)
+    halo_rows = idx_rep[halo_sl[l]]  # global ids, pad → -1
+    parts = []
+    for i, s in enumerate(local):
+        lo = s * rows_per
+        own = (halo_rows >= lo) & (halo_rows < lo + rows_per)
+        pos = torch.where(own, halo_rows - lo, rows_per)
+        cat = torch.cat([h_old[i][pos], h_new[i][pos]], 1)
+        parts.append(torch.where(own[:, None], cat, 0.0))
+    return exchange.psum(parts)
+
+
+def sharded_step(
+    model: GNNModel,
+    layout: ShardedLayout,
+    params: Sequence[Params],
+    h_blocks: Sequence[torch.Tensor],  # L+1 tensors [S_loc, rows_per+1, ·]
+    a_blocks: Sequence[torch.Tensor],  # L tensors [S_loc, rows_per+1, ·], updated in place
+    nct_blocks: Sequence[torch.Tensor],  # L tensors, updated in place
+    idx_sh: torch.Tensor,  # int32 [S_loc, idx_len]
+    flt_sh: torch.Tensor,  # float32 [S_loc, flt_len]
+    msk_sh: torch.Tensor,  # bool [S_loc, msk_len]
+    sched_sh: torch.Tensor,  # int32 [S_loc, sched_len]
+    idx_rep: torch.Tensor,  # int32 [rep_len]: feature rows | halo rows
+    msk_rep: torch.Tensor,  # bool [feat_cap]
+    feat_vals: Optional[torch.Tensor],  # [feat_cap, d0] when layout.feat_cap
+    comms,  # per layer (send_pos, recv_pos) [S_loc, S-1, pair_cap], or None
+    exchange,
+) -> List[torch.Tensor]:
+    """One L-layer incremental step over row-sharded state.
+
+    Per layer each local shard (1) gets its frontier buffer from
+    :func:`_halo`, (2) runs the unmodified :func:`_layer_body` on its
+    ``[halo | local]`` workspace — step 1 in ``delta_agg`` over the shard's
+    own row schedule; every scatter is owner-local, destination rows are
+    never remote — and (3) re-zeroes its scratch row.  ``a``/``nct`` blocks
+    update in place; each layer's ``h`` is written into a copy of its block,
+    because the next layer's exchange still reads the old block.  Returns
+    the new ``h`` blocks (L+1)."""
+    rows_per = layout.rows_per
+    fields = sharded_fields(layout, idx_sh, flt_sh, msk_sh, sched_sh)
+    local = exchange.local_shards
+
+    h_old = h_blocks[0]
+    h_new = h_old
+    if layout.feat_cap:
+        h_new = h_old.clone()
+        fr = idx_rep[: layout.feat_cap]
+        for i, s in enumerate(local):
+            lo = s * rows_per
+            fm = msk_rep & (fr >= lo) & (fr < lo + rows_per)
+            li = torch.where(fm, fr - lo, rows_per)  # not owned → scratch
+            h_new[i][li] = torch.where(fm[:, None], feat_vals.to(h_new.dtype), h_new[i][li])
+    hs = [h_new]
+    for l in range(len(layout.caps)):
+        d = h_old.shape[2]
+        halos = _halo(layout, l, exchange, h_old, h_new, idx_rep, comms)
+        h_next = h_blocks[l + 1].clone()
+        for i in range(len(local)):
+            g = fields[i][l]
+            ws_old = torch.cat([halos[i][:, :d], h_old[i]])
+            ws_new = torch.cat([halos[i][:, d:], h_new[i]])
+            old_src, old_dst = gather_old(model, ws_old, g)
+            h_next[i][g["out_rows"]] = _layer_body(
+                model, params[l], old_src, old_dst, ws_new, g["deg_old"], g["deg_new"],
+                a_blocks[l][i], nct_blocks[l][i], g)
+            a_blocks[l][i][rows_per] = 0.0  # re-zero the local scratch row
+            nct_blocks[l][i][rows_per] = 0.0
+            h_next[i][rows_per] = 0.0
+        hs.append(h_next)
+        h_old, h_new = h_blocks[l + 1], h_next
+    return hs
+
+
+# ====================================================================== #
+# Hybrid compact layer step — the sharded-offload backend's device step
+# ====================================================================== #
+def hybrid_layer_step(
+    model: GNNModel,
+    layout: HybridLayerLayout,
+    p: Params,
+    h_old: torch.Tensor,  # [S, nh_cap+1, d_in] staged h^{l-1} (old view), scratch row last
+    h_new: torch.Tensor,  # [S, nh_cap+1, d_in] (new view)
+    a: torch.Tensor,  # [S, ns_cap+1, agg] staged state, updated in place
+    nct: torch.Tensor,  # [S, ns_cap+1, C]
+    h_cur: torch.Tensor,  # [S, ns_cap+1, d_out]
+    idx_sh: torch.Tensor,  # int32 [S, idx_len]
+    flt_sh: torch.Tensor,  # float32 [S, flt_len]
+    msk_sh: torch.Tensor,  # bool [S, msk_len]
+    sched_sh: torch.Tensor,  # int32 [S, sched_len]
+) -> None:
+    """Each shard runs :func:`incremental_layer_inplace` on its compact
+    staged blocks (no collective: the halo rows were staged from the owning
+    shards' host blocks).  Step 1 runs in ``delta_agg``, a constrained
+    model's step 3 sums in ``segment_spmm``, each over the shard's own row
+    schedules."""
+    idx_sl, flt_sl, msk_sl, _ = hybrid_layout_slices(layout)
+    s_sl, _ = hybrid_sched_slices(layout)
+    for s in range(idx_sh.shape[0]):
+        g = {name: idx_sh[s, sl] for name, sl in idx_sl.items()}
+        g.update({name: flt_sh[s, sl] for name, sl in flt_sl.items()})
+        g.update({name: msk_sh[s, sl] for name, sl in msk_sl.items()})
+        g.update({name: sched_sh[s, sl] for name, sl in s_sl.items()})
+        incremental_layer_inplace(model, p, h_old[s], h_new[s], g["deg_old"], g["deg_new"],
+                                  a[s], nct[s], h_cur[s], g)

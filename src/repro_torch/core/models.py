@@ -9,6 +9,14 @@ reference's weights over unchanged.
 One-hot relation encodings are built by comparison with ``arange`` rather
 than ``torch.nn.functional.one_hot``, which validates its input against the
 class count and so waits for the device.
+
+Every dense product of a message or update function goes through
+:func:`~repro_torch.kernels.row_linear.row_linear`, whose rows do not
+depend on how many rows share the call: the engine's bitwise invariants
+(fused ≡ serial, device ≡ offload, sharded ≡ device, hybrid ≡ offload) put
+the same row into products of different sizes.  The relational models'
+per-record weight stacks (``h_u[e] @ Wr[et[e]]``) take one such product per
+relation and keep each record's own (:func:`_relation_linear`).
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.operators import GNNModel, glorot, normal
+from repro_torch.kernels.row_linear import row_linear
 
 _EPS = 1e-12
 # Empty-neighborhood guard thresholds: when a context sum drains to ~0 (all
@@ -40,6 +49,15 @@ def _mul_guard(x, nct, thresh):
 
 def _one_hot(et, num: int, dtype=torch.float32):
     return (et[:, None] == torch.arange(num, device=et.device)).to(dtype)
+
+
+def _relation_linear(h, wr, et):
+    """``out[e] = h[e] @ wr[et[e]]``: one row-independent product per
+    relation, each record keeping its own relation's row."""
+    out = row_linear(h, wr[0])
+    for r in range(1, wr.shape[0]):
+        out = torch.where((et == r)[:, None], row_linear(h, wr[r]), out)
+    return out
 
 
 # ====================================================================== #
@@ -67,7 +85,7 @@ class GCN(GNNModel):
         return x * torch.sqrt(nct[:, :1] + 1.0)
 
     def update(self, p, h_v, a_v):
-        return torch.relu(a_v @ p["W"] + p["b"])
+        return torch.relu(row_linear(a_v, p["W"]) + p["b"])
 
 
 class GraphSAGE(GNNModel):
@@ -96,7 +114,7 @@ class GraphSAGE(GNNModel):
         return _mul_guard(x, nct[:, :1], _COUNT_THRESH)
 
     def update(self, p, h_v, a_v):
-        return torch.relu(h_v @ p["W_self"] + a_v @ p["W_nbr"] + p["b"])
+        return torch.relu(row_linear(h_v, p["W_self"]) + row_linear(a_v, p["W_nbr"]) + p["b"])
 
 
 class GIN(GNNModel):
@@ -124,7 +142,7 @@ class GIN(GNNModel):
 
     def update(self, p, h_v, a_v):
         x = (1.0 + p["eps"]) * h_v + a_v
-        return torch.relu(torch.relu(x @ p["W1"] + p["b1"]) @ p["W2"] + p["b2"])
+        return torch.relu(row_linear(torch.relu(row_linear(x, p["W1"]) + p["b1"]), p["W2"]) + p["b2"])
 
 
 class CommNet(GNNModel):
@@ -142,7 +160,7 @@ class CommNet(GNNModel):
         return mlc[:, None] * z
 
     def update(self, p, h_v, a_v):
-        return torch.tanh(h_v @ p["W1"] + a_v @ p["W2"])
+        return torch.tanh(row_linear(h_v, p["W1"]) + row_linear(a_v, p["W2"]))
 
 
 class MoNet(GNNModel):
@@ -180,7 +198,7 @@ class MoNet(GNNModel):
         return out.reshape(z.shape[0], -1)
 
     def update(self, p, h_v, a_v):
-        return torch.relu(a_v @ p["W"] + p["b"])
+        return torch.relu(row_linear(a_v, p["W"]) + p["b"])
 
 
 class PinSAGE(GNNModel):
@@ -202,7 +220,7 @@ class PinSAGE(GNNModel):
 
     def ms_local(self, p, h_u, h_v, s_u, s_v, ew, et):
         # α_uv · σ(Q h_u + q) — [E, d_out]
-        return ew[:, None] * torch.relu(h_u @ p["Q"] + p["q"])
+        return ew[:, None] * torch.relu(row_linear(h_u, p["Q"]) + p["q"])
 
     def f_nn(self, p, h_u, et):
         return torch.ones((h_u.shape[0], 1), dtype=h_u.dtype, device=h_u.device)
@@ -217,7 +235,7 @@ class PinSAGE(GNNModel):
         return _mul_guard(x, nct[:, :1], _COUNT_THRESH)
 
     def update(self, p, h_v, a_v):
-        return torch.relu(torch.cat([h_v, a_v], dim=-1) @ p["W"] + p["b"])
+        return torch.relu(row_linear(torch.cat([h_v, a_v], dim=-1), p["W"]) + p["b"])
 
 
 class RGCN(GNNModel):
@@ -250,7 +268,7 @@ class RGCN(GNNModel):
         return _one_hot(et, self.R)
 
     def f_nn(self, p, h_u, et):
-        return torch.einsum("ed,edo->eo", h_u, p["Wr"][et.long()])
+        return _relation_linear(h_u, p["Wr"], et)
 
     def edge_term(self, p, mlc, z, et):
         # route W_r h_u into its relation block: [E, R*d_out]
@@ -270,7 +288,7 @@ class RGCN(GNNModel):
     def update(self, p, h_v, a_v):
         d_out = p["Wo"].shape[1]
         s = a_v.reshape(a_v.shape[0], self.R, d_out).sum(dim=1)
-        return torch.relu(h_v @ p["Wo"] + s + p["b"])
+        return torch.relu(row_linear(h_v, p["Wo"]) + s + p["b"])
 
 
 # ====================================================================== #
@@ -305,8 +323,8 @@ class GAT(GNNModel):
 
     def _logits(self, p, h_u, h_v):
         dh = p["a_src"].shape[1]
-        wu = (h_u @ p["W"]).reshape(-1, self.H, dh)
-        wv = (h_v @ p["W"]).reshape(-1, self.H, dh)
+        wu = row_linear(h_u, p["W"]).reshape(-1, self.H, dh)
+        wv = row_linear(h_v, p["W"]).reshape(-1, self.H, dh)
         lg = torch.sum(wu * p["a_src"][None], -1) + torch.sum(wv * p["a_dst"][None], -1)
         # bounded LeakyReLU keeps exp() in fp32 range
         return torch.clamp(F.leaky_relu(lg, 0.2), -30.0, 30.0)
@@ -318,7 +336,7 @@ class GAT(GNNModel):
         return mlc  # attention sum
 
     def f_nn(self, p, h_u, et):
-        return h_u @ p["W"]  # [E, H*dh]
+        return row_linear(h_u, p["W"])  # [E, H*dh]
 
     def edge_term(self, p, mlc, z, et):
         e = z.shape[0]
@@ -359,7 +377,7 @@ class AGNN(GNNModel):
         return mlc[:, None] * z
 
     def update(self, p, h_v, a_v):
-        return torch.tanh(a_v @ p["W"])
+        return torch.tanh(row_linear(a_v, p["W"]))
 
 
 class GGCN(GNNModel):
@@ -378,13 +396,13 @@ class GGCN(GNNModel):
         }
 
     def ms_local(self, p, h_u, h_v, s_u, s_v, ew, et):
-        return torch.sigmoid(h_u @ p["W1"] + h_v @ p["W2"])  # [E, d_in]
+        return torch.sigmoid(row_linear(h_u, p["W1"]) + row_linear(h_v, p["W2"]))  # [E, d_in]
 
     def edge_term(self, p, mlc, z, et):
         return mlc * z
 
     def update(self, p, h_v, a_v):
-        return torch.tanh(a_v @ p["W"] + p["b"])
+        return torch.tanh(row_linear(a_v, p["W"]) + p["b"])
 
 
 class RGAT(GNNModel):
@@ -411,8 +429,8 @@ class RGAT(GNNModel):
 
     def ms_local(self, p, h_u, h_v, s_u, s_v, ew, et):
         et = et.long()
-        wu = torch.einsum("ed,edo->eo", h_u, p["Wr"][et])
-        wv = torch.einsum("ed,edo->eo", h_v, p["Wr"][et])
+        wu = _relation_linear(h_u, p["Wr"], et)
+        wv = _relation_linear(h_v, p["Wr"], et)
         lg = torch.sum(wu * p["a_src"][et], -1) + torch.sum(wv * p["a_dst"][et], -1)
         return torch.exp(torch.clamp(F.leaky_relu(lg, 0.2), -30.0, 30.0))  # [E]
 
@@ -420,7 +438,7 @@ class RGAT(GNNModel):
         return _one_hot(et, self.R) * mlc[:, None]
 
     def f_nn(self, p, h_u, et):
-        return torch.einsum("ed,edo->eo", h_u, p["Wr"][et.long()])
+        return _relation_linear(h_u, p["Wr"], et)
 
     def edge_term(self, p, mlc, z, et):
         oh = _one_hot(et, self.R, z.dtype)

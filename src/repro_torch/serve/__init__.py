@@ -2,8 +2,8 @@
 online read/write front-end with versioned snapshot reads
 (``ServingFrontend``), the §V-C chunked scheduler (``serve.scheduler``), the
 host staging pipeline (``serve.staging``), the device hot-row cache
-(``serve.hotcache``) and the host-resident engine facade
-(``serve.offload``).
+(``serve.hotcache``) and the host-resident engine facades
+(``serve.offload``); ``CommsConfig`` configures the sharded backends.
 
 Exports resolve lazily (PEP 562): ``repro_torch.core.backend`` imports
 ``repro_torch.serve.staging`` at module load, so an eager ``from .api import
@@ -16,10 +16,11 @@ _API = ("BACKENDS", "PORTED_BACKENDS", "EngineConfig", "ChunkedRTECEngine",
 _FRONTEND = ("ServingFrontend", "ReadTicket", "ReadRejectedError", "StaleVersionError")
 _CACHE = ("CacheConfig", "CacheStats", "HotRowCache")
 _STAGING = ("StagingConfig", "StagingStats", "HostStagingPipeline")
-_OFFLOAD = ("OffloadedRTECEngine", "TransferStats")
+_OFFLOAD = ("OffloadedRTECEngine", "ShardedOffloadRTECEngine", "TransferStats")
 _AFFECTED = ("FusionConfig",)
+_DIST = ("CommsConfig",)
 
-__all__ = list(_API + _FRONTEND + _CACHE + _STAGING + _OFFLOAD + _AFFECTED)
+__all__ = list(_API + _FRONTEND + _CACHE + _STAGING + _OFFLOAD + _AFFECTED + _DIST)
 
 
 def __getattr__(name: str):
@@ -35,6 +36,8 @@ def __getattr__(name: str):
         from repro_torch.serve import offload as mod
     elif name in _AFFECTED:
         from repro_torch.core import affected as mod
+    elif name in _DIST:
+        from repro_torch.dist import sharding as mod
     else:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     return getattr(mod, name)

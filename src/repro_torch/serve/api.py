@@ -14,6 +14,15 @@ execution policy and batch-window fusion) behind its facade:
   (:class:`~repro_torch.core.backend.OffloadBackend`,
   :class:`~repro_torch.serve.offload.OffloadedRTECEngine`; knobs
   ``staging=StagingConfig(...)``, ``cache=CacheConfig(...)``);
+* ``"sharded"`` — state row-partitioned over ``num_shards`` shards as
+  ``[S, rows_per + 1, ·]`` blocks, the halo exchanged per layer
+  (:class:`~repro_torch.core.backend.ShardBackend`,
+  :class:`~repro_torch.core.sharded_engine.ShardedRTECEngine`; knobs
+  ``num_shards``, ``comms=CommsConfig(...)``, ``exchange``);
+* ``"sharded_offload"`` — per-shard host-resident row blocks with compact
+  per-shard staging (:class:`~repro_torch.core.backend.ShardedOffloadBackend`,
+  :class:`~repro_torch.serve.offload.ShardedOffloadRTECEngine`; knobs
+  ``num_shards``, ``comms``, ``staging``, ``cache``);
 * ``"chunked"`` — host-resident state, every batch recomputed through the
   §V-C chunked scheduler (:class:`~repro_torch.core.backend.ChunkedBackend`,
   :class:`ChunkedRTECEngine`; knobs ``chunk_size``, ``chunk_reuse``).
@@ -21,10 +30,11 @@ execution policy and batch-window fusion) behind its facade:
 Knobs a backend does not consume are ignored by it, so one config can drive
 a backend sweep.  :func:`serving_frontend` (or ``engine.serving_frontend()``)
 attaches the read/write serving layer with versioned snapshot reads.  The
-reference's sharded backends (``"sharded"``, ``"sharded_offload"``) are not
-ported yet; naming one raises ``NotImplementedError`` (ROADMAP.md, Queue 1
-item 9).  The port has no deprecated alias constructors: build every facade
-through :func:`create_engine`.
+port has no deprecated alias constructors: build every facade through
+:func:`create_engine`.  The sharded backends run their ``S`` shards as
+logical shards in this process on the config's device unless
+``exchange`` names a :class:`~repro_torch.dist.exchange.DistExchange`
+(one shard per ``torch.distributed`` process, ``"sharded"`` only).
 
 The engine runs on ``EngineConfig.device``, ``"cuda"`` unless the caller
 asks for the CPU; asking for ``"cuda"`` without a card raises.  The factory
@@ -47,21 +57,25 @@ from repro_torch.core.backend import (
     ChunkedBackend,
     DeviceBackend,
     OffloadBackend,
+    ShardBackend,
+    ShardedOffloadBackend,
     StreamOrchestrator,
 )
 from repro_torch.core.engine import RTECEngine
 from repro_torch.core.operators import GNNModel, Params
 from repro_torch.core.policy import DEFAULT_CHUNKED_WEIGHT, make_policy
+from repro_torch.core.sharded_engine import ShardedRTECEngine
 from repro_torch.device import resolve_device, set_fp32_precision
+from repro_torch.dist.sharding import CommsConfig
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.serve.hotcache import CacheConfig, HotRowCache
-from repro_torch.serve.offload import OffloadedRTECEngine
+from repro_torch.serve.offload import OffloadedRTECEngine, ShardedOffloadRTECEngine
 from repro_torch.serve.staging import StagingConfig
 
 #: every backend name the reference's ``create_engine`` accepts
 BACKENDS: Tuple[str, ...] = ("device", "offload", "sharded", "sharded_offload", "chunked")
-#: the ones the port implements
-PORTED_BACKENDS: Tuple[str, ...] = ("device", "offload", "chunked")
+#: the ones the port implements: all of them
+PORTED_BACKENDS: Tuple[str, ...] = BACKENDS
 
 
 @dataclasses.dataclass
@@ -71,7 +85,8 @@ class EngineConfig:
     Required: ``model``, ``graph``, ``x``, and either ``params`` or
     ``dims`` (+ ``seed``) to initialise them from a ``torch.Generator``.
     Backend-specific knobs are ignored by backends that do not consume them
-    (``cache`` by everything but ``"offload"``)."""
+    (``cache`` by everything but ``"offload"`` and ``"sharded_offload"``,
+    ``num_shards`` by the unsharded backends)."""
 
     model: GNNModel
     graph: CSRGraph
@@ -94,6 +109,14 @@ class EngineConfig:
     #: chunked backend: destination rows per chunk, inter-chunk reuse
     chunk_size: int = 8192
     chunk_reuse: bool = True
+    #: sharded backends: the shard count (default 1; with ``exchange`` the
+    #: exchange's own), the halo-exchange strategy (``None`` means
+    #: ``CommsConfig()``: ``halo="auto"``), and for ``"sharded"`` the
+    #: collectives (``None`` → all shards in this process, a
+    #: :class:`~repro_torch.dist.exchange.LoopbackExchange`)
+    num_shards: Optional[int] = None
+    comms: Optional[CommsConfig] = None
+    exchange: Optional[object] = None
     #: where the kernels run (and, for "device", where the state lives; the
     #: host-resident backends keep it in host memory and stage to this device)
     device: str = "cuda"
@@ -159,16 +182,10 @@ class ChunkedRTECEngine(RTECEngine):
 def create_engine(backend: str, config: EngineConfig):
     """Construct a streaming engine for ``backend`` from one config.
 
-    ``"device"``, ``"offload"`` and ``"chunked"`` are ported; the
-    reference's sharded backend names raise ``NotImplementedError`` and
-    unknown names ``ValueError``.  Turns TF32 off (see the module
-    docstring)."""
+    Every name in :data:`BACKENDS` is ported; unknown names raise
+    ``ValueError``.  Turns TF32 off (see the module docstring)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if backend not in PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (see ROADMAP.md, Queue 1 item 9); "
-            f"ported: {PORTED_BACKENDS}")
     set_fp32_precision()
     dev = resolve_device(config.device)
     params = config.resolved_params()
@@ -183,6 +200,18 @@ def create_engine(backend: str, config: EngineConfig):
                             device=dev, async_staging=staging.async_enabled,
                             cache=config.resolved_cache())
         cls = OffloadedRTECEngine
+    elif backend == "sharded":
+        x = torch.as_tensor(config.x, dtype=torch.float32).to(dev)
+        sb = ShardBackend(config.model, params, config.graph, x, num_shards=config.num_shards,
+                          comms=config.comms, exchange=config.exchange)
+        cls = ShardedRTECEngine
+    elif backend == "sharded_offload":
+        staging = config.resolved_staging()
+        sb = ShardedOffloadBackend(config.model, params, config.graph, _host_array(config.x),
+                                   device=dev, num_shards=config.num_shards, comms=config.comms,
+                                   async_staging=staging.async_enabled,
+                                   cache=config.resolved_cache())
+        cls = ShardedOffloadRTECEngine
     else:
         sb = ChunkedBackend(config.model, params, config.graph, _host_array(config.x),
                             device=dev, chunk_size=config.chunk_size,

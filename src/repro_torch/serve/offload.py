@@ -22,6 +22,13 @@ falls back to inline staging with bitwise-identical output; the overlap is
 observable via ``StreamStats.staged_bytes`` / ``prefetch_hits`` /
 ``sync_wait_s`` vs ``compute_s``.  Build the engine with
 ``repro_torch.serve.create_engine("offload", EngineConfig(...))``.
+
+:class:`ShardedOffloadRTECEngine` is the same engine over ``S`` row shards
+(:class:`~repro_torch.core.backend.ShardedOffloadBackend`): each shard's
+state is a host row block, each layer stages every shard's compact
+``[halo | local]`` workspace, the halo rows gathered from the owners' host
+blocks.  Build it with ``create_engine("sharded_offload",
+EngineConfig(..., num_shards=S))``.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import numpy as np
 
 from repro_torch.core.backend import (  # noqa: F401  (TransferStats re-export)
     OffloadBackend,
+    ShardedOffloadBackend,
     TransferStats,
 )
 from repro_torch.core.engine import RTECEngine
@@ -77,3 +85,46 @@ class OffloadedRTECEngine(RTECEngine):
     def nct(self) -> List[np.ndarray]:
         self._backend.flush()
         return self._backend.nct
+
+
+class ShardedOffloadRTECEngine(OffloadedRTECEngine):
+    """Incremental RTEC with per-shard host-resident row blocks and compact
+    per-layer device staging (the sharded offload hybrid).  The state views
+    assemble the blocks into host ``[n, ·]`` arrays after the deferred
+    write-back."""
+
+    _backend: ShardedOffloadBackend
+
+    @property
+    def S(self) -> int:
+        return self._backend.S
+
+    @property
+    def rows_per(self) -> int:
+        return self._backend.rows_per
+
+    @property
+    def per_shard_rows(self) -> np.ndarray:
+        """Per-shard H2D+D2H row volume (a function of the plans)."""
+        return self._backend.per_shard_rows
+
+    @property
+    def peak_device_bytes(self) -> int:
+        """Largest one-layer device footprint seen (the state stays on the
+        host)."""
+        return self._backend.peak_device_bytes
+
+    @property
+    def h(self) -> List[np.ndarray]:
+        self._backend.flush()
+        return [self._backend._from_blocks(v) for v in self._backend.h]
+
+    @property
+    def a(self) -> List[np.ndarray]:
+        self._backend.flush()
+        return [self._backend._from_blocks(v) for v in self._backend.a]
+
+    @property
+    def nct(self) -> List[np.ndarray]:
+        self._backend.flush()
+        return [self._backend._from_blocks(v) for v in self._backend.nct]

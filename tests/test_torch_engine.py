@@ -44,7 +44,7 @@ from repro_torch.core.full import full_forward  # noqa: E402
 from repro_torch.core.models import make_model  # noqa: E402
 from repro_torch.core.params import params_from_numpy  # noqa: E402
 from repro_torch.graph import make_graph, make_stream, random_features  # noqa: E402
-from repro_torch.serve import EngineConfig, create_engine  # noqa: E402
+from repro_torch.serve import BACKENDS, PORTED_BACKENDS, EngineConfig, create_engine  # noqa: E402
 
 TOL = 2e-4  # the reference's tests/test_backends.py tolerance vs full recompute
 TOL_BATCH = 1e-5  # port vs reference engine, per batch
@@ -178,13 +178,11 @@ def test_factory_device_and_backend_errors():
     x, wl = _mk_stream(make_graph, make_stream, seed=SEED, num_batches=1)
     cfg = EngineConfig(model=make_model("gcn"), graph=wl.base, x=x, dims=[8, 8])
     assert cfg.device == "cuda"  # the card unless the caller asks for the CPU
+    assert PORTED_BACKENDS == BACKENDS  # every substrate of the reference is ported
     if not torch.cuda.is_available():
-        for backend in ("device", "offload", "chunked"):
+        for backend in BACKENDS:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 create_engine(backend, cfg)
-    for backend in ("sharded", "sharded_offload"):
-        with pytest.raises(NotImplementedError, match="not ported.*item 9"):
-            create_engine(backend, cfg)
     with pytest.raises(ValueError, match="unknown backend"):
         create_engine("nope", cfg)
     eng = create_engine("device", EngineConfig(model=make_model("gcn"), graph=wl.base, x=x,

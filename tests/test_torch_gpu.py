@@ -1,8 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, the
 engine's invariants with the kernels on its path, the host-resident engines
 (offload with pinned staging and the hot-row cache, chunked) against the
-same engines on the CPU, and the reduced LM on the card against the same LM
-on the CPU.
+same engines on the CPU, the row-sharded engines against the unsharded
+ones, and the reduced LM on the card against the same LM on the CPU.
 
 Every test here needs a card and is marked ``gpu``; on a host without one
 each skips with its reason.  The file imports neither ``jax`` nor ``repro``
@@ -32,6 +32,7 @@ from repro_torch.kernels import edge_softmax as emod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import row_linear as rmod  # noqa: E402
 from repro_torch.kernels import segment_spmm as smod  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.serve import EngineConfig, create_engine  # noqa: E402
@@ -78,6 +79,24 @@ def test_delta_agg_kernel_matches_plain_and_skips_untouched_rows(cuda):
                                **TOL)
     untouched = (row_ptr[1:] == row_ptr[:-1]).nonzero().squeeze(1)
     assert untouched.numel() and torch.equal(out[untouched], state[untouched])
+
+
+@pytest.mark.parametrize("k,n", [(128, 128), (256, 128), (129, 130)])
+def test_row_linear_kernel_rows_do_not_depend_on_the_row_count(cuda, k, n):
+    """Rows of ``A[:m] @ W`` bitwise rows of ``A @ W`` for every m (cuBLAS
+    picks another kernel above 16 rows), one launch a call, within 1e-5 of
+    the plain version."""
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.normal(size=(1000, k)).astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.normal(size=(k, n)) * np.sqrt(2 / (k + n))).astype(np.float32)).cuda()
+    n0 = rmod.KERNEL.launches
+    full = rmod.row_linear(a, w)
+    assert rmod.KERNEL.launches == n0 + 1
+    for m in (1, 2, 15, 16, 17, 32, 33, 1000):
+        assert torch.equal(rmod.row_linear(a[:m], w), full[:m]), m
+    torch.testing.assert_close(full, rmod.row_linear_plain(a, w), **TOL)
+    with pytest.raises(ValueError, match="float32"):
+        rmod.row_linear(a.double(), w.double())
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -304,10 +323,9 @@ def _ring_cell(n=600):
 
 
 def test_fusion_on_card_counts_and_matches_serial(cuda):
-    """3 windows / 12 fused / 3 dispatches; every aggregation state bitwise
-    the serial loop's, h within 1e-6: the update's matmul runs on more rows
-    in a window and cuBLAS picks its kernel by row count (chip_smoke.py,
-    ``TOL_FUSED_CARD``)."""
+    """3 windows / 12 fused / 3 dispatches; every h, a and nct bitwise the
+    serial loop's: the update's product runs on more rows in a window, and
+    ``row_linear``'s rows do not depend on the row count."""
     from repro_torch.serve import FusionConfig
 
     g, batches, x = _ring_cell()
@@ -319,10 +337,8 @@ def test_fusion_on_card_counts_and_matches_serial(cuda):
         runs[fused] = (eng, eng.apply_stream(batches))
     (serial, _), (fused, ss) = runs[False], runs[True]
     assert (ss.fusion_windows, ss.fused_batches, ss.fusion_fallbacks) == (3, 12, 0)
-    for u, v in zip([*serial.a, *serial.nct], [*fused.a, *fused.nct]):
+    for u, v in zip([*serial.h, *serial.a, *serial.nct], [*fused.h, *fused.a, *fused.nct]):
         assert torch.equal(u, v)
-    for u, v in zip(serial.h, fused.h):
-        torch.testing.assert_close(u, v, atol=1e-6, rtol=0)
 
 
 def test_frontend_reads_on_card_are_bitwise_snapshots(cuda):
@@ -401,7 +417,8 @@ def _host_engine(backend, name, wl, x, device, **kw):
 
 
 def _host_state(eng):
-    return [np.array(v) for kind in ("h", "a", "nct") for v in getattr(eng, kind)]
+    return [v.cpu().numpy() if torch.is_tensor(v) else np.array(v)
+            for kind in ("h", "a", "nct") for v in getattr(eng, kind)]
 
 
 @pytest.mark.parametrize("name", ["gcn", "gat"])
@@ -474,3 +491,47 @@ def test_offload_slow_gather_never_reuses_a_buffer_in_flight(cuda):
     slow.apply_stream(wl.batches)
     sync.apply_stream(wl.batches)
     assert all(np.array_equal(u, v) for u, v in zip(_host_state(slow), _host_state(sync)))
+
+
+# ---------------------------------------------------------------------- #
+# the row-sharded engines (S logical shards on the one card)
+# ---------------------------------------------------------------------- #
+def _sharded(backend, name, wl, x, S, **kw):
+    from repro_torch.serve import CommsConfig
+
+    return _host_engine(backend, name, wl, x, "cuda", num_shards=S,
+                        comms=CommsConfig(halo=kw.pop("halo", "auto")), **kw)
+
+
+@pytest.mark.parametrize("S", [1, 3, 8])
+def test_sharded_on_card_equals_device_engine(cuda, S):
+    """gcn: every h, a and nct bitwise the device engine's on the card, in
+    both halo modes; ``delta_agg`` once per shard and layer a batch."""
+    x, wl = _stream()
+    dev = _host_engine("device", "gcn", wl, x, "cuda")
+    dev.apply_stream(wl.batches)
+    want = _host_state(dev)
+    for halo in ("psum", "ppermute"):
+        sh = _sharded("sharded", "gcn", wl, x, S, halo=halo)
+        for b in wl.batches:
+            n_delta = dmod.KERNEL.launches
+            sh.apply_batch(b)
+            assert dmod.KERNEL.launches - n_delta == S * sh.L
+        assert all(np.array_equal(u, v) for u, v in zip(want, _host_state(sh)))
+
+
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+def test_hybrid_on_card_equals_offload_engine(cuda, name):
+    """The sharded-offload hybrid at S = 8 bitwise the offload engine on the
+    card, psum ≡ ppermute, cached ≡ uncached."""
+    from repro_torch.serve import CacheConfig
+
+    x, wl = _stream()
+    off = _host_engine("offload", name, wl, x, "cuda")
+    off.apply_stream(wl.batches)
+    want = _host_state(off)
+    for kw in ({"halo": "psum"}, {"halo": "ppermute"},
+               {"cache": CacheConfig(capacity_rows=64)}):
+        hy = _sharded("sharded_offload", name, wl, x, 8, **kw)
+        hy.apply_stream(wl.batches)
+        assert all(np.array_equal(u, v) for u, v in zip(want, _host_state(hy))), kw

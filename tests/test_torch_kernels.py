@@ -19,6 +19,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.delta_agg import delta_agg  # noqa: E402
 from repro_torch.kernels.edge_softmax import edge_softmax_normalize  # noqa: E402
+from repro_torch.kernels.row_linear import row_linear, row_linear_plain  # noqa: E402
 from repro_torch.kernels.segment_spmm import prepare_row_schedule, segment_spmm  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -318,3 +319,39 @@ def test_tf32_rounding_matches_cvt_rna():
     out = _tf32(x)
     assert out.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0]
     assert torch.all(out.view(torch.int32) & 0x1FFF == 0)
+
+
+# ---------------------------------------------------------------------- #
+# row_linear: the models' dense product, rows independent of the row count
+# ---------------------------------------------------------------------- #
+ROW_COUNTS = (1, 2, 15, 16, 17, 32, 33, 1000)
+
+
+def _row_linear_inputs(k, n, seed=0):
+    rng = np.random.default_rng(seed + k)
+    a = rng.normal(size=(1000, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * np.sqrt(2.0 / (k + n))).astype(np.float32)  # glorot
+    return a, w
+
+
+@pytest.mark.parametrize("k,n", [(128, 128), (256, 128)])
+def test_row_linear_rows_do_not_depend_on_the_row_count(k, n):
+    """Row i of ``A[:m] @ W`` is bitwise row i of ``A @ W`` for every m (the
+    CPU's own matmul fails this at m = 1)."""
+    a, w = (torch.from_numpy(v) for v in _row_linear_inputs(k, n))
+    full = row_linear(a, w)
+    for m in ROW_COUNTS:
+        assert torch.equal(row_linear(a[:m], w), full[:m]), m
+
+
+@pytest.mark.parametrize("k,n", [(128, 128), (256, 128), (8, 8)])
+def test_row_linear_matches_reference_product(k, n):
+    """Within 1e-5 of the reference's ``jnp`` product on the same inputs
+    (fp32, another summation order)."""
+    a, w = _row_linear_inputs(k, n)
+    out = row_linear(torch.from_numpy(a), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(out, np.asarray(jnp.asarray(a) @ jnp.asarray(w)), **TOL)
+    assert torch.equal(row_linear_plain(torch.from_numpy(a), torch.from_numpy(w)),
+                       torch.from_numpy(out))
+    with pytest.raises(ValueError, match="K"):
+        row_linear(torch.from_numpy(a), torch.from_numpy(w[:-1]))
