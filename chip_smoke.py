@@ -41,12 +41,19 @@ Phases, one JSON line each:
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
              fp32 and 3e-2 in bf16; edge_softmax_normalize exactly;
-             row_linear ≤ 1e-5, and rows of ``A[:m] @ W`` bitwise rows of
-             ``A @ W`` for m ∈ {1, 2, 15, 16, 17, 32, 33, 1000} at K = N = 128
-             and K = 256), timed with CUDA events beside its plain version, a
-             PyTorch yardstick where one call computes the same function
-             (``index_add_``; ``scaled_dot_product_attention``;
-             ``torch.matmul``) and its bound.
+             row_linear ≤ 1e-5 at M = n, where the wrapper takes the tiled
+             kernel, and bitwise the general kernel there, at gat's per-edge
+             M = E and at the incremental step's row cap; rows of
+             ``A[:m] @ W`` bitwise rows of ``A @ W`` for m from 1 to 20,000,
+             across the wrapper's switch between the two kernels, at K = N =
+             128 and K = 256), timed with CUDA events beside its plain
+             version, a PyTorch yardstick where one call computes the same
+             function (``index_add_``; ``scaled_dot_product_attention``;
+             ``torch.matmul``) and its bound; ``segment_spmm`` and
+             ``delta_agg`` also at a skewed shape (a Zipf in-degree sequence
+             over n rows, ≈ 10M records, hub rows of 10^4 to 10^5 records;
+             integer-valued messages, so every summation order is exact and
+             each kernel must equal its plain version bit for bit).
 
 The serving layer of the GNN engine runs on its own
 ``make_graph("uniform", 100_000, avg_degree=10, weighted=True)`` graph
@@ -199,7 +206,10 @@ KERNEL_INFO = {  # TPU kernel name → its library (csrc/<lib>.cu), source and T
         "replaces": "none (port-only: the dense products of src/repro/core/models.py)",
     },
 }
-ROW_COUNTS = (1, 2, 15, 16, 17, 32, 33, 1000)  # row_linear's row-count probe
+#: row_linear's row-count probe: the wrapper switches from the general to the tiled
+#: kernel at 16,896 rows (``kernels/row_linear.py`` ``TILED_MIN_ROWS``)
+ROW_COUNTS = (1, 2, 15, 16, 17, 32, 33, 1000, 16_895, 16_896, 20_000)
+ZIPF_EXPONENT, ZIPF_MAX_DEGREE = 1.97, 100_000  # the skewed kernel shape: zipf_in_indptr
 SHARDS = 8  # logical shards of the sharded phases (the reference's CI mesh)
 
 
@@ -230,13 +240,16 @@ def phase_build() -> None:
     res = build_all(libs)
     logdir = BUILD_DIR / "logs"
     logdir.mkdir(parents=True, exist_ok=True)
-    regs = {}
+    regs, spills = {}, {}
     for name, r in res.items():
         (logdir / f"nvcc_{name}.log").write_text(r["log"])
-        regs[name] = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln]
+        lines = [ln.strip() for ln in r["log"].splitlines()]
+        regs[name] = [ln for ln in lines if "registers" in ln]
+        spills[name] = [ln for ln in lines if "spill" in ln and "0 bytes spill stores, 0 bytes "
+                        "spill loads" not in ln]  # the kernels that spill, if any
     hgmma = {name: _sass_count(_lib_path(name), "HGMMA") for name in libs}
     emit({"phase": "build", "seconds": {k: v["seconds"] for k, v in res.items()},
-          "ptxas": regs, "sass_hgmma": hgmma})
+          "ptxas": regs, "ptxas_spills": spills, "sass_hgmma": hgmma})
     if not hgmma["flash_attention"]:
         raise AssertionError("flash_attention's SASS has no HGMMA: it misses the tensor cores")
 
@@ -345,44 +358,81 @@ def _bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def kernel_segment_spmm(graph, d: int, gen) -> dict:
-    """full_forward's shape: dst-sorted edges, in_indptr offsets, no order."""
+def _messages(e: int, d: int, gen, integer: bool = False):
+    """Gaussian messages, or with ``integer`` whole numbers in [-8, 8]: every
+    partial sum of up to 10^6 of them is exact in fp32, so every summation
+    order gives the same bits and a kernel is held to its plain version
+    exactly, whatever the number of records a row (the skewed shape's hubs
+    sum 10^5; with Gaussian messages two fp32 orders differ there by ~1e-2)."""
+    import torch
+
+    if integer:
+        return torch.randint(-8, 9, (e, d), device="cuda", generator=gen).float()
+    return torch.randn(e, d, device="cuda", generator=gen)
+
+
+def kernel_segment_spmm(in_indptr: np.ndarray, d: int, gen, iters: int = 10,
+                        integer: bool = False) -> dict:
+    """full_forward's shape: dst-sorted edges, ``in_indptr`` offsets, no order
+    (``integer``: see :func:`_messages`)."""
     import torch
 
     from repro_torch.kernels.segment_spmm import segment_spmm, segment_spmm_plain
 
-    e, r = graph.num_edges, graph.n
-    row_ptr = torch.from_numpy(graph.in_indptr.astype(np.int64)).cuda()
+    r, e = len(in_indptr) - 1, int(in_indptr[-1])
+    row_ptr = torch.from_numpy(in_indptr.astype(np.int64)).cuda()
     dst = torch.repeat_interleave(torch.arange(r, device="cuda"), row_ptr.diff())
-    msg = torch.randn(e, d, device="cuda", generator=gen)
+    msg = _messages(e, d, gen, integer)
     out = segment_spmm(msg, row_ptr, None, r)
     ref = segment_spmm_plain(msg, row_ptr, None, r)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     del out, ref
-    ms = cuda_time_ms(lambda: segment_spmm(msg, row_ptr, None, r), 10)
+    ms = cuda_time_ms(lambda: segment_spmm(msg, row_ptr, None, r), iters)
     plain_ms = cuda_time_ms(lambda: segment_spmm_plain(msg, row_ptr, None, r), 3)
     lib_ms = cuda_time_ms(
-        lambda: torch.zeros(r, d, device="cuda").index_add_(0, dst, msg), 10)
+        lambda: torch.zeros(r, d, device="cuda").index_add_(0, dst, msg), iters)
     bound_ms, by = _bound(e * d * 4 + (r + 1) * 8 + r * d * 4, e * d)
-    return {"name": "segment_spmm", "shape": {"E": e, "D": d, "R": r, "order": False},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"name": "segment_spmm", "shape": {"E": e, "D": d, "R": r, "order": False,
+                                              "max_records_a_row": int(np.diff(in_indptr).max())},
+            "max_abs_err": err, **({"within_tol": err == 0.0, "values": "integers"}
+                                   if integer else {}),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": lib_ms}
 
 
-def _scheduled_inputs(e_cap: int, r_cap: int, live: int, d: int, gen, rng):
-    """Records in plan order with row keys in [0, r_cap), a -1 padded tail,
-    and their row schedule — the layout the packed plan ships."""
+def _uniform_keys(e_cap: int, r_cap: int, live: int, rng) -> np.ndarray:
+    """``live`` record keys uniform over ``[0, r_cap)`` and a -1 padded tail,
+    as the packed plan ships them."""
+    keys = np.full(e_cap, -1, np.int64)
+    keys[:live] = rng.integers(0, r_cap, live)
+    return keys
+
+
+def zipf_in_indptr(n: int, seed: int) -> np.ndarray:
+    """Row offsets of a skewed in-degree sequence over ``n`` rows: Zipf
+    degrees (exponent ``ZIPF_EXPONENT``) clipped at ``ZIPF_MAX_DEGREE``, so at
+    n = 1M about 10M records with hub rows of 10^4 to 10^5.  Built from the
+    degrees directly: the preferential-attachment generator is quadratic in
+    n on the host."""
+    rng = np.random.default_rng(seed)
+    deg = np.minimum(rng.zipf(ZIPF_EXPONENT, n), ZIPF_MAX_DEGREE)
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    return indptr
+
+
+def _scheduled_inputs(keys: np.ndarray, r_cap: int, d: int, gen, integer: bool = False):
+    """Messages for records with row ``keys`` (-1: padding) and their row
+    schedule — the layout the packed plan ships."""
     import torch
 
     from repro_torch.kernels.segment_spmm import prepare_row_schedule
 
-    keys = np.full(e_cap, -1, np.int64)
-    keys[:live] = rng.integers(0, r_cap, live)
     order, row_ptr = prepare_row_schedule(keys, r_cap)
-    msg = torch.randn(e_cap, d, device="cuda", generator=gen)
-    msg[live:] = 0.0  # padded records are masked to 0 on the main path
-    return (keys, msg, torch.from_numpy(order).cuda(), torch.from_numpy(row_ptr).cuda())
+    msg = _messages(len(keys), d, gen, integer)
+    msg[torch.from_numpy(keys < 0).cuda()] = 0.0  # padded records are masked to 0 on the main path
+    return msg, torch.from_numpy(order).cuda(), torch.from_numpy(row_ptr).cuda()
 
 
 def kernel_segment_spmm_subset(fe_cap: int, f_cap: int, d: int, gen, rng) -> dict:
@@ -391,8 +441,8 @@ def kernel_segment_spmm_subset(fe_cap: int, f_cap: int, d: int, gen, rng) -> dic
 
     from repro_torch.kernels.segment_spmm import segment_spmm, segment_spmm_plain
 
-    live = fe_cap * 3 // 4
-    keys, msg, order, row_ptr = _scheduled_inputs(fe_cap, f_cap, live, d, gen, rng)
+    msg, order, row_ptr = _scheduled_inputs(
+        _uniform_keys(fe_cap, f_cap, fe_cap * 3 // 4, rng), f_cap, d, gen)
     out = segment_spmm(msg, row_ptr, order, f_cap)
     ref = segment_spmm_plain(msg, row_ptr, order, f_cap)
     torch.cuda.synchronize()
@@ -401,33 +451,41 @@ def kernel_segment_spmm_subset(fe_cap: int, f_cap: int, d: int, gen, rng) -> dic
             "ms": cuda_time_ms(lambda: segment_spmm(msg, row_ptr, order, f_cap), 100)}
 
 
-def kernel_delta_agg(e_cap: int, r_cap: int, d: int, gen, rng, live: int = None) -> dict:
+def kernel_delta_agg(keys: np.ndarray, r_cap: int, d: int, gen, iters: int = 200,
+                     integer: bool = False) -> dict:
     """Step 1 of the incremental layer: the touched rows' state takes the
-    scheduled record sums in place (``live`` records, 3/4 of ``e_cap`` unless
-    given)."""
+    scheduled record sums in place (records with key -1 are padding;
+    ``integer``: see :func:`_messages`, the state too)."""
     import torch
 
     from repro_torch.kernels.delta_agg import delta_agg, delta_agg_plain
 
-    live = e_cap * 3 // 4 if live is None else live
-    keys, msg, order, row_ptr = _scheduled_inputs(e_cap, r_cap, live, d, gen, rng)
-    state0 = torch.randn(r_cap, d, device="cuda", generator=gen)
+    msg, order, row_ptr = _scheduled_inputs(keys, r_cap, d, gen, integer)
+    live_keys = keys[keys >= 0]
+    live = len(live_keys)
+    state0 = _messages(r_cap, d, gen, integer)
     out = delta_agg(state0.clone(), msg, row_ptr, order)
     ref = delta_agg_plain(state0.clone(), msg, row_ptr, order)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
+    del out, ref
     state = state0.clone()
-    ms = cuda_time_ms(lambda: delta_agg(state, msg, row_ptr, order), 200)
-    plain_ms = cuda_time_ms(lambda: delta_agg_plain(state, msg, row_ptr, order), 20)
-    keys_live = torch.from_numpy(keys[:live]).cuda()
-    msg_live = msg[:live].contiguous()
-    lib_ms = cuda_time_ms(lambda: state.index_add_(0, keys_live, msg_live), 200)
-    touched = int(np.unique(keys[:live]).size)
+    ms = cuda_time_ms(lambda: delta_agg(state, msg, row_ptr, order), iters)
+    plain_ms = cuda_time_ms(lambda: delta_agg_plain(state, msg, row_ptr, order),
+                            max(3, iters // 10))
+    keys_live = torch.from_numpy(live_keys).cuda()
+    msg_live = msg[torch.from_numpy(keys >= 0).cuda()]
+    lib_ms = cuda_time_ms(lambda: state.index_add_(0, keys_live, msg_live), iters)
+    counts = np.bincount(live_keys, minlength=r_cap)
+    touched = int((counts > 0).sum())
     nbytes = live * d * 4 + (r_cap + 1) * 4 + live * 4 + 2 * touched * d * 4
     bound_ms, by = _bound(nbytes, live * d)
-    return {"name": "delta_agg", "shape": {"E": e_cap, "live": live, "D": d, "R": r_cap,
-                                           "touched": touched},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"name": "delta_agg", "shape": {"E": len(keys), "live": live, "D": d, "R": r_cap,
+                                           "touched": touched,
+                                           "max_records_a_row": int(counts.max())},
+            "max_abs_err": err, **({"within_tol": err == 0.0, "values": "integers"}
+                                   if integer else {}),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": lib_ms}
 
 
@@ -1552,38 +1610,99 @@ def _row_linear_inputs(m: int, k: int, n: int, gen):
     return a, w
 
 
-def kernel_row_linear(m: int, gen) -> dict:
-    """``row_linear`` at the update's shape on the main path (``a @ W`` over
-    all n rows in ``full_forward``, K = N = 128): kernel vs plain version,
-    the row-count probe at K = N = 128 and K = 256, times beside
-    ``torch.matmul`` (TF32 off) and the bound."""
+def _bitwise(x, y) -> bool:
     import torch
 
-    from repro_torch.kernels.row_linear import row_linear, row_linear_plain
+    return bool(torch.equal(x.view(torch.int32), y.view(torch.int32)))
 
+
+def _row_linear_bound(m: int, k: int, n: int):
+    return _bound((m * k + k * n + m * n) * 4, 2 * m * k * n)
+
+
+def kernel_row_linear(m: int, e: int, r_cap: int, gen) -> list:
+    """``row_linear`` at the update's shape on the main path (``a @ W`` over
+    all n rows in ``full_forward``, K = N = 128), where the wrapper takes the
+    tiled kernel: bitwise the general kernel, within 1e-5 of the plain
+    version, the row-count probe at K = N = 128 and K = 256 across the
+    wrapper's switch between the kernels, both kernels timed beside
+    ``torch.matmul`` (TF32 off) and the bound, and both kernels at a few M
+    around the switch.  Variant rows: gat's per-edge product (M = E, no plain
+    version: seconds for nothing) and the incremental step's update (M =
+    the largest row cap), each bitwise the general kernel."""
+    import torch
+
+    from repro_torch.kernels.row_linear import (
+        ENTRIES,
+        TILED_MIN_ROWS,
+        kernel_entry,
+        row_linear,
+        row_linear_plain,
+    )
+
+    general = ENTRIES[0]
     probe = {}
     for k, n in ((WIDTH, WIDTH), (2 * WIDTH, WIDTH)):
         a, w = _row_linear_inputs(ROW_COUNTS[-1], k, n, gen)
         full = row_linear(a, w)
         probe[f"K{k}_N{n}"] = {
+            "entry_at_full": kernel_entry(ROW_COUNTS[-1], k, n),
             "rows_independent": all(bool(torch.equal(row_linear(a[:r], w), full[:r]))
                                     for r in ROW_COUNTS),
             "matmul_max_row_diff": max(float(((a[:r] @ w) - (a @ w)[:r]).abs().max())
                                        for r in ROW_COUNTS)}
+    del a, w, full
+
     a, w = _row_linear_inputs(m, WIDTH, WIDTH, gen)
-    out, ref = row_linear(a, w), row_linear_plain(a, w)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    del out, ref
+    out = row_linear(a, w)
+    same = _bitwise(out, row_linear(a, w, entry=general))
+    err = float((out - row_linear_plain(a, w)).abs().max())
+    del out
     ms = cuda_time_ms(lambda: row_linear(a, w), 20)
+    general_ms = cuda_time_ms(lambda: row_linear(a, w, entry=general), 20)
     plain_ms = cuda_time_ms(lambda: row_linear_plain(a, w), 3, warmup=1)
     lib_ms = cuda_time_ms(lambda: torch.matmul(a, w), 20)
-    bound_ms, by = _bound((m * WIDTH + WIDTH * WIDTH + m * WIDTH) * 4, 2 * m * WIDTH * WIDTH)
-    return {"name": "row_linear", "shape": {"M": m, "K": WIDTH, "N": WIDTH},
-            "max_abs_err": err, "within_tol": err <= TOL_KERNEL and all(
+    bound_ms, by = _row_linear_bound(m, WIDTH, WIDTH)
+    del a
+    switch = {}  # both kernels on each side of the wrapper's switch between them
+    for k in (WIDTH, 2 * WIDTH):
+        a, wk = _row_linear_inputs(4 * TILED_MIN_ROWS, k, WIDTH, gen)
+        for rows in (TILED_MIN_ROWS // 16, TILED_MIN_ROWS // 4, TILED_MIN_ROWS,
+                     4 * TILED_MIN_ROWS):
+            switch[f"K{k}_M{rows}"] = {
+                entry: cuda_time_ms(lambda: row_linear(a[:rows], wk, entry=entry), 50)
+                for entry in ENTRIES}
+        del a
+    main = {"name": "row_linear", "shape": {"M": m, "K": WIDTH, "N": WIDTH},
+            "entry": kernel_entry(m, WIDTH, WIDTH), "max_abs_err": err,
+            "bitwise_general": same,
+            "within_tol": err <= TOL_KERNEL and same and all(
                 p["rows_independent"] for p in probe.values()),
-            "row_count_probe": probe, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_ms, "library": "torch.matmul (TF32 off)"}
+            "row_count_probe": probe, "ms": ms, "general_ms": general_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": "torch.matmul (TF32 off)", "entries_at_switch_ms": switch}
+
+    rows = [main]
+    for variant, rows_m, iters in (("gat_per_edge", e, 5), ("incremental_update", r_cap, 50)):
+        a = torch.randn(rows_m, WIDTH, device="cuda", generator=gen)
+        out = row_linear(a, w)
+        same = _bitwise(out, row_linear(a, w, entry=general))
+        err = float((out - row_linear_plain(a, w)).abs().max()) if rows_m <= m else None
+        del out
+        bound_ms, by = _row_linear_bound(rows_m, WIDTH, WIDTH)
+        rows.append({
+            "name": "row_linear", "variant": variant,
+            "shape": {"M": rows_m, "K": WIDTH, "N": WIDTH},
+            "entry": kernel_entry(rows_m, WIDTH, WIDTH),
+            # the plain version is skipped at M = E: its K steps take seconds there
+            "max_abs_err": err, "bitwise_general": same,
+            "within_tol": same and (err is None or err <= TOL_KERNEL),
+            "ms": cuda_time_ms(lambda: row_linear(a, w), iters),
+            "general_ms": cuda_time_ms(lambda: row_linear(a, w, entry=general), iters),
+            "plain_ms": None, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": cuda_time_ms(lambda: torch.matmul(a, w), iters)})
+        del a
+    return rows
 
 
 def main(argv=None) -> int:
@@ -1658,23 +1777,37 @@ def main(argv=None) -> int:
     chunk = serving["policy"]["chunks"]  # the policy's chunked mode: a mean chunk's shape
     # the offload path's largest compact delta_agg call (gcn, phase offload)
     off_e, off_r, off_live = max(serving["offload"]["delta_agg_compact_shapes"])
-    off_check = kernel_delta_agg(off_e, off_r, WIDTH + 1, gen, rng, live=off_live)
+    off_check = kernel_delta_agg(_uniform_keys(off_e, off_r, off_live, rng), off_r,
+                                 WIDTH + 1, gen)
     off_check["variant"] = "offload_compact"
     results = [
-        kernel_segment_spmm(wl.base, WIDTH + 1, gen),  # gcn: [ctx (1) | raw (128)]
+        kernel_segment_spmm(wl.base.in_indptr, WIDTH + 1, gen),  # gcn: [ctx (1) | raw (128)]
         kernel_segment_spmm_subset(caps["fe"], caps["f"], WIDTH + 2, gen, rng),  # gat
         kernel_segment_spmm_subset(next_bucket(chunk["edges_processed"] // chunk["chunks"]),
                                    8192, WIDTH + 1, gen, rng),  # chunked scheduler, gcn
-        kernel_delta_agg(caps["e"], caps["r"], WIDTH + 1, gen, rng),
+        kernel_delta_agg(_uniform_keys(caps["e"], caps["r"], caps["e"] * 3 // 4, rng),
+                         caps["r"], WIDTH + 1, gen),
         off_check,
+    ]
+    # the skewed shape: a Zipf in-degree sequence over the engine's n rows
+    zipf = zipf_in_indptr(args.n, args.seed)
+    skew_spmm = kernel_segment_spmm(zipf, WIDTH + 1, gen, integer=True)
+    zipf_keys = np.repeat(np.arange(args.n), np.diff(zipf))[rng.permutation(int(zipf[-1]))]
+    skew_delta = kernel_delta_agg(zipf_keys, args.n, WIDTH + 1, gen, iters=20, integer=True)
+    del zipf_keys
+    for row in (skew_spmm, skew_delta):
+        row["variant"] = "zipf"
+    results += [
+        skew_spmm,
+        skew_delta,
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
-        kernel_row_linear(wl.base.n, gen),
+        *kernel_row_linear(wl.base.n, wl.base.num_edges, caps["r"], gen),
     ]
     for res in results:
         emit({"phase": "kernel", **res})
-        ok = res.get("within_tol", res["max_abs_err"] <= TOL_KERNEL)
+        ok = res["within_tol"] if "within_tol" in res else res["max_abs_err"] <= TOL_KERNEL
         if not ok:
             raise AssertionError(f"{res['name']}: kernel vs plain max|Δ| {res['max_abs_err']}")
 
@@ -1689,10 +1822,12 @@ def main(argv=None) -> int:
                  "ms": res["ms"], "plain_ms": res["plain_ms"],
                  "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                  "library_ms": res["library_ms"]}
-        if "fp32_simt_bound_ms" in res:
-            entry["fp32_simt_bound_ms"] = res["fp32_simt_bound_ms"]
+        for extra in ("fp32_simt_bound_ms", "general_ms"):
+            if extra in res:
+                entry[extra] = res[extra]
         others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")}
+                                     "bound_ms", "bound_by", "library_ms", "general_ms")
+                   if k in r}
                   for r in results if r["name"] == name and "variant" in r]
         if others:
             entry["variants"] = others

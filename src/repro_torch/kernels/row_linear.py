@@ -13,8 +13,12 @@ the same row into products of different sizes (a fused window ≡ the serial
 loop, device ≡ offload, sharded ≡ device, hybrid ≡ offload), so each row of
 this product is a function of that row and ``W`` alone, by construction:
 
-* on a card, the kernel ``csrc/row_linear.cu`` sums each element in one
-  ``fmaf`` chain over k = 0 … K−1, whatever M or the tiling;
+* on a card, the kernels of ``csrc/row_linear.cu`` sum each element in one
+  ``fmaf`` chain over k = 0 … K−1, whatever M or the tiling: the general
+  kernel for any shape, and a persistent kernel that holds W in shared
+  memory for the engine's shapes (N = 128, K a multiple of 16 up to 256).
+  The chain fixes every bit, so the two give the same bits and
+  :func:`kernel_entry` may pick either;
 * on the CPU, :func:`row_linear_plain` runs the same k order as K
   elementwise steps ``out += A[:, k] ⊗ W[k]`` (a multiply, then an add: no
   contraction, and an elementwise op computes every element alike).
@@ -31,7 +35,27 @@ import torch
 
 from repro_torch.kernels._build import I64, PTR, CudaKernel
 
-KERNEL = CudaKernel("row_linear", {"row_linear_f32": (PTR, PTR, PTR, I64, I64, I64, PTR)})
+TILED_N = 128  # the tiled kernel's N: one 128-wide output tile, every row of A read once
+TILED_K_STEP, TILED_K_MAX = 16, 256  # its K: W (K·N·4 bytes ≤ 128 KB) sits in shared memory
+#: one 128-row tile for each of an H100's 132 SMs: below it the tiled kernel leaves SMs
+#: idle, and the general kernel's 64 × 64 tiles spread over more of them
+TILED_MIN_ROWS = 128 * 132
+ENTRIES = ("row_linear_f32", "row_linear_f32_tiled")  # the general and the tiled kernel
+_ARGS = (PTR, PTR, PTR, I64, I64, I64, PTR)  # a, w, out, m, k, n, stream
+KERNEL = CudaKernel("row_linear", {name: _ARGS for name in ENTRIES})
+
+
+def kernel_entry(m: int, k: int, n: int, aligned: bool = True) -> str:
+    """The C entry point :func:`row_linear` launches for ``[m, k] @ [k, n]``.
+
+    ``row_linear_f32_tiled`` where it applies: N = 128, K a multiple of 16 up
+    to 256, M at least ``TILED_MIN_ROWS``, and A, W and out 16-byte aligned
+    (``aligned``: the tiled kernel moves 16 bytes a load and a store);
+    ``row_linear_f32`` otherwise.  Both sum each element in the same chain,
+    so the choice moves time, never bits."""
+    tiled = (n == TILED_N and k % TILED_K_STEP == 0 and 0 < k <= TILED_K_MAX
+             and m >= TILED_MIN_ROWS and aligned)
+    return ENTRIES[1] if tiled else ENTRIES[0]
 
 
 def row_linear_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -44,8 +68,16 @@ def row_linear_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def row_linear(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``[M, K] @ [K, N]`` float32 with rows independent of M (see module doc)."""
+def row_linear(a: torch.Tensor, w: torch.Tensor, *, entry: str | None = None) -> torch.Tensor:
+    """``[M, K] @ [K, N]`` float32 with rows independent of M (see module doc).
+
+    ``entry`` names the C entry point to launch on a card instead of
+    :func:`kernel_entry`'s choice, so that the two kernels can be held
+    against each other on the same inputs (the CPU runs the plain version
+    whatever it names); a shape the tiled kernel does not take makes its
+    launch raise."""
+    if entry is not None and entry not in ENTRIES:
+        raise ValueError(f"row_linear: entry must be one of {ENTRIES}, got {entry!r}")
     dev = a.device
     if dev.type == "cpu":
         if w.device != dev:
@@ -64,10 +96,11 @@ def row_linear(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
+    aligned = (a.data_ptr() | w.data_ptr() | out.data_ptr()) % 16 == 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        KERNEL.launch("row_linear_f32", a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                      stream)
+        KERNEL.launch(entry or kernel_entry(m, k, n, aligned), a.data_ptr(), w.data_ptr(),
+                      out.data_ptr(), m, k, n, stream)
     return out
 
 

@@ -81,22 +81,80 @@ def test_delta_agg_kernel_matches_plain_and_skips_untouched_rows(cuda):
     assert untouched.numel() and torch.equal(out[untouched], state[untouched])
 
 
+#: the row-count probe: both sides of the wrapper's switch to the tiled kernel
+ROW_PROBE = (1, 2, 15, 16, 17, 32, 33, 1000, rmod.TILED_MIN_ROWS - 1, rmod.TILED_MIN_ROWS, 20_000)
+GENERAL, TILED = rmod.ENTRIES
+
+
+def _row_linear_inputs(rng, m, k, n):
+    """Glorot-scaled W, Gaussian A with a fifth of its entries, one row of A
+    and one column of W exact zeros."""
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    a[rng.random((m, k)) < 0.2] = 0.0
+    a[m // 2] = 0.0
+    w = (rng.normal(size=(k, n)) * np.sqrt(2 / (k + n))).astype(np.float32)
+    w[:, n // 3] = 0.0
+    return torch.from_numpy(a).cuda(), torch.from_numpy(w).cuda()
+
+
 @pytest.mark.parametrize("k,n", [(128, 128), (256, 128), (129, 130)])
 def test_row_linear_kernel_rows_do_not_depend_on_the_row_count(cuda, k, n):
     """Rows of ``A[:m] @ W`` bitwise rows of ``A @ W`` for every m (cuBLAS
     picks another kernel above 16 rows), one launch a call, within 1e-5 of
-    the plain version."""
+    the plain version.  At (128, 128) and (256, 128) the wrapper switches
+    from the general to the tiled kernel at ``TILED_MIN_ROWS``, inside the
+    probe; each kernel is probed on its own too.  (129, 130) stays general."""
     rng = np.random.default_rng(k)
-    a = torch.from_numpy(rng.normal(size=(1000, k)).astype(np.float32)).cuda()
-    w = torch.from_numpy((rng.normal(size=(k, n)) * np.sqrt(2 / (k + n))).astype(np.float32)).cuda()
+    a, w = _row_linear_inputs(rng, ROW_PROBE[-1], k, n)
     n0 = rmod.KERNEL.launches
     full = rmod.row_linear(a, w)
     assert rmod.KERNEL.launches == n0 + 1
-    for m in (1, 2, 15, 16, 17, 32, 33, 1000):
+    assert rmod.kernel_entry(len(a), k, n) == (TILED if n == 128 else GENERAL)
+    for m in ROW_PROBE:
         assert torch.equal(rmod.row_linear(a[:m], w), full[:m]), m
+    for entry in rmod.ENTRIES if n == 128 else (GENERAL,):
+        assert torch.equal(rmod.row_linear(a, w, entry=entry), full), entry
+        for m in ROW_PROBE[:8]:
+            assert torch.equal(rmod.row_linear(a[:m], w, entry=entry), full[:m]), (entry, m)
     torch.testing.assert_close(full, rmod.row_linear_plain(a, w), **TOL)
     with pytest.raises(ValueError, match="float32"):
         rmod.row_linear(a.double(), w.double())
+
+
+@pytest.mark.parametrize("k", [16, 128, 144, 176, 256])
+def test_row_linear_tiled_kernel_is_bitwise_the_general_kernel(cuda, k):
+    """The tiled kernel (N = 128, K ≡ 0 mod 16, K ≤ 256) runs the general
+    kernel's fmaf chain, so every output bit agrees, at row-tile tails (M not
+    a multiple of 128), with K tails (144, 176: a last slice of 16 or 48 k)
+    and with exact zeros in A and W; one launch a call."""
+    rng = np.random.default_rng(100 + k)
+    a, w = _row_linear_inputs(rng, 70_000, k, 128)
+    for m in (1, 2, 15, 16, 17, 127, 128, 129, 1000, 70_000):
+        n0 = rmod.KERNEL.launches
+        tiled = rmod.row_linear(a[:m], w, entry=TILED)
+        general = rmod.row_linear(a[:m], w, entry=GENERAL)
+        assert rmod.KERNEL.launches == n0 + 2
+        assert torch.equal(tiled.view(torch.int32), general.view(torch.int32)), m
+    torch.testing.assert_close(tiled, rmod.row_linear_plain(a, w), **TOL)
+
+
+def test_row_linear_tiled_kernel_refuses_what_it_does_not_take(cuda):
+    """Shapes outside the tiled kernel's and views that are not 16-byte
+    aligned raise when forced on it; the wrapper's own choice sends a
+    misaligned view to the general kernel, with the same bits."""
+    rng = np.random.default_rng(5)
+    for k, n in ((129, 128), (272, 128), (128, 64), (8, 128)):
+        a, w = _row_linear_inputs(rng, 300, k, n)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rmod.row_linear(a, w, entry=TILED)
+    a, w = _row_linear_inputs(rng, rmod.TILED_MIN_ROWS, 128, 128)
+    shifted = torch.empty(a.numel() + 1, device=cuda)[1:].view_as(a).copy_(a)
+    assert shifted.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rmod.row_linear(shifted, w, entry=TILED)
+    assert torch.equal(rmod.row_linear(shifted, w), rmod.row_linear(a, w))
+    with pytest.raises(ValueError, match="entry"):
+        rmod.row_linear(a, w, entry="cublas")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

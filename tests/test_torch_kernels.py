@@ -19,7 +19,13 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels.delta_agg import delta_agg  # noqa: E402
 from repro_torch.kernels.edge_softmax import edge_softmax_normalize  # noqa: E402
-from repro_torch.kernels.row_linear import row_linear, row_linear_plain  # noqa: E402
+from repro_torch.kernels.row_linear import (  # noqa: E402
+    ENTRIES,
+    TILED_MIN_ROWS,
+    kernel_entry,
+    row_linear,
+    row_linear_plain,
+)
 from repro_torch.kernels.segment_spmm import prepare_row_schedule, segment_spmm  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -355,3 +361,35 @@ def test_row_linear_matches_reference_product(k, n):
                        torch.from_numpy(out))
     with pytest.raises(ValueError, match="K"):
         row_linear(torch.from_numpy(a), torch.from_numpy(w[:-1]))
+
+
+GENERAL, TILED = ENTRIES
+
+
+@pytest.mark.parametrize("m,k,n,aligned,entry", [
+    (1_000_000, 128, 128, True, TILED),  # the update in full_forward at n = 1M
+    (9_995_744, 128, 128, True, TILED),  # gat's per-edge product at E of the 1M graph
+    (TILED_MIN_ROWS, 256, 128, True, TILED),
+    (TILED_MIN_ROWS - 1, 128, 128, True, GENERAL),  # fewer tiles than an H100's SMs
+    (12, 128, 128, True, GENERAL),  # a fused window of the ring cell
+    (1_000_000, 16, 128, True, TILED),
+    (1_000_000, 144, 128, True, TILED),  # a K tail of 16
+    (1_000_000, 272, 128, True, GENERAL),  # W past 128 KB of shared memory
+    (1_000_000, 129, 128, True, GENERAL),  # K not a multiple of 16
+    (1_000_000, 8, 128, True, GENERAL),
+    (1_000_000, 128, 130, True, GENERAL),  # N is the tiled kernel's whole tile
+    (1_000_000, 128, 64, True, GENERAL),
+    (1_000_000, 128, 128, False, GENERAL),  # a view not 16-byte aligned
+    (1_000_000, 0, 128, True, GENERAL),
+])
+def test_row_linear_dispatch_is_a_function_of_the_shape(m, k, n, aligned, entry):
+    """Which kernel ``row_linear`` launches on a card, from (M, K, N) and the
+    pointers' alignment alone; both run the same chain, so this moves time,
+    never bits (``tests/test_torch_gpu.py`` holds the two bitwise)."""
+    assert kernel_entry(m, k, n, aligned) == entry
+
+
+def test_row_linear_rejects_an_unknown_entry():
+    a, w = (torch.from_numpy(v) for v in _row_linear_inputs(128, 128))
+    with pytest.raises(ValueError, match="entry"):
+        row_linear(a, w, entry="cublas")
