@@ -22,6 +22,13 @@ Phases, one JSON line each:
              runs: each GNN kernel (``delta_agg``, ``segment_spmm``,
              ``row_linear``: every model product) must have launched on the
              main path;
+2b. engine_skewed — ``create_engine("device", …)`` for gcn on a graph whose
+             in-degrees are ``zipf_in_indptr(n, seed)`` (sources uniform,
+             duplicates and self-loops removed; hub rows of 10^4 to 10^5
+             in-edges, which the uniform graph lacks), widths as above, init
+             and 2 batches of 1000 updates through ``apply_batch``, held
+             against ``full_forward`` at 2e-4; counts zeroed before and read
+             after: ``segment_spmm`` (init) and ``delta_agg`` must launch;
 3. edge_softmax_op — the standalone op ``ops.edge_softmax`` (no main path
              calls it) on the base graph's ≈10M in-edges with H = 2 (gat's
              heads), counts zeroed before and read after; held against
@@ -53,7 +60,15 @@ Phases, one JSON line each:
              ``delta_agg`` also at a skewed shape (a Zipf in-degree sequence
              over n rows, ≈ 10M records, hub rows of 10^4 to 10^5 records;
              integer-valued messages, so every summation order is exact and
-             each kernel must equal its plain version bit for bit).
+             each kernel must equal its plain version bit for bit; and
+             Gaussian messages, where each kernel must equal
+             ``row_sum_chunked_plain``, the kernels' documented order of
+             additions, bit for bit).  The two row-sum kernels' rows carry
+             their share of the bound and the longest chain a warp walks
+             (``longest_chain_records``, at most ``ROW_SUM_CHUNK``) beside
+             the most chunk sums a row adds (``most_chunks_a_row``), and
+             the wrapper's host time a call (``host_us_per_call``: where it
+             reaches ``ms``, the timed loop is host-bound).
 
 The serving layer of the GNN engine runs on its own
 ``make_graph("uniform", 100_000, avg_degree=10, weighted=True)`` graph
@@ -233,6 +248,23 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us_per_call(fn, iters: int) -> float:
+    """The host time of a call of ``fn`` (enqueue only, not synchronised).
+    Where it reaches the time :func:`cuda_time_ms` reads for the same
+    calls, back-to-back calls are host-bound and that time is the host's
+    rate, not the kernel's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / iters * 1e6
+
+
 def phase_build() -> None:
     from repro_torch.kernels._build import BUILD_DIR, _lib_path, build_all
 
@@ -334,6 +366,72 @@ def phase_engine(model_name: str, x, wl, seed: int, kernels: dict) -> dict:
     return row
 
 
+def skewed_graph(n: int, seed: int):
+    """A graph whose in-degrees are ``zipf_in_indptr(n, seed)``: each
+    in-edge's source uniform over the vertices, duplicate edges and
+    self-loops removed, weights uniform in [0.5, 1.5) (as ``make_graph``'s
+    ``weighted``)."""
+    from repro_torch.graph.csr import CSRGraph
+
+    rng = np.random.default_rng(seed + 2)
+    indptr = zipf_in_indptr(n, seed)
+    dst = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    src = rng.integers(0, n, len(dst), dtype=np.int64)
+    key = np.unique((dst * n + src)[src != dst])
+    w = rng.uniform(0.5, 1.5, len(key)).astype(np.float32)
+    return CSRGraph.from_edges(n, key % n, key // n, w)
+
+
+def phase_engine_skewed(n: int, seed: int, kernels: dict, uniform: dict) -> dict:
+    """gcn on the skewed graph: init and 2 batches through ``apply_batch``.
+    Counts are set to 0 just before the engine is built and read just after
+    its batches; the full_forward check afterwards is not counted.  The
+    uniform graph's gcn run (``uniform``) is printed beside it."""
+    import torch
+
+    from repro_torch.core import full_forward, make_model
+    from repro_torch.graph import make_stream, random_features
+    from repro_torch.serve import EngineConfig, create_engine
+
+    t0 = time.perf_counter()
+    graph = skewed_graph(n, seed)
+    x, _ = random_features(n, WIDTH, seed=seed)
+    wl = make_stream(graph, num_batches=2, batch_edges=1000, delete_frac=0.3,
+                     feature_dim=WIDTH, feature_frac=1e-4, seed=seed + 1)
+    setup_s = time.perf_counter() - t0
+    del graph
+    model = make_model("gcn")
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    eng = create_engine("device", EngineConfig(
+        model=model, graph=wl.base, x=x, dims=[WIDTH, WIDTH, WIDTH], seed=seed,
+        device="cuda"))
+    eng.synchronize()
+    init_s = time.perf_counter() - t0
+    per_batch = [eng.apply_batch(b) for b in wl.batches]
+    launches = _counts(kernels)
+    emb = eng.embeddings
+    if emb.shape != (n, WIDTH) or not bool(torch.isfinite(emb).all()):
+        raise AssertionError(f"engine_skewed: bad embeddings {tuple(emb.shape)}")
+    xf = torch.from_numpy(final_features(x, wl.batches)).cuda()
+    err = float((emb - full_forward(model, eng.params, xf, eng.graph)[-1].h).abs().max())
+    in_deg = np.diff(wl.base.in_indptr)
+    row = {
+        "phase": "engine_skewed", "model": "gcn", "n": n, "edges": wl.base.num_edges,
+        "max_in_degree": int(in_deg.max()), "rows_over_512": int((in_deg > 512).sum()),
+        "width": WIDTH, "layers": 2, "setup_s": setup_s, "init_s": init_s,
+        "apply_batch": [_batch_row(b) for b in per_batch],
+        "uniform_gcn": {"init_s": uniform["init_s"],
+                        "exec_time_s": [b["exec_time_s"] for b in uniform["apply_batch"]]},
+        "max_abs_err_vs_full_forward": err, "launches": launches,
+    }
+    emit(row)
+    _require_launched(row, ("segment_spmm", "delta_agg"))
+    if not err <= TOL_ENGINE:
+        raise AssertionError(f"engine_skewed: vs full_forward max|Δ| {err} > {TOL_ENGINE}")
+    return row
+
+
 def _device_busy_s(prof):
     """Seconds of device activity in a ``torch.profiler`` trace, or None."""
     from torch.autograd import DeviceType
@@ -371,6 +469,15 @@ def _messages(e: int, d: int, gen, integer: bool = False):
     return torch.randn(e, d, device="cuda", generator=gen)
 
 
+def _chains(max_records_a_row: int) -> dict:
+    """The row-sum kernels' serial work at a shape: the longest chain one
+    warp walks and the most chunk sums pass 2 adds for one row."""
+    from repro_torch.kernels.segment_spmm import ROW_SUM_CHUNK
+
+    return {"longest_chain_records": min(max_records_a_row, ROW_SUM_CHUNK),
+            "most_chunks_a_row": -(-max_records_a_row // ROW_SUM_CHUNK)}
+
+
 def kernel_segment_spmm(in_indptr: np.ndarray, d: int, gen, iters: int = 10,
                         integer: bool = False) -> dict:
     """full_forward's shape: dst-sorted edges, ``in_indptr`` offsets, no order
@@ -392,13 +499,16 @@ def kernel_segment_spmm(in_indptr: np.ndarray, d: int, gen, iters: int = 10,
     plain_ms = cuda_time_ms(lambda: segment_spmm_plain(msg, row_ptr, None, r), 3)
     lib_ms = cuda_time_ms(
         lambda: torch.zeros(r, d, device="cuda").index_add_(0, dst, msg), iters)
+    host_us = host_us_per_call(lambda: segment_spmm(msg, row_ptr, None, r), iters)
     bound_ms, by = _bound(e * d * 4 + (r + 1) * 8 + r * d * 4, e * d)
+    longest = int(np.diff(in_indptr).max())
     return {"name": "segment_spmm", "shape": {"E": e, "D": d, "R": r, "order": False,
-                                              "max_records_a_row": int(np.diff(in_indptr).max())},
+                                              "max_records_a_row": longest, **_chains(longest)},
             "max_abs_err": err, **({"within_tol": err == 0.0, "values": "integers"}
                                    if integer else {}),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_ms}
+            "bound_by": by, "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "host_us_per_call": host_us}
 
 
 def _uniform_keys(e_cap: int, r_cap: int, live: int, rng) -> np.ndarray:
@@ -448,7 +558,9 @@ def kernel_segment_spmm_subset(fe_cap: int, f_cap: int, d: int, gen, rng) -> dic
     torch.cuda.synchronize()
     return {"name": "segment_spmm", "shape": {"E": fe_cap, "D": d, "R": f_cap, "order": True},
             "max_abs_err": float((out - ref).abs().max()),
-            "ms": cuda_time_ms(lambda: segment_spmm(msg, row_ptr, order, f_cap), 100)}
+            "ms": cuda_time_ms(lambda: segment_spmm(msg, row_ptr, order, f_cap), 100),
+            "host_us_per_call": host_us_per_call(
+                lambda: segment_spmm(msg, row_ptr, order, f_cap), 100)}
 
 
 def kernel_delta_agg(keys: np.ndarray, r_cap: int, d: int, gen, iters: int = 200,
@@ -476,17 +588,59 @@ def kernel_delta_agg(keys: np.ndarray, r_cap: int, d: int, gen, iters: int = 200
     keys_live = torch.from_numpy(live_keys).cuda()
     msg_live = msg[torch.from_numpy(keys >= 0).cuda()]
     lib_ms = cuda_time_ms(lambda: state.index_add_(0, keys_live, msg_live), iters)
+    host_us = host_us_per_call(lambda: delta_agg(state, msg, row_ptr, order), iters)
     counts = np.bincount(live_keys, minlength=r_cap)
     touched = int((counts > 0).sum())
     nbytes = live * d * 4 + (r_cap + 1) * 4 + live * 4 + 2 * touched * d * 4
     bound_ms, by = _bound(nbytes, live * d)
+    longest = int(counts.max())
     return {"name": "delta_agg", "shape": {"E": len(keys), "live": live, "D": d, "R": r_cap,
-                                           "touched": touched,
-                                           "max_records_a_row": int(counts.max())},
+                                           "touched": touched, "max_records_a_row": longest,
+                                           **_chains(longest)},
             "max_abs_err": err, **({"within_tol": err == 0.0, "values": "integers"}
                                    if integer else {}),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "library_ms": lib_ms}
+            "bound_by": by, "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "host_us_per_call": host_us}
+
+
+def kernel_row_sum_chunked(in_indptr: np.ndarray, keys: np.ndarray, d: int, gen) -> list:
+    """Both row-sum kernels at a skewed shape with Gaussian messages, where
+    two summation orders of a hub row differ: each is held bit for bit to
+    ``row_sum_chunked_plain``, the order ``csrc/row_sum.cuh`` documents
+    (``segment_spmm`` on dst-sorted records, ``delta_agg`` on records with
+    row ``keys`` in a random order and their row schedule)."""
+    import torch
+
+    from repro_torch.kernels.delta_agg import delta_agg
+    from repro_torch.kernels.segment_spmm import (
+        ROW_SUM_CHUNK,
+        row_sum_chunked_plain,
+        segment_spmm,
+    )
+
+    rows = []
+    r, e = len(in_indptr) - 1, int(in_indptr[-1])
+    row_ptr = torch.from_numpy(in_indptr.astype(np.int64)).cuda()
+    msg = _messages(e, d, gen)
+    out = segment_spmm(msg, row_ptr, None, r)
+    ref = row_sum_chunked_plain(msg, row_ptr, None, ROW_SUM_CHUNK)
+    rows.append(("segment_spmm", {"E": e, "D": d, "R": r, "order": False}, out, ref))
+    del msg
+    msg, order, row_ptr = _scheduled_inputs(keys, r, d, gen)
+    state0 = _messages(r, d, gen)
+    out = delta_agg(state0.clone(), msg, row_ptr, order)
+    ref = state0
+    touched = row_ptr[1:] != row_ptr[:-1]
+    ref[touched] += row_sum_chunked_plain(msg, row_ptr, order, ROW_SUM_CHUNK)[touched]
+    rows.append(("delta_agg", {"E": len(keys), "D": d, "R": r, "order": True}, out, ref))
+    del msg
+    torch.cuda.synchronize()
+    return [{"name": name, "variant": "zipf_gaussian", "shape": shape,
+             "max_abs_err": float((out - ref).abs().max()),
+             "within_tol": bool(torch.equal(out, ref)), "values": "gaussian",
+             "held_to": "row_sum_chunked_plain, bitwise"}
+            for name, shape, out, ref in rows]
 
 
 def _in_edges(graph):
@@ -1751,6 +1905,7 @@ def main(argv=None) -> int:
     for name, cnt in gnn.items():
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    skewed_row = phase_engine_skewed(args.n, args.seed, kernels, engine_rows[0])
     del graph
     serve = serving_data(min(args.n, SERVE_N), args.seed)
     serving_rows = [phase(serve, args.seed, kernels) for phase in (
@@ -1764,7 +1919,7 @@ def main(argv=None) -> int:
     phase_lm_consistency(cfg, params, args.seed)
     del params
     # every path's launches: the engine phases, the serving phases, the op, the LM
-    path_rows = engine_rows + serving_rows + [es, lm]
+    path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -1794,7 +1949,6 @@ def main(argv=None) -> int:
     skew_spmm = kernel_segment_spmm(zipf, WIDTH + 1, gen, integer=True)
     zipf_keys = np.repeat(np.arange(args.n), np.diff(zipf))[rng.permutation(int(zipf[-1]))]
     skew_delta = kernel_delta_agg(zipf_keys, args.n, WIDTH + 1, gen, iters=20, integer=True)
-    del zipf_keys
     for row in (skew_spmm, skew_delta):
         row["variant"] = "zipf"
     results += [
@@ -1804,7 +1958,9 @@ def main(argv=None) -> int:
         kernel_flash_attention(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
         *kernel_row_linear(wl.base.n, wl.base.num_edges, caps["r"], gen),
+        *kernel_row_sum_chunked(zipf, zipf_keys, WIDTH + 1, gen),
     ]
+    del zipf_keys
     for res in results:
         emit({"phase": "kernel", **res})
         ok = res["within_tol"] if "within_tol" in res else res["max_abs_err"] <= TOL_KERNEL
@@ -1822,11 +1978,12 @@ def main(argv=None) -> int:
                  "ms": res["ms"], "plain_ms": res["plain_ms"],
                  "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                  "library_ms": res["library_ms"]}
-        for extra in ("fp32_simt_bound_ms", "general_ms"):
+        for extra in ("bound_share", "host_us_per_call", "fp32_simt_bound_ms", "general_ms"):
             if extra in res:
                 entry[extra] = res[extra]
         others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms", "general_ms")
+                                     "bound_ms", "bound_by", "bound_share", "library_ms",
+                                     "general_ms", "within_tol", "host_us_per_call")
                    if k in r}
                   for r in results if r["name"] == name and "variant" in r]
         if others:

@@ -13,24 +13,37 @@
 //
 // What bounds it on an H100: memory.  Bytes = E·D·4 of messages + index bytes
 // (row_ptr, order) + R·D·4 of state read and written for the touched rows only; one add
-// per message element.  At the streaming shapes (E and R in the thousands, D ≈ 130) the
-// work is a few MB, so in practice a single launch is bound by launch latency.
+// per message element.  At the streaming shapes (E and R in the thousands to a few
+// hundred thousand, D ≈ 130) the work is a few MB to a few hundred MB, and a launch is
+// bound by latency and by the records' random order (each record is a gathered D-float
+// row).  When a batch touches many of a hub's in-neighbours, one row holds most of the
+// records, and how evenly they spread over the card bounds it.
 //
-// What the design does about it: one warp per touched row with lanes across the
-// columns, so reads are coalesced and each state row is read and written once; rows
+// What the design does about it (row_sum.cuh): a warp owns a touched row of at most 512
+// records and walks them once for all columns (lanes across the columns, so each
+// gathered record is a coalesced read; 32 record ids a load shared by shuffle; four
+// records' loads in flight, with the state row's); a longer row is cut into 512-record
+// chunks summed by warps anywhere on the card into scratch slots, and a second pass adds
+// a row's chunk sums in chunk order and adds the total into the state once.  Rows
 // without records are skipped before any load — the O(affected) property the TPU kernel
-// gets from aliasing.  The sum is taken in a register in record order and added to the
-// state once, so it is deterministic and matches `nct_old + Σ delta` of the reference.
+// gets from aliasing.  Each row's order of additions is a function of its own records
+// (rows of at most 512 records: the one k-order chain, as before), so the result is
+// deterministic and the same bits whatever else the launch holds.  The scratch is sized
+// from E on the host; with E <= 512 no row can be long and pass 2 is not launched.
+// Known gaps: a warp still owns a row of one record alone, and every window's chunk
+// warps search row_ptr even where no row is long.
 #include "row_sum.cuh"
 
 extern "C" int delta_agg_i32(const void* msg, const void* row_ptr, const void* order,
-                             void* state, long long num_rows, long long d, void* stream) {
+                             void* state, long long num_rows, long long d,
+                             long long num_records, void* scratch, void* stream) {
   return repro_torch::launch_row_sum<int32_t, true>(msg, row_ptr, order, state, num_rows, d,
-                                                    stream);
+                                                    num_records, scratch, stream);
 }
 
 extern "C" int delta_agg_i64(const void* msg, const void* row_ptr, const void* order,
-                             void* state, long long num_rows, long long d, void* stream) {
+                             void* state, long long num_rows, long long d,
+                             long long num_records, void* scratch, void* stream) {
   return repro_torch::launch_row_sum<int64_t, true>(msg, row_ptr, order, state, num_rows, d,
-                                                    stream);
+                                                    num_records, scratch, stream);
 }

@@ -34,8 +34,8 @@ NVCC_FLAGS = (
 PTR, I64, I32, F32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
 #: int fn(const void* msg, const void* row_ptr, const void* order, void* out,
-#:        long long num_rows, long long d, void* stream)
-ROW_SUM_ARGTYPES = (PTR, PTR, PTR, PTR, I64, I64, PTR)
+#:        long long num_rows, long long d, long long num_records, void* scratch, void* stream)
+ROW_SUM_ARGTYPES = (PTR, PTR, PTR, PTR, I64, I64, I64, PTR, PTR)
 
 
 def _nvcc() -> str:

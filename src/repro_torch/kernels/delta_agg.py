@@ -24,6 +24,7 @@ from repro_torch.kernels._build import ROW_SUM_ARGTYPES, CudaKernel
 from repro_torch.kernels.segment_spmm import (
     _check_cuda,
     _same_device,
+    _launch_row_sum,
     segment_spmm_plain,
 )
 
@@ -38,7 +39,9 @@ def delta_agg_plain(
     order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version: the same per-row sum, added once into the
-    rows that have records; returns ``state`` (updated in place)."""
+    rows that have records; returns ``state`` (updated in place).  Rows of
+    more than ``ROW_SUM_CHUNK`` records are summed in one chain here and in
+    chunks by the kernel (``segment_spmm.row_sum_chunked_plain``)."""
     sums = segment_spmm_plain(messages, row_ptr, order, state.shape[0])
     touched = torch.nonzero(row_ptr[1:] != row_ptr[:-1]).squeeze(1)
     state[touched] += sums[touched]
@@ -66,13 +69,7 @@ def delta_agg(
     _check_cuda(messages, row_ptr, order, state.shape[0])
     if messages.shape[1] != state.shape[1]:
         raise ValueError(f"messages width {messages.shape[1]} != state width {state.shape[1]}")
-    r, d = state.shape
-    if r == 0 or d == 0:
+    if state.shape[0] == 0 or state.shape[1] == 0:
         return state
-    sym = "delta_agg_i32" if row_ptr.dtype == torch.int32 else "delta_agg_i64"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        KERNEL.launch(sym, messages.data_ptr(), row_ptr.data_ptr(),
-                      None if order is None else order.data_ptr(), state.data_ptr(),
-                      r, d, stream)
+    _launch_row_sum(KERNEL, "delta_agg", messages, row_ptr, order, state)
     return state

@@ -13,6 +13,13 @@ the CUDA kernel takes a plain row schedule instead, which
 :func:`prepare_row_schedule` builds on the host.  Kernel source and its note
 on what bounds it: ``repro_torch/csrc/segment_spmm.cu``.
 
+The kernel's order of additions (``csrc/row_sum.cuh``): a row of at most
+``ROW_SUM_CHUNK`` records is one chain in record order, as
+:func:`segment_spmm_plain` sums it; a longer row is summed in chunks of
+``ROW_SUM_CHUNK`` records aligned to its first record, and the chunk sums are
+added in chunk order.  :func:`row_sum_chunked_plain` is that order in
+PyTorch, bit for bit; the tests and ``chip_smoke.py`` hold the kernel to it.
+
 :func:`segment_spmm` dispatches on the device of its inputs: CPU tensors go
 to :func:`segment_spmm_plain`, CUDA tensors to the kernel, anything else
 raises.  It never falls back from the card to the plain version.
@@ -28,6 +35,10 @@ from repro_torch.kernels._build import ROW_SUM_ARGTYPES, CudaKernel
 
 KERNEL = CudaKernel("segment_spmm", {"segment_spmm_i32": ROW_SUM_ARGTYPES,
                                     "segment_spmm_i64": ROW_SUM_ARGTYPES})
+
+#: records a chain sums at most: ``kChunk`` of ``csrc/row_sum.cuh`` (the TPU
+#: kernel's edge block, BE = 512); not a knob
+ROW_SUM_CHUNK = 512
 
 
 def prepare_row_schedule(keys: np.ndarray, num_rows: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -69,6 +80,78 @@ def segment_spmm_plain(
     return out
 
 
+def row_sum_chunked_plain(
+    messages: torch.Tensor,
+    row_ptr: torch.Tensor,
+    order: Optional[torch.Tensor] = None,
+    chunk: int = ROW_SUM_CHUNK,
+) -> torch.Tensor:
+    """The kernel's sums, bit for bit, in plain PyTorch (tests and
+    ``chip_smoke.py`` only; no main path calls it).
+
+    Row r's records ``[lo, hi)`` are cut into chunks ``[lo + j·chunk,
+    min(lo + (j+1)·chunk, hi))``; each chunk is a chain in record order from
+    0 (p_j), and the row is ``((p_0 + p_1) + p_2) + …``; a row without records
+    is 0.  The loop over record positions ``j < chunk`` adds the j-th record
+    of every chunk that has one at once, then the loop over chunk positions
+    adds each row's next chunk sum."""
+    _check_rows(row_ptr, None)
+    dev = messages.device
+    rp = row_ptr.long()
+    lo, hi = rp[:-1], rp[1:]
+    nchunks = (hi - lo + chunk - 1) // chunk
+    first = torch.cumsum(nchunks, 0) - nchunks  # each row's first chunk
+    crow = torch.repeat_interleave(torch.arange(len(lo), device=dev), nchunks)
+    cstart = lo[crow] + (torch.arange(len(crow), device=dev) - first[crow]) * chunk
+    clen = torch.clamp(hi[crow] - cstart, max=chunk)
+    part = messages.new_zeros((len(crow), messages.shape[1]))
+    for j in range(int(clen.max()) if len(crow) else 0):
+        live = torch.nonzero(clen > j).squeeze(1)
+        k = cstart[live] + j
+        part[live] = part[live] + messages[order[k].long() if order is not None else k]
+    out = messages.new_zeros((len(lo), messages.shape[1]))
+    for c in range(int(nchunks.max()) if len(lo) else 0):
+        rows = torch.nonzero(nchunks > c).squeeze(1)
+        p = part[first[rows] + c]
+        out[rows] = p if c == 0 else out[rows] + p
+    return out
+
+
+def _row_sum_scratch(num_records: int, d: int, device) -> Optional[torch.Tensor]:
+    """The kernels' scratch for ``num_records`` records of width ``d``, or
+    None when no row can be longer than ``ROW_SUM_CHUNK``: ``2·windows``
+    chunk-sum slots of ``d`` floats, then ``windows`` int64 hub-row ids, with
+    ``windows = ⌈num_records / ROW_SUM_CHUNK⌉`` (``row_sum_windows`` in
+    ``csrc/row_sum.cuh``).  Sized from what the host knows, so no launch
+    waits on the card."""
+    if num_records <= ROW_SUM_CHUNK:
+        return None
+    windows = -(-num_records // ROW_SUM_CHUNK)
+    return torch.empty(2 * windows * d + 2 * windows, dtype=torch.float32, device=device)
+
+
+def _launch_row_sum(kernel: CudaKernel, prefix: str, messages: torch.Tensor,
+                   row_ptr: torch.Tensor, order: Optional[torch.Tensor],
+                   out: torch.Tensor) -> None:
+    """Launch ``<prefix>_i32`` or ``<prefix>_i64`` of a row-sum library on the
+    current stream, with its scratch, into ``out`` ``[R, D]``.  The records
+    are ``order``'s entries, or the messages themselves without one; the
+    schedule must not reach past them (``row_ptr[-1] - row_ptr[0]`` at most
+    their count).  The scratch is released on return while the launch may
+    still run: PyTorch's caching allocator hands its block out again only to
+    work queued after it on the same stream."""
+    r, d = out.shape
+    num_records = order.shape[0] if order is not None else messages.shape[0]
+    scratch = _row_sum_scratch(num_records, d, out.device)
+    sym = f"{prefix}_i32" if row_ptr.dtype == torch.int32 else f"{prefix}_i64"
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        kernel.launch(sym, messages.data_ptr(), row_ptr.data_ptr(),
+                      None if order is None else order.data_ptr(), out.data_ptr(),
+                      r, d, num_records, None if scratch is None else scratch.data_ptr(),
+                      stream)
+
+
 def segment_spmm(
     messages: torch.Tensor,
     row_ptr: torch.Tensor,
@@ -87,12 +170,7 @@ def segment_spmm(
     out = torch.empty((r, messages.shape[1]), dtype=torch.float32, device=dev)
     if r == 0 or messages.shape[1] == 0:
         return out
-    sym = "segment_spmm_i32" if row_ptr.dtype == torch.int32 else "segment_spmm_i64"
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        KERNEL.launch(sym, messages.data_ptr(), row_ptr.data_ptr(),
-                      None if order is None else order.data_ptr(), out.data_ptr(),
-                      r, messages.shape[1], stream)
+    _launch_row_sum(KERNEL, "segment_spmm", messages, row_ptr, order, out)
     return out
 
 

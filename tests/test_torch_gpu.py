@@ -81,6 +81,72 @@ def test_delta_agg_kernel_matches_plain_and_skips_untouched_rows(cuda):
     assert untouched.numel() and torch.equal(out[untouched], state[untouched])
 
 
+#: row lengths at the kernels' chunk edges (``ROW_SUM_CHUNK`` = 512) and a hub row
+CHUNK_EDGES = (511, 512, 513, 1024, 1025)
+HUB = 100_000
+
+
+def _chunked_inputs(seed, d, ordered, idx_dtype):
+    """Short rows (0–30 records) around rows at the chunk edges and one
+    100,000-record row, Gaussian messages; dst-sorted, or (``ordered``) in a
+    random record order with a row schedule."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 31, 400)
+    lengths[[7, 50, 51, 120, 399]] = CHUNK_EDGES
+    lengths[200] = HUB
+    keys = np.repeat(np.arange(len(lengths)), lengths)
+    order = None
+    if ordered:
+        order, row_ptr = smod.prepare_row_schedule(keys[rng.permutation(len(keys))], len(lengths))
+        order = torch.from_numpy(order).to("cuda", idx_dtype)
+    else:
+        row_ptr = np.concatenate([[0], np.cumsum(lengths)])
+    msg = torch.from_numpy(rng.normal(size=(len(keys), d)).astype(np.float32)).cuda()
+    return msg, torch.from_numpy(row_ptr).to("cuda", idx_dtype), order
+
+
+@pytest.mark.parametrize("d", [2, 129, 300])  # an edge softmax's heads, [ctx | raw], past 256
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_row_sum_kernels_are_bitwise_the_chunked_order(cuda, idx_dtype, ordered, d):
+    """``segment_spmm`` and ``delta_agg`` equal ``row_sum_chunked_plain`` at
+    ``ROW_SUM_CHUNK`` bit for bit, at the chunk edges and for a hub row among
+    short ones; ``delta_agg`` adds each touched row's sum once and leaves
+    every untouched row's bits; one launch a call."""
+    msg, row_ptr, order = _chunked_inputs(d, d, ordered, idx_dtype)
+    r = row_ptr.shape[0] - 1
+    ref = smod.row_sum_chunked_plain(msg, row_ptr, order, smod.ROW_SUM_CHUNK)
+    n0 = smod.KERNEL.launches
+    out = smod.segment_spmm(msg, row_ptr, order, r)
+    assert smod.KERNEL.launches == n0 + 1
+    assert torch.equal(out, ref)
+    state = torch.randn(r, d, device=cuda)
+    n0 = dmod.KERNEL.launches
+    got = dmod.delta_agg(state.clone(), msg, row_ptr, order)
+    assert dmod.KERNEL.launches == n0 + 1
+    touched = row_ptr[1:] != row_ptr[:-1]
+    assert bool((~touched).any())
+    want = state.clone()
+    want[touched] = state[touched] + ref[touched]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_row_sum_kernel_row_bits_do_not_depend_on_row_count_or_offset(cuda, idx_dtype):
+    """Rows of a sub-schedule (other first row, so another offset in the
+    record array; fewer rows) are bitwise the same rows of the whole one, and
+    so is a hub row whose records moved behind other rows."""
+    msg, row_ptr, _ = _chunked_inputs(7, 129, False, idx_dtype)
+    r = row_ptr.shape[0] - 1
+    full = smod.segment_spmm(msg, row_ptr, None, r)
+    for a, b in ((0, 1), (1, r), (51, 201), (199, 200), (200, 201), (200, r), (7, 52)):
+        assert torch.equal(smod.segment_spmm(msg, row_ptr[a:b + 1], None, b - a), full[a:b]), (a, b)
+    lo, hi = int(row_ptr[200]), int(row_ptr[201])  # the hub, its records after 3 rows of 300
+    moved = torch.cat([torch.randn(900, 129, device=cuda), msg[lo:hi]])
+    rp = torch.tensor([0, 300, 600, 900, 900 + hi - lo], dtype=idx_dtype, device=cuda)
+    assert torch.equal(smod.segment_spmm(moved, rp, None, 4)[3], full[200])
+
+
 #: the row-count probe: both sides of the wrapper's switch to the tiled kernel
 ROW_PROBE = (1, 2, 15, 16, 17, 32, 33, 1000, rmod.TILED_MIN_ROWS - 1, rmod.TILED_MIN_ROWS, 20_000)
 GENERAL, TILED = rmod.ENTRIES

@@ -7,6 +7,9 @@ reference runs its Pallas kernels in interpret mode
 kernels themselves are held against the plain versions by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on a card.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -26,7 +29,14 @@ from repro_torch.kernels.row_linear import (  # noqa: E402
     row_linear,
     row_linear_plain,
 )
-from repro_torch.kernels.segment_spmm import prepare_row_schedule, segment_spmm  # noqa: E402
+from repro_torch.kernels.segment_spmm import (  # noqa: E402
+    ROW_SUM_CHUNK,
+    _row_sum_scratch,
+    prepare_row_schedule,
+    row_sum_chunked_plain,
+    segment_spmm,
+    segment_spmm_plain,
+)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -145,6 +155,117 @@ def test_wrappers_reject_unsupported_devices_and_shapes():
                   torch.zeros(3, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="expected 3"):
         segment_spmm(torch.zeros(4, 3), torch.zeros(5, dtype=torch.int32), None, 2)
+
+
+# ---------------------------------------------------------------------- #
+# the kernels' chunked order of additions (row_sum_chunked_plain)
+# ---------------------------------------------------------------------- #
+CHUNK = 4  # a small chunk, so that short rows cross it
+#: row lengths around the chunk's edges, and rows without records
+EDGE_LENGTHS = (0, 1, CHUNK - 1, CHUNK, CHUNK + 1, 2 * CHUNK, 2 * CHUNK + 1, 3 * CHUNK + 2, 0, 13)
+
+
+def _chains(msg, rows, chunk):
+    """The documented order, one element at a time: each chunk a chain
+    from 0 in record order, then the chunk sums in chunk order."""
+    out = []
+    for recs in rows:
+        parts = []
+        for j in range(0, len(recs), chunk):
+            acc = np.zeros(msg.shape[1], np.float32)
+            for e in recs[j:j + chunk]:
+                acc = acc + msg[e]
+            parts.append(acc)
+        total = parts[0] if parts else np.zeros(msg.shape[1], np.float32)
+        for p in parts[1:]:
+            total = total + p
+        out.append(total)
+    return np.stack(out)
+
+
+def _chunked_inputs(lengths, d, seed, ordered):
+    """Records of rows with ``lengths``, dst-sorted or (``ordered``) in a
+    random record order with a row schedule; also each row's record ids."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths)
+    keys = np.repeat(np.arange(len(lengths)), lengths)
+    if ordered:
+        keys = keys[rng.permutation(len(keys))]
+        order, row_ptr = prepare_row_schedule(keys, len(lengths))
+    else:
+        order, row_ptr = None, np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    msg = rng.normal(size=(len(keys), d)).astype(np.float32)
+    ids = order if ordered else np.arange(len(keys))
+    rows = [ids[row_ptr[r]:row_ptr[r + 1]] for r in range(len(lengths))]
+    return (keys, msg, torch.from_numpy(row_ptr),
+            None if order is None else torch.from_numpy(order), rows)
+
+
+def test_row_sum_chunk_is_the_kernel_constant():
+    """``ROW_SUM_CHUNK`` mirrors ``kChunk`` of ``csrc/row_sum.cuh``; the
+    kernels' scratch exists only when a row can be longer than a chunk."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "row_sum.cuh").read_text()
+    assert re.findall(r"constexpr int kChunk = (\d+);", src) == [str(ROW_SUM_CHUNK)]
+    assert _row_sum_scratch(ROW_SUM_CHUNK, 129, "cpu") is None
+    windows = 2  # ⌈513 / 512⌉: 2 windows of 2 slots of 129 floats, 2 int64 hub-row ids
+    assert _row_sum_scratch(ROW_SUM_CHUNK + 1, 129, "cpu").numel() == 2 * windows * 129 + 2 * windows
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("d", [1, 33, 129])
+def test_row_sum_chunked_plain_is_the_documented_order(ordered, d):
+    """Bitwise the per-element chains at the chunk's edges (lengths chunk - 1,
+    chunk, chunk + 1, 2·chunk, 2·chunk + 1, and rows without records)."""
+    _, msg, row_ptr, order, rows = _chunked_inputs(EDGE_LENGTHS, d, d, ordered)
+    out = row_sum_chunked_plain(torch.from_numpy(msg), row_ptr, order, CHUNK)
+    np.testing.assert_array_equal(out.numpy(), _chains(msg, rows, CHUNK))
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+def test_row_sum_chunked_plain_matches_plain_and_reference(ordered, pallas_interpret):
+    """Rows of at most a chunk: bitwise ``segment_spmm_plain`` (one chain in
+    record order).  Longer rows: within 1e-5 of it, of the reference's oracle
+    and of its Pallas kernel in interpret mode."""
+    lengths = list(EDGE_LENGTHS) + list(np.random.default_rng(5).integers(0, 3 * CHUNK, 30))
+    keys, msg, row_ptr, order, _ = _chunked_inputs(lengths, 40, 11, ordered)
+    r = len(lengths)
+    out = row_sum_chunked_plain(torch.from_numpy(msg), row_ptr, order, CHUNK)
+    plain = segment_spmm_plain(torch.from_numpy(msg), row_ptr, order, r)
+    short = torch.from_numpy(np.asarray(lengths) <= CHUNK)
+    assert torch.equal(out[short], plain[short])
+    assert not torch.equal(out[~short], plain[~short])  # the long rows' order differs
+    torch.testing.assert_close(out, plain, **TOL)
+    oracle = np.asarray(jref.segment_spmm_ref(jnp.asarray(msg), jnp.asarray(keys, jnp.int32), r))
+    np.testing.assert_allclose(out.numpy(), oracle, **TOL)
+    if not ordered:  # the Pallas kernel takes dst-sorted records
+        pallas = np.asarray(jops.segment_sum_edges(jnp.asarray(msg), keys.astype(np.int32), r,
+                                                   tv=8, be=64, bd=32))
+        np.testing.assert_allclose(out.numpy(), pallas, **TOL)
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+def test_row_sum_chunked_row_bits_depend_on_its_own_records_only(ordered):
+    """A row's bits stay when other rows are added around it, when its
+    records sit at another offset of the record array, and when the row
+    count changes."""
+    rng = np.random.default_rng(3)
+    d, target = 24, 2 * CHUNK + 3
+    own = rng.normal(size=(target, d)).astype(np.float32)
+
+    def row_bits(before, after, pad):
+        lengths = list(before) + [target] + list(after)
+        keys, msg, row_ptr, order, rows = _chunked_inputs(lengths, d, len(lengths), ordered)
+        msg = np.concatenate([msg, np.zeros((pad, d), np.float32)])  # records past the schedule
+        msg[rows[len(before)]] = own  # the row's own records, wherever they sit
+        out = row_sum_chunked_plain(torch.from_numpy(msg), row_ptr, order, CHUNK)
+        return out[len(before)]
+
+    ref = row_bits([], [], 0)
+    np.testing.assert_array_equal(ref.numpy(), _chains(own, [np.arange(target)], CHUNK)[0])
+    for before, after, pad in [([3], [], 0), ([CHUNK + 1, 0, 2], [7, 1], 5),
+                               ([1] * 17, [2 * CHUNK], 0), ([], [CHUNK] * 9, 3)]:
+        assert torch.equal(row_bits(before, after, pad), ref), (before, after, pad)
 
 
 # ---------------------------------------------------------------------- #
