@@ -6,8 +6,8 @@
 
 Phases, one JSON line each:
 
-1. build   — compile the five CUDA kernels (``src/repro_torch/csrc``), one
-             ``nvcc`` per source, started together; count the tensor-core
+1. build   — compile the six CUDA kernel libraries (``src/repro_torch/csrc``),
+             one ``nvcc`` per source, started together; count the tensor-core
              instructions (``HGMMA``) in each library's SASS
              (``cuobjdump --dump-sass``): ``flash_attention`` must have some;
 2. engine  — ``create_engine("device", …)`` for gcn and then gat (heads=2) on
@@ -44,10 +44,37 @@ Phases, one JSON line each:
              cache, 4 decode steps, and ``forward`` over the same 260 tokens
              (batch 2); logits within 2e-2 (the reference's own tolerance,
              tests/test_archs_smoke.py);
+5b. lm_train — the LM training path, ``repro_torch.train.trainer.Trainer.train``,
+             on llama3.2-1b at full width (fp32 params, bf16 compute, remat;
+             random weights from a seeded CUDA generator; the serve phase's
+             weights freed first): 4 AdamW steps of 4 × 2048 synthetic
+             tokens, ``OptConfig(peak_lr=3e-3, warmup_steps=10,
+             stable_steps=4, decay_steps=10)`` as ``launch/train.py`` sets
+             them; counts zeroed before and read after: the forward
+             ``flash_attention`` at least twice a layer a step (remat
+             recomputes it) and each backward entry (dQ, dK/dV) once a layer
+             a step; every loss finite; seconds a step, tokens/s, peak
+             memory, model FLOPs a step beside the fp32 peak; then one
+             profiled step for the device-time split;
+5c. lm_train_consistency — the same config at 2 layers (full width), batch 1
+             × 512, weights made with numpy from the seed: ``loss_fn`` and
+             every gradient leaf on the card (the kernels) against the CPU
+             (the plain versions), loss within 1e-4 relative and each leaf's
+             max |Δ| within 1e-3 of its largest entry (the embedding, whose
+             gathered rows' gradient is rounded to bf16 on the way, within
+             2^-7, one bf16 step; under compute_dtype fp32, where nothing
+             rounds it, within 1e-3 too);
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
              fp32 and 3e-2 in bf16; edge_softmax_normalize exactly;
+             ``flash_attention_lse``'s o bitwise ``flash_attention``'s and its
+             lse against ``flash_attention_lse_ref`` at the forward's
+             tolerance; ``flash_attention_bwd`` at the training shape (B 4,
+             Hq 32, Hkv 8, S 2048, dh 64, causal, fp32) against
+             ``flash_attention_bwd_ref`` at atol 2e-5 + rtol 2e-3 and a second
+             launch bitwise the first, timed beside the backward of
+             ``scaled_dot_product_attention``;
              row_linear ≤ 1e-5 at M = n, where the wrapper takes the tiled
              kernel, and bitwise the general kernel there, at gat's per-edge
              M = E and at the incremental step's row cap; rows of
@@ -194,6 +221,15 @@ SERVE_N = 100_000  # vertices of the serving phases' graph (at most --n)
 WIDTH = 128  # the lane width both TPU kernels were tiled for (BD = 128)
 GAT_HEADS = 2
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3.2-1b", 8, 2048, 32
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 2048  # lm_train: 8,192 tokens a step
+CONSIST_LAYERS, CONSIST_SEQ = 2, 512  # lm_train_consistency: 2 layers, batch 1 × 512
+TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
+TOL_TRAIN_GRAD = 1e-3  # lm_train_consistency: each leaf's max |Δ| / its max |entry|
+#: the same for the embedding under compute_dtype bf16: the gradient of its gathered rows
+#: is rounded to bf16 (the backward of the cast to compute_dtype), where one bf16 step is
+#: 2^-8 to 2^-7 of a value; the card and the CPU round sums taken in other orders, so
+#: an entry may land one step apart (measured: 2.4e-3 of the largest entry, PERF.md)
+TOL_TRAIN_GRAD_BF16_CAST = 2.0 ** -7
 KERNEL_INFO = {  # TPU kernel name → its library (csrc/<lib>.cu), source and TPU kernel
     "segment_spmm": {
         "lib": "segment_spmm",
@@ -214,6 +250,13 @@ KERNEL_INFO = {  # TPU kernel name → its library (csrc/<lib>.cu), source and T
         "lib": "edge_softmax",
         "source": "src/repro_torch/csrc/edge_softmax.cu",
         "replaces": "src/repro/kernels/edge_softmax.py:60",
+    },
+    "flash_attention_bwd": {  # no TPU kernel: the Pallas flash kernel has no VJP
+        "lib": "flash_attention_bwd",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "none (the JAX package differentiates src/repro/kernels/ref.py "
+                    "flash_attention_ref; the Pallas flash_attention at "
+                    "src/repro/kernels/flash_attention.py:103 has no backward)",
     },
     "row_linear": {  # no TPU kernel: the models' fp32 products, left to XLA by the reference
         "lib": "row_linear",
@@ -316,7 +359,7 @@ def phase_engine(model_name: str, x, wl, seed: int, kernels: dict) -> dict:
 
     model = make_model(model_name)
     for k in kernels.values():
-        k.launches = 0
+        k.reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -664,7 +707,7 @@ def phase_edge_softmax_op(graph, gen, kernels: dict) -> dict:
     dst_host, dst, _ = _in_edges(graph)
     scores = torch.rand(graph.num_edges, GAT_HEADS, device="cuda", generator=gen).exp_()
     for k in kernels.values():
-        k.launches = 0
+        k.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     normed, sums = ops.edge_softmax(scores, dst_host, graph.n)
@@ -687,7 +730,7 @@ def _zero_counts(kernels: dict) -> None:
     import torch
 
     for k in kernels.values():
-        k.launches = 0
+        k.reset_counts()
     torch.cuda.synchronize()
 
 
@@ -1564,13 +1607,14 @@ def _device_split_ms(prof) -> dict:
     """Device milliseconds of a ``torch.profiler`` trace by kernel kind."""
     from torch.autograd import DeviceType
 
-    split = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "matmul": 0.0, "other": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         name = e.key.lower()
         kind = ("flash_attention" if "flash_attention" in name else
-                "matmul" if any(w in name for w in ("gemm", "gemv", "splitk")) else "other")
+                "flash_attention_bwd" if "bwd_dq_kernel" in name or "bwd_dkdv_kernel" in name
+                else "matmul" if any(w in name for w in ("gemm", "gemv", "splitk")) else "other")
         split[kind] += e.self_device_time_total / 1e3
     return split
 
@@ -1613,7 +1657,7 @@ def phase_lm_serve(seed: int, kernels: dict):
     tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
     serve(cfg, params, tokens[:, :64], 2)  # warm-up
     for k in kernels.values():
-        k.launches = 0
+        k.reset_counts()
     res = serve(cfg, params, tokens, LM_GEN)
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1679,6 +1723,164 @@ def phase_lm_consistency(cfg, params, seed: int) -> dict:
     return row
 
 
+def _entries(kernel) -> dict:
+    """A kernel library's launches by entry (dQ, dK/dV), summed over dtypes."""
+    from repro_torch.kernels.flash_attention import BWD_ENTRIES
+
+    return {e: sum(n for sym, n in kernel.entry_launches.items() if f"_{e}_" in sym)
+            for e in BWD_ENTRIES}
+
+
+def _free_cuda() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train(seed: int, kernels: dict) -> dict:
+    """The training path at full width through ``Trainer.train`` (counts set
+    to 0 just before it and read just after), then one profiled step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer, synthetic_batch
+
+    cfg = get_arch(LM_ARCH)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed,
+                       log_every=1)
+    opt = OptConfig(peak_lr=3e-3, warmup_steps=10, stable_steps=TRAIN_STEPS, decay_steps=10)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, opt, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _zero_counts(kernels)
+    out = trainer.train()
+    launches, entries = _counts(kernels), _entries(kernels["flash_attention_bwd"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(h["loss"]) for h in trainer.history]
+    step_s = [h["seconds"] for h in trainer.history]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady_s = sum(step_s[1:]) / len(step_s[1:])  # the first step pays the lazy set-up
+    dh, L = cfg.resolved_head_dim, cfg.num_layers
+    attn_fwd = 4 * dh * TRAIN_BATCH * cfg.num_heads * (TRAIN_SEQ * (TRAIN_SEQ + 1) // 2) * L
+    model_flops = 6 * cfg.param_count() * tokens + 3 * attn_fwd  # forward + 2 × backward
+    batch = synthetic_batch(cfg, tcfg, TRAIN_STEPS, device="cuda")
+    prof = _profiled(lambda: trainer.step(trainer.state, batch))
+    row = {"phase": "lm_train", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "steps": out["steps"], "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "tokens_per_step": tokens, "init_s": init_s, "losses": losses,
+           "step_s": step_s, "wall_s": out["wall_s"], "steady_step_s": steady_s,
+           "tokens_per_s": tokens / steady_s, "peak_mem_bytes": peak,
+           "model_flops_per_step": model_flops,
+           "model_flops_share_of_fp32_peak": model_flops / steady_s / FP32_FLOPS,
+           "launches": launches, "bwd_launches_by_entry": entries,
+           "profiled_step": prof}
+    emit(row)
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"lm_train: losses {losses}")
+    if launches["flash_attention"] < 2 * L * TRAIN_STEPS:
+        raise AssertionError(f"lm_train: flash_attention launched {launches['flash_attention']} "
+                             f"times, expected at least {2 * L * TRAIN_STEPS}")
+    if any(n != L * TRAIN_STEPS for n in entries.values()):
+        raise AssertionError(f"lm_train: backward entries launched {entries}, expected "
+                             f"{L * TRAIN_STEPS} each")
+    del trainer, batch
+    _free_cuda()
+    return row
+
+
+def _numpy_lm_tree(cfg, seed: int) -> dict:
+    """Dense-LM weights made with numpy from ``seed`` at the init's scales
+    (embedding 0.02, dense fan_in^-1/2, norms 1), tied embeddings, no biases."""
+    if not cfg.tie_embeddings or cfg.qkv_bias or cfg.qk_norm:
+        raise ValueError(f"{cfg.name}: the numpy weights cover tied, bias-free configs only")
+    rng = np.random.default_rng(seed)
+    d, L, f, hd = cfg.d_model, cfg.num_layers, cfg.d_ff, cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+
+    return {"embed": normal((cfg.vocab_size, d), 0.02), "final_norm": np.ones(d, np.float32),
+            "blocks": {"ln1": np.ones((L, d), np.float32), "ln2": np.ones((L, d), np.float32),
+                       "attn": {"wq": normal((L, d, hq), d ** -0.5),
+                                "wk": normal((L, d, hkv), d ** -0.5),
+                                "wv": normal((L, d, hkv), d ** -0.5),
+                                "wo": normal((L, hq, d), hq ** -0.5)},
+                       "mlp": {"wg": normal((L, d, f), d ** -0.5),
+                               "wi": normal((L, d, f), d ** -0.5),
+                               "wo": normal((L, f, d), f ** -0.5)}}}
+
+
+def phase_lm_train_consistency(seed: int, kernels: dict) -> dict:
+    """``loss_fn`` and every gradient leaf of a 2-layer full-width llama3.2-1b on
+    the card (the kernels) against the CPU (the plain versions), from the
+    same numpy weights and tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import lm_params_from_numpy
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.train.tree import tree_paths
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), num_layers=CONSIST_LAYERS)
+    tree = _numpy_lm_tree(cfg, seed + 2)
+    rng = np.random.default_rng(seed + 3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, CONSIST_SEQ)))
+             for k in ("tokens", "labels")}
+    _zero_counts(kernels)
+    loss, _, grads = value_and_grad(lm_params_from_numpy(tree, "cuda"), cfg,
+                                    {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = _counts(kernels)
+    t0 = time.perf_counter()
+    loss_cpu, _, grads_cpu = value_and_grad(lm_params_from_numpy(tree, "cpu"), cfg, batch)
+    cpu_s = time.perf_counter() - t0
+    rel, limit = {}, {}
+    for (key, a), (_, c) in zip(tree_paths(grads), tree_paths(grads_cpu)):
+        rel[key] = _rel_err(a, c)
+        limit[key] = (TOL_TRAIN_GRAD_BF16_CAST if key == "['embed']"
+                      and cfg.compute_dtype == "bfloat16" else TOL_TRAIN_GRAD)
+    loss_rel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    del grads, grads_cpu
+    # the embedding again under compute_dtype fp32, where no cast rounds its
+    # gradient: it must then hold the common limit
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    embed32 = _rel_err(
+        value_and_grad(lm_params_from_numpy(tree, "cuda"), cfg32,
+                       {k: v.cuda() for k, v in batch.items()})[2]["embed"],
+        value_and_grad(lm_params_from_numpy(tree, "cpu"), cfg32, batch)[2]["embed"])
+    row = {"phase": "lm_train_consistency", "layers": CONSIST_LAYERS, "batch": 1,
+           "seq_len": CONSIST_SEQ, "loss": float(loss), "loss_cpu": float(loss_cpu),
+           "loss_rel_err": loss_rel, "grad_rel_err": rel, "grad_rel_limit": limit,
+           "embed_rel_err_fp32_compute": embed32, "cpu_s": cpu_s, "launches": launches}
+    emit(row)
+    if not (np.isfinite(float(loss)) and loss_rel <= TOL_TRAIN_LOSS
+            and all(rel[k] <= limit[k] for k in rel) and embed32 <= TOL_TRAIN_GRAD):
+        raise AssertionError(f"lm_train_consistency: loss {loss_rel}, grads {rel}, "
+                             f"embedding under fp32 compute {embed32}")
+    if launches["flash_attention_bwd"] != 2 * CONSIST_LAYERS:
+        raise AssertionError(f"lm_train_consistency: backward launches {launches}")
+    _free_cuda()
+    return row
+
+
+def _rel_err(card, cpu) -> float:
+    """max |card − cpu| over max |cpu|."""
+    return float((card.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
+
+
 def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
     """The prefill shape of ``cfg`` (causal, GQA) in fp32, the main path's
     dtype, or in bf16.  The bound is the design's: fp32 runs three TF32
@@ -1687,7 +1889,7 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as kref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
 
     b, hq, hkv, s, dh = (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT,
                          cfg.resolved_head_dim)
@@ -1695,13 +1897,19 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
     q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
     k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
     v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
-    out = flash_attention(q, k, v, causal=True).float()
-    ref = kref.flash_attention_ref(q, k, v, causal=True).float()
+    out = flash_attention(q, k, v, causal=True)
+    o_lse, lse = flash_attention_lse(q, k, v, causal=True)
+    lse_same_o = bool(torch.equal(o_lse, out))  # the lse output leaves o's bits alone
+    out = out.float()
+    ref, lse_ref = kref.flash_attention_lse_ref(q, k, v, causal=True)
+    ref = ref.float()
     lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True).float()
     atol, rtol = TOL_ATTN if dtype == "float32" else TOL_ATTN_BF16
-    within = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
+    lse_err = float((lse - lse_ref).abs().max())
+    lse_ok = bool(((lse - lse_ref).abs() <= TOL_ATTN[0] + TOL_ATTN[1] * lse_ref.abs()).all())
+    within = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()) and lse_same_o and lse_ok
     err, lib_err = float((out - ref).abs().max()), float((lib - ref).abs().max())
-    del out, ref, lib
+    del out, ref, lib, o_lse, lse, lse_ref
     ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True), 20)
     plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, causal=True), 3, warmup=1)
     lib_ms = cuda_time_ms(
@@ -1716,12 +1924,66 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
                      "dtype": dtype},
            "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err,
+           "lse_same_o_bits": lse_same_o, "lse_max_abs_err": lse_err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
            "library_ms": lib_ms, "flops": flops,
            "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
     if dtype != "float32":
         row["variant"] = dtype  # a check beside the main path's dtype, not a summary row
     return row
+
+
+def kernel_flash_attention_bwd(cfg, gen) -> dict:
+    """The backward kernels at the training shape of ``cfg`` (causal, GQA,
+    fp32): against ``flash_attention_bwd_ref`` on the kernel's o and lse,
+    a second launch bitwise the first, timed (both entries a call) beside
+    the plain version and the backward of ``scaled_dot_product_attention``
+    (one forward kept, ``torch.autograd.grad`` timed).  The bound is split
+    TF32's, as the forward's: 2.5 × the forward's operations, 3 TF32
+    products a product."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_lse
+
+    b, hq, hkv, s, dh = (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ,
+                         cfg.resolved_head_dim)
+    q = torch.randn(b, hq, s, dh, device="cuda", generator=gen)
+    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
+    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
+    do = torch.randn(b, hq, s, dh, device="cuda", generator=gen)
+    o, lse = flash_attention_lse(q, k, v, causal=True)
+
+    def run():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+
+    grads = run()
+    ref = kref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    atol, rtol = TOL_ATTN
+    within = all(bool(((g - r).abs() <= atol + rtol * r.abs()).all()) for g, r in zip(grads, ref))
+    errs = {n: float((g - r).abs().max()) for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+    bitwise = all(bool(torch.equal(a, c)) for a, c in zip(grads, run()))
+    del grads, ref
+    ms = cuda_time_ms(run, 10)
+    plain_ms = cuda_time_ms(lambda: kref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True),
+                            2, warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
+    del out, leaves
+    flops = 10 * dh * b * hq * (s * (s + 1) // 2)  # S, dP, dV, dK, dQ over the visible pairs
+    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())  # q o dO dq, k v dk dv, lse
+    bound_ms, by = _bound(nbytes, SPLIT_TF32 * flops, TF32_FLOPS)
+    return {"name": "flash_attention_bwd",
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
+                      "dtype": "float32"},
+            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+            "within_tol": within and bitwise, "bitwise_repeat": bitwise,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / ms, "library_ms": lib_ms,
+            "library": "backward of F.scaled_dot_product_attention(is_causal, enable_gqa)",
+            "flops": flops, "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
 
 
 def kernel_edge_softmax(graph, gen) -> dict:
@@ -1884,8 +2146,8 @@ def main(argv=None) -> int:
         return 2
     set_fp32_precision()
     kernels = {"segment_spmm": smod.KERNEL, "delta_agg": dmod.KERNEL,
-               "flash_attention": fmod.KERNEL, "edge_softmax_normalize": emod.KERNEL,
-               "row_linear": rmod.KERNEL}
+               "flash_attention": fmod.KERNEL, "flash_attention_bwd": fmod.BWD_KERNEL,
+               "edge_softmax_normalize": emod.KERNEL, "row_linear": rmod.KERNEL}
 
     phase_build()
 
@@ -1918,8 +2180,10 @@ def main(argv=None) -> int:
     lm, cfg, params = phase_lm_serve(args.seed, kernels)
     phase_lm_consistency(cfg, params, args.seed)
     del params
+    train = phase_lm_train(args.seed, kernels)
+    train_check = phase_lm_train_consistency(args.seed, kernels)
     # every path's launches: the engine phases, the serving phases, the op, the LM
-    path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm]
+    path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -1956,6 +2220,7 @@ def main(argv=None) -> int:
         skew_delta,
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),
+        kernel_flash_attention_bwd(cfg, gen),
         kernel_edge_softmax(wl.base, gen),
         *kernel_row_linear(wl.base.n, wl.base.num_edges, caps["r"], gen),
         *kernel_row_sum_chunked(zipf, zipf_keys, WIDTH + 1, gen),
@@ -1981,6 +2246,10 @@ def main(argv=None) -> int:
         for extra in ("bound_share", "host_us_per_call", "fp32_simt_bound_ms", "general_ms"):
             if extra in res:
                 entry[extra] = res[extra]
+        if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
+            entry["launches_by_entry"] = train["bwd_launches_by_entry"]
+            entry["launches_by_path"] = {row["phase"]: row["launches"][name]
+                                         for row in (train, train_check)}
         others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "bound_share", "library_ms",
                                      "general_ms", "within_tol", "host_us_per_call")

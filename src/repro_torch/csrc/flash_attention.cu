@@ -7,7 +7,14 @@
 //
 // q [B, Hq, Sq, dh], k and v [B, Hkv, Sk, dh], o like q; all contiguous and
 // 16-byte aligned, fp32 or bf16 (o in q's type); dh ∈ {16, 32, 64, 128}.  The
-// softmax state (m, l, acc) is fp32.
+// softmax state (m, l, acc) is fp32.  When `lse` is not null the kernel also
+// writes each row's log-sum-exp, lse [B, Hq, Sq] fp32 = ln Σ_j exp(q·k_j ·
+// scale) over the visible keys, for the backward (flash_attention_bwd.cu): m
+// is kept in log2 units with the scale folded in, so lse = (m + log2 l) · ln 2;
+// a row that sees no key (l = 0) gets −inf, which the backward never reads (it
+// masks every key of such a row).  The write is in the epilogue of an
+// instantiation of its own (kLse): with lse null the launch is the serving
+// kernel as it was, the same code and the same bits.
 //
 // Replaces: the Pallas TPU kernel `flash_attention` (src/repro/kernels/flash_attention.py,
 // fn `flash_attention`, body `_kernel`), which streams (512 × 128) K/V blocks through
@@ -193,10 +200,13 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, int DH>
+// kLse: also write each row's log-sum-exp (an instantiation of its own, so
+// that the serving path without it is the kernel it was)
+template <typename T, int DH, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int hq, int g,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int hq, int g,
                        long long sq, long long sk, float scale_log2, int causal,
                        long long window, long long q_offset) {
   using C = Cfg<T, DH>;
@@ -457,6 +467,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const long long r = wq0 + r0 + 8 * h;
     if (r >= sq) continue;
+    if constexpr (kLse) {
+      if (tig == 0)
+        lse[bh * sq + r] = lt > 0.0f ? (m[h] + log2f(lt)) * 0.6931471805599453f : -INFINITY;
+    }
     T* out = o + (bh * sq + r) * DH + 2 * tig;
 #pragma unroll
     for (int i = 0; i < DH / 8; ++i)
@@ -465,36 +479,52 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, long long b, long long hq,
-           long long hkv, long long sq, long long sk, float scale, int causal,
-           long long window, long long q_offset, cudaStream_t stream) {
+template <typename T, int DH, bool kLse>
+int launch_kernel(const void* q, const void* k, const void* v, void* o, float* lse,
+                  long long b, long long hq, long long hkv, long long sq, long long sk,
+                  float scale, int causal, long long window, long long q_offset,
+                  cudaStream_t stream) {
   constexpr int smem = Cfg<T, DH>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DH, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(b * hq), static_cast<unsigned>((sq + kBQ - 1) / kBQ));
-  flash_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, DH, kLse><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk,
+      static_cast<T*>(o), lse, static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk,
       scale * 1.4426950408889634f, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, long long b,
+           long long hq, long long hkv, long long sq, long long sk, float scale, int causal,
+           long long window, long long q_offset, cudaStream_t stream) {
+  return lse != nullptr
+             ? launch_kernel<T, DH, true>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
+                                          window, q_offset, stream)
+             : launch_kernel<T, DH, false>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
+                                           window, q_offset, stream);
+}
+
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, long long b, long long hq,
-             long long hkv, long long sq, long long sk, long long dh, float scale, int causal,
-             long long window, long long q_offset, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, long long b,
+             long long hq, long long hkv, long long sq, long long sk, long long dh, float scale,
+             int causal, long long window, long long q_offset, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16:
-      return launch<T, 16>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, window, q_offset, st);
+      return launch<T, 16>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, sk, scale,
+                           causal, window, q_offset, st);
     case 32:
-      return launch<T, 32>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, window, q_offset, st);
+      return launch<T, 32>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, sk, scale,
+                           causal, window, q_offset, st);
     case 64:
-      return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, window, q_offset, st);
+      return launch<T, 64>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, sk, scale,
+                           causal, window, q_offset, st);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, scale, causal, window, q_offset, st);
+      return launch<T, 128>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, sk, scale,
+                            causal, window, q_offset, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -502,20 +532,22 @@ int dispatch(const void* q, const void* k, const void* v, void* o, long long b, 
 
 }  // namespace
 
-// window ≤ 0: no window.  The wrapper has checked shapes, types, alignment,
-// dh and the grid.
+// window ≤ 0: no window; lse may be null.  The wrapper has checked shapes,
+// types, alignment, dh and the grid.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                   long long b, long long hq, long long hkv, long long sq,
-                                   long long sk, long long dh, float scale, int causal,
-                                   long long window, long long q_offset, void* stream) {
-  return dispatch<float>(q, k, v, o, b, hq, hkv, sq, sk, dh, scale, causal, window, q_offset,
-                         stream);
+                                   void* lse, long long b, long long hq, long long hkv,
+                                   long long sq, long long sk, long long dh, float scale,
+                                   int causal, long long window, long long q_offset,
+                                   void* stream) {
+  return dispatch<float>(q, k, v, o, lse, b, hq, hkv, sq, sk, dh, scale, causal, window,
+                         q_offset, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                    long long b, long long hq, long long hkv, long long sq,
-                                    long long sk, long long dh, float scale, int causal,
-                                    long long window, long long q_offset, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, sk, dh, scale, causal, window,
-                                 q_offset, stream);
+                                    void* lse, long long b, long long hq, long long hkv,
+                                    long long sq, long long sk, long long dh, float scale,
+                                    int causal, long long window, long long q_offset,
+                                    void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, o, lse, b, hq, hkv, sq, sk, dh, scale, causal,
+                                 window, q_offset, stream);
 }

@@ -95,7 +95,8 @@ class CudaKernel:
     """One kernel library: built and loaded at first use, with a launch count.
 
     ``launches`` is a plain integer that the module's wrapper raises by one
-    each time it launches the kernel, and nowhere else."""
+    each time it launches the kernel, and nowhere else; ``entry_launches``
+    splits it by C entry point (a library with several kernels)."""
 
     def __init__(self, name: str, symbols: Mapping[str, Sequence]):
         """``symbols`` maps each C entry point of ``csrc/<name>.cu`` to its
@@ -103,6 +104,7 @@ class CudaKernel:
         self.name = name
         self.symbols = {sym: tuple(argtypes) for sym, argtypes in symbols.items()}
         self.launches = 0
+        self.entry_launches = dict.fromkeys(self.symbols, 0)
         self._lib = None
 
     def _load(self):
@@ -126,3 +128,8 @@ class CudaKernel:
             msg = lib.repro_torch_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error {rc}: {msg}")
         self.launches += 1
+        self.entry_launches[symbol] += 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.symbols, 0)

@@ -13,7 +13,9 @@ kernel has no interpret mode, and the device alone decides.
   TPU tile sizes (``tv``/``be``/``bd``/``bh``) have no counterpart.
 * :func:`flash_attention` keeps the reference op's arguments but the tile
   sizes ``bq``/``bk``; the LM's ``attention_core`` calls it for every
-  prefill and full forward.
+  prefill and full forward, and differentiates it (the backward kernels)
+  in training; :func:`flash_attention_lse` also returns the row
+  log-sum-exp that the backward reads.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.delta_agg import delta_agg
 from repro_torch.kernels.edge_softmax import edge_softmax_normalize
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
 from repro_torch.kernels.segment_spmm import prepare_row_schedule, segment_spmm
 
 __all__ = [
@@ -36,6 +38,7 @@ __all__ = [
     "delta_agg_update",
     "edge_softmax",
     "flash_attention",
+    "flash_attention_lse",
 ]
 
 

@@ -3,9 +3,12 @@
 The segment ops take destination ids with ``-1`` padding (dropped), exactly
 like the reference's ``segment_spmm_ref``/``delta_agg_ref``/``edge_softmax_ref``.
 :func:`flash_attention_ref` is the plain version of the attention kernel
-(``repro_torch.kernels.flash_attention``).  They run on any device;
-the port's engine reaches them only through the CPU path of the kernel
-wrappers (``repro_torch.kernels.segment_spmm`` / ``delta_agg``).  On the CPU
+(``repro_torch.kernels.flash_attention``), :func:`flash_attention_lse_ref`
+the same with the row log-sum-exp that training saves, and
+:func:`flash_attention_bwd_ref` the plain version of its backward kernels.
+They run on any device; the port's engine reaches them only through the
+CPU path of the kernel wrappers (``repro_torch.kernels.segment_spmm`` /
+``delta_agg``, ``flash_attention``).  On the CPU
 ``index_add_`` adds the records one after another in index order, so the
 sums are deterministic there; on a card it would use float atomics, which is
 why the engine never calls it on one.
@@ -62,30 +65,82 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     accumulate in fp32 (operands in their own dtype, upcast: a bf16 product
     is exact in fp32); probabilities are cast to v's dtype before P·V; long
     prefills (Sq > 2048, a multiple of it) go in 2048-row query chunks."""
+    return flash_attention_lse_ref(q, k, v, causal, window, q_offset)[0]
+
+
+def _visible(sq: int, sk: int, causal: bool, window: Optional[int], q_offset: int,
+             device) -> torch.Tensor:
+    """[Sq, Sk] mask of the keys each query row may see."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = True, window: Optional[int] = None,
+                            q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref` and the row log-sum-exp of its scaled,
+    masked scores: ``(o, lse)``, lse fp32 ``[B, H, Sq]``, ``-inf`` for a row
+    that sees no key.  ``o`` is :func:`flash_attention_ref`'s, bit for bit."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = h // hkv
     qf = q.reshape(b, hkv, g, sq, d).to(k.dtype).float()
     kf, vf = k.float(), v.float()
-    kpos = torch.arange(sk, device=q.device)[None, :]
 
     def attend(q_chunk, off):
-        qc = q_chunk.shape[3]
         logits = torch.einsum("bhgqd,bhkd->bhgqk", q_chunk, kf) / math.sqrt(d)
-        qpos = off + torch.arange(qc, device=q.device)[:, None]
-        m = torch.ones((qc, sk), dtype=torch.bool, device=q.device)
-        if causal:
-            m &= kpos <= qpos
-        if window is not None:
-            m &= kpos > qpos - window
-        probs = torch.softmax(logits.masked_fill(~m, -math.inf), dim=-1)
+        m = _visible(q_chunk.shape[3], sk, causal, window, off, q.device)
+        logits = logits.masked_fill(~m, -math.inf)
+        probs = torch.softmax(logits, dim=-1)
         probs = torch.where(probs.isnan(), 0.0, probs)
-        return torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).float(), vf)
+        out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).float(), vf)
+        return out, torch.logsumexp(logits, dim=-1)
 
     chunk = 2048
     if sq > chunk and sq % chunk == 0:
-        out = torch.cat([attend(qf[:, :, :, i:i + chunk], q_offset + i)
-                         for i in range(0, sq, chunk)], dim=3)
+        parts = [attend(qf[:, :, :, i:i + chunk], q_offset + i) for i in range(0, sq, chunk)]
+        out = torch.cat([o for o, _ in parts], dim=3)
+        lse = torch.cat([s for _, s in parts], dim=3)
     else:
-        out = attend(qf, q_offset)
-    return out.reshape(b, h, sq, d).to(q.dtype)
+        out, lse = attend(qf, q_offset)
+    return out.reshape(b, h, sq, d).to(q.dtype), lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True, window: Optional[int] = None,
+                            q_offset: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`flash_attention_ref` from its output ``o``,
+    row log-sum-exp ``lse`` and the output's gradient ``do``: ``(dq, dk,
+    dv)`` in the dtypes of q, k, v.  The FlashAttention-2 steps, in fp32:
+
+        P  = exp(S · scale − lse) on the visible keys, 0 elsewhere
+        dV = Pᵀ · dO        dP = dO · Vᵀ        D = rowsum(dO ∘ O)
+        dS = P ∘ (dP − D)   dQ = dS · K · scale  dK = dSᵀ · Q · scale
+
+    with dK and dV summed over the g = Hq / Hkv query heads of each KV
+    head.  A row that sees no key has zero gradients."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf = q.reshape(b, hkv, g, sq, d).float()
+    of = o.reshape(b, hkv, g, sq, d).float()
+    dof = do.reshape(b, hkv, g, sq, d).float()
+    kf, vf = k.float(), v.float()
+    m = _visible(sq, sk, causal, window, q_offset, q.device)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    p = torch.where(m, torch.exp(s - lse.reshape(b, hkv, g, sq, 1).float()), 0.0)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    return dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,4 +1,4 @@
-"""Model zoo API of the port: init / forward / prefill / decode per
+"""Model zoo API of the port: init / loss / forward / prefill / decode per
 architecture, the counterpart of ``repro.models`` for the dense LM.
 
 ``batch`` is a dict with ``"tokens"`` ``[B, S]`` (int tensor on the
@@ -22,6 +22,11 @@ def init_model(gen: torch.Generator, cfg: ArchConfig):
     return _lm.init_lm(gen, cfg)
 
 
+def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any]):
+    """``(loss, {"ce", "aux"})`` of a batch with ``tokens`` and ``labels``."""
+    return _lm.lm_loss(params, cfg, batch)
+
+
 def forward(params, cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
     """Logits [B, S, V] (the reference's ``(logits, aux)`` has aux = 0 here)."""
     return _lm.forward(params, cfg, batch["tokens"])
@@ -40,4 +45,5 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device="cuda
     return _lm.init_cache(cfg, batch, s_max, dtype or torch.bfloat16, device=device)
 
 
-__all__ = ["LMCache", "init_model", "forward", "prefill", "decode_step", "init_cache"]
+__all__ = ["LMCache", "init_model", "loss_fn", "forward", "prefill", "decode_step",
+           "init_cache"]

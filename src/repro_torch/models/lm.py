@@ -13,8 +13,18 @@ Numerics follow the reference: the embedding rows are cast to
 configs' fp32 params the residual stream is fp32 from layer 0's attention
 on; the KV cache is ``cache_dtype`` (bf16 unless asked).
 
-MoE, hymba and xlstm blocks, the vlm patch frontend and training
-(``lm_loss``) are not ported yet (ROADMAP.md Queue 1 item 10).
+Training: :func:`lm_loss` is the reference's next-token cross entropy
+(plus 0.01 · the MoE aux loss, 0 for the dense family).  Its gradient flows
+through ``flash_attention``'s autograd Function, whose backward is a
+hand-written kernel on the card.  With ``cfg.remat`` and a gradient to
+compute, :func:`forward` wraps each layer in
+``torch.utils.checkpoint.checkpoint`` (the reference's ``jax.checkpoint``
+of its scan body): only each layer's input is kept, and the backward
+recomputes the layer.  Without a gradient, forward and prefill are the
+serving path, unchanged.
+
+MoE, hymba and xlstm blocks and the vlm patch frontend are not ported yet
+(ROADMAP.md Queue 1 items 10c–10f).
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.attention import (
@@ -30,7 +41,8 @@ from repro_torch.nn.attention import (
     attention_prefill_kv,
     init_attention,
 )
-from repro_torch.nn.layers import rms_norm, stacked_dense, swiglu
+from repro_torch.nn.layers import rms_norm, softmax_xent, stacked_dense, swiglu
+from repro_torch.train.tree import tree_leaves
 
 FULL_WINDOW = 1 << 30
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -164,12 +176,34 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ====================================================================== #
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Full forward (no cache): logits [B, S, V].  (The reference also
-    returns an aux loss, which is 0 without MoE.)"""
+    returns an aux loss, which is 0 without MoE.)  With ``cfg.remat``, grad
+    enabled and a parameter that requires it, each layer runs under
+    ``checkpoint`` (recomputed in the backward)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
     for l, w in enumerate(_windows(cfg)):
-        x, _ = _attn_block(cfg, _layer(params["blocks"], l), x, w, None, 0)
+        p = _layer(params["blocks"], l)
+        if remat:
+            x = checkpoint(_remat_body, cfg, p, x, w, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x, _ = _attn_block(cfg, p, x, w, None, 0)
     return _logits(params, cfg, rms_norm(x, params["final_norm"]))
+
+
+def _remat_body(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    return _attn_block(cfg, p, x, window, None, 0)[0]
+
+
+def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """Next-token cross entropy (+ 0.01 · MoE aux, 0 here): ``(loss, {"ce",
+    "aux"})``.  batch: ``tokens`` and ``labels`` [B, S]."""
+    logits = forward(params, cfg, batch["tokens"])
+    ce = softmax_xent(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,

@@ -1,10 +1,12 @@
-"""Functional NN building blocks: norms, MLPs, RoPE, embeddings.
+"""Functional NN building blocks: norms, MLPs, RoPE, embeddings, the loss.
 
 The counterparts of ``repro.nn.layers`` with the same dtype behaviour:
 :func:`rms_norm` normalises in fp32, casts back to x's dtype and then
 multiplies by gamma, so a bf16 x times an fp32 gamma is fp32 (PyTorch
 promotes as JAX does)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -14,6 +16,14 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * gamma
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -49,3 +59,16 @@ def stacked_dense(gen: torch.Generator, layers: int, shape, dtype=torch.float32)
     device."""
     std = 1.0 / (shape[0] ** 0.5)
     return torch.randn((layers, *shape), generator=gen, dtype=dtype, device=gen.device) * std
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy; logits [.., V] in fp32 (log-sum-exp
+    less the label's logit), averaged over ``mask`` where it is given."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = lg.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -11,13 +11,15 @@ each skips with its reason.  The file imports neither ``jax`` nor ``repro``
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: kernel vs plain version 1e-5 (fp32, different summation order);
-flash_attention vs its plain version 2e-5/2e-3 in fp32 and 3e-2 in bf16 (the
-reference's tests/test_kernels.py); edge_softmax_normalize exactly (one IEEE
-division per element on both sides); engine on the card vs the same engine
+flash_attention, its lse and its backward vs their plain versions 2e-5/2e-3
+in fp32 and 3e-2 in bf16 (the reference's tests/test_kernels.py);
+edge_softmax_normalize exactly (one IEEE division per element on both sides); engine on the card vs the same engine
 on the CPU 1e-5 per batch (different matmul kernels); the reduced LM on the
 card vs the CPU 1e-4 (fp32 cache and compute); the invariants inside the
 port are bitwise.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -341,6 +343,111 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view_as(q)  # 4 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         fmod.flash_attention(shifted, k, v)
+
+
+# ---------------------------------------------------------------------- #
+# flash_attention's lse output and its backward kernels
+# ---------------------------------------------------------------------- #
+def _bwd_check(q, k, v, causal=True, window=None, q_offset=0, seed=1):
+    """lse and o against the plain version (o with lse is o without, bit for
+    bit), then the two backward kernels against ``flash_attention_bwd_ref``
+    on the kernel's o and lse, and a second launch bitwise the first."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fmod.flash_attention_lse(q, k, v, causal, window, q_offset)
+    assert torch.equal(o, fmod.flash_attention(q, k, v, **kw))
+    o_ref, lse_ref = kref.flash_attention_lse_ref(q, k, v, causal, window, q_offset)
+    seen = torch.isfinite(lse_ref)
+    assert torch.equal(seen, torch.isfinite(lse))  # −inf exactly where no key is seen
+    torch.testing.assert_close(lse[seen], lse_ref[seen], atol=2e-5, rtol=2e-3)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(q.shape, device="cuda", generator=g).to(q.dtype)
+    n0 = dict(fmod.BWD_KERNEL.entry_launches)
+    grads = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    t = "f32" if q.dtype == torch.float32 else "bf16"
+    for entry in fmod.BWD_ENTRIES:
+        sym = f"flash_attention_bwd_{entry}_{t}"
+        assert fmod.BWD_KERNEL.entry_launches[sym] == n0[sym] + 1
+    ref = kref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    tol = dict(atol=3e-2, rtol=3e-2) if q.dtype == torch.bfloat16 else dict(atol=2e-5, rtol=2e-3)
+    for name, a, r, x in zip(("dq", "dk", "dv"), grads, ref, (q, k, v)):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        torch.testing.assert_close(a.float(), r.float(), **tol, msg=lambda m, n=name: f"{n}: {m}")
+    again = fmod.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,sk,causal,window,q_offset",
+    [
+        (2, 4, 4, 128, 128, True, None, 0),  # MHA, causal
+        (1, 8, 2, 200, 200, True, None, 0),  # GQA g = 4, ragged S
+        (2, 4, 1, 257, 257, True, 48, 0),  # MQA, window, ragged
+        (1, 2, 2, 100, 77, False, None, 0),  # not causal, Sq ≠ Sk
+        (2, 4, 2, 5, 300, True, None, 295),  # a few rows at the end of a cache
+        (1, 2, 1, 70, 70, True, 16, -20),  # rows that see no key: zero gradients
+    ],
+)
+def test_flash_attention_bwd_kernels_match_plain(cuda, b, hq, hkv, sq, sk, causal, window,
+                                                 q_offset, dh, dtype):
+    _bwd_check(*_attn_inputs(b, hq, hkv, sq, sk, dh, dtype), causal, window, q_offset)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
+@pytest.mark.parametrize("sq,sk,causal",
+                         [(n, n, True) for n in _EDGES]
+                         + [(a, b_, False) for a, b_ in zip(_EDGES, reversed(_EDGES))])
+def test_flash_attention_bwd_kernels_match_plain_at_tile_edges(cuda, sq, sk, causal, dh, dtype):
+    """Around the backward's 64-row and 64-key tiles (and the forward's)."""
+    _bwd_check(*_attn_inputs(1, 4, 2, sq, sk, dh, dtype, seed=sq * 1000 + sk), causal)
+
+
+def test_flash_attention_autograd_on_card_matches_cpu(cuda):
+    q, k, v = _attn_inputs(1, 8, 2, 150, 150, 64, torch.float32, seed=3)
+    do = torch.randn(q.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(4))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out = fmod.flash_attention(*leaves, causal=True, window=64)
+        grads[dev] = torch.autograd.grad(out, leaves, do.to(dev))
+    for a, c in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), c, atol=2e-5, rtol=2e-3)
+
+
+def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(cuda):
+    q, k, v = _attn_inputs(1, 4, 2, 64, 64, 64, torch.float32)
+    o, lse = fmod.flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="dtype"):
+        fmod.flash_attention_bwd(q, k, v, o.bfloat16(), lse, o)
+    with pytest.raises(ValueError, match="contiguous"):
+        fmod.flash_attention_bwd(q, k, v, o, lse, o.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="head dim"):
+        q48, k48, v48 = _attn_inputs(1, 4, 2, 64, 64, 48, torch.float32)
+        fmod.flash_attention_bwd(q48, k48, v48, q48, lse, q48)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b"])
+def test_reduced_lm_loss_and_grads_on_card_match_cpu(cuda, name):
+    """The training path on the card: the loss and every gradient leaf against
+    the same model on the CPU (fp32, 1e-4 relative to the leaf's largest
+    entry); each backward kernel once a layer, the forward twice under remat."""
+    from repro_torch.train.trainer import TrainConfig, synthetic_batch, value_and_grad
+    from repro_torch.train.tree import tree_paths
+
+    cfg = dataclasses.replace(reduced_config(get_arch(name)), remat=True)
+    params = lm_models.init_model(torch.Generator().manual_seed(0), cfg)
+    batch = synthetic_batch(cfg, TrainConfig(batch=2, seq_len=100), 0, device="cpu")
+    n_fwd, n_bwd = fmod.KERNEL.launches, fmod.BWD_KERNEL.launches
+    loss, _, grads = value_and_grad(_to(params, "cuda"), cfg,
+                                    {k: v.cuda() for k, v in batch.items()})
+    assert fmod.KERNEL.launches - n_fwd == 2 * cfg.num_layers
+    assert fmod.BWD_KERNEL.launches - n_bwd == 2 * cfg.num_layers  # dQ and dK/dV a layer
+    loss_cpu, _, grads_cpu = value_and_grad(params, cfg, batch)
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    for (key, a), (_, c) in zip(tree_paths(grads), tree_paths(grads_cpu)):
+        assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(c.abs().max()), key
 
 
 @pytest.mark.parametrize("h", [1, 2, 3, 4, 8])  # vector widths and the generic loop

@@ -15,13 +15,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.kernels.ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels.delta_agg import delta_agg  # noqa: E402
 from repro_torch.kernels.edge_softmax import edge_softmax_normalize  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.row_linear import (  # noqa: E402
     ENTRIES,
     TILED_MIN_ROWS,
@@ -375,6 +378,108 @@ def test_attention_wrappers_reject_what_no_path_takes():
     with pytest.raises(ValueError, match="expected scores"):
         edge_softmax_normalize(torch.ones(6, 2), torch.zeros(5, dtype=torch.int64),
                                torch.ones(3, 2))
+
+
+# ---------------------------------------------------------------------- #
+# flash_attention's backward: the plain version and the autograd Function
+# ---------------------------------------------------------------------- #
+BWD_CASES = [  # b, hq, hkv, sq, sk, dh, causal, window, q_offset
+    (2, 4, 4, 64, 64, 16, True, None, 0),  # MHA (g = 1), causal
+    (1, 8, 2, 70, 70, 64, True, None, 0),  # GQA g = 4, ragged S
+    (1, 4, 1, 100, 77, 16, False, None, 0),  # not causal, Sq ≠ Sk
+    (2, 4, 1, 130, 130, 16, True, 48, 0),  # window
+    (1, 4, 4, 5, 150, 64, True, None, 145),  # the last rows of a cache
+    (1, 4, 1, 70, 70, 16, True, 16, -20),  # rows that see no key: zero gradients
+]
+
+
+def _bwd_inputs(case, seed=0):
+    b, hq, hkv, sq, sk, dh = case[:6]
+    q, k, v = _qkv(seed + sq + dh, b, hq, hkv, sq, sk, dh)
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_ref_matches_reference_vjp_and_autograd(case):
+    """``flash_attention_bwd_ref`` (from the saved o and lse) against
+    ``jax.vjp`` of the reference's ``flash_attention_ref`` and against torch
+    autograd through the port's ``flash_attention_ref``, at 1e-5."""
+    causal, window, q_offset = case[6:]
+    q, k, v, do = _bwd_inputs(case)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = kref.flash_attention_lse_ref(tq, tk, tv, causal, window, q_offset)
+    assert lse.dtype == torch.float32 and lse.shape == tq.shape[:3]
+    grads = kref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, causal, window, q_offset)
+
+    _, vjp = jax.vjp(lambda a, b_, c: jref.flash_attention_ref(
+        a, b_, c, causal=causal, window=window, q_offset=q_offset), *map(jnp.asarray, (q, k, v)))
+    ref_jax = vjp(jnp.asarray(do))
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = kref.flash_attention_ref(*leaves, causal=causal, window=window, q_offset=q_offset)
+    ref_torch = torch.autograd.grad(out, leaves, tdo)
+    for name, g, rj, rt in zip(("dq", "dk", "dv"), grads, ref_jax, ref_torch):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(rj), **TOL, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), rt.numpy(), **TOL, err_msg=name)
+    if q_offset < 0:  # rows 0, 1 see no key: lse −inf, zero dq
+        assert torch.all(torch.isneginf(lse[:, :, :2])) and torch.all(grads[0][:, :, :2] == 0)
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [(True, None, 0), (False, None, 0),
+                                                    (True, 32, 0), (True, None, 4096)])
+def test_flash_attention_lse_ref_o_is_flash_attention_ref_bitwise(causal, window, q_offset):
+    """The same o bits with and without lse, through the 2048-row chunked
+    path too (Sq = 4096); lse = logsumexp of the scaled, masked scores
+    (checked on the first 64 rows, which also agree with the chunked call)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 2, 1, 4096, 4096 + q_offset, 16))
+    o, lse = kref.flash_attention_lse_ref(q, k, v, causal, window, q_offset)
+    assert torch.equal(o, kref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                                   q_offset=q_offset))
+    o2, lse2 = tops.flash_attention_lse(q[:, :, :64], k, v, causal, window, q_offset)
+    s = torch.einsum("bhqd,bkd->bhqk", q[:, :, :64], k[:, 0]) / 4.0
+    qpos, kpos = q_offset + torch.arange(64)[:, None], torch.arange(k.shape[2])[None, :]
+    ok = (kpos <= qpos) if causal else torch.ones(64, k.shape[2], dtype=torch.bool)
+    if window is not None:
+        ok &= kpos > qpos - window
+    torch.testing.assert_close(lse2, torch.logsumexp(s.masked_fill(~ok, -torch.inf), -1),
+                               **TOL)
+    torch.testing.assert_close(lse2, lse[:, :, :64], **TOL)
+    torch.testing.assert_close(o2, o[:, :, :64], **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES[:3])
+def test_flash_attention_autograd_function_on_cpu(case, dtype):
+    """With inputs that require grad, ``flash_attention`` goes through the
+    autograd Function: its output is the plain forward's bit for bit and its
+    gradients are ``flash_attention_bwd``'s (the plain version on the CPU)."""
+    causal, window, q_offset = case[6:]
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(a).to(dt) for a in _bwd_inputs(case, seed=3))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tops.flash_attention(*leaves, causal=causal, window=window, q_offset=q_offset)
+    assert out.grad_fn is not None and out.dtype == dt
+    assert torch.equal(out.detach(), tops.flash_attention(q, k, v, causal=causal, window=window,
+                                                          q_offset=q_offset))
+    grads = torch.autograd.grad(out, leaves, do)
+    o, lse = tops.flash_attention_lse(q, k, v, causal, window, q_offset)
+    expect = flash_attention_bwd(q, k, v, o, lse, do, causal, window, q_offset)
+    for g, e in zip(grads, expect):
+        assert g.dtype == dt and torch.equal(g, e)
+    with torch.no_grad():  # the serving path: no Function, no lse
+        assert tops.flash_attention(*leaves, causal=causal).grad_fn is None
+
+
+def test_flash_attention_bwd_rejects_what_no_path_takes():
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(BWD_CASES[0]))
+    o, lse = tops.flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="shaped like q"):
+        flash_attention_bwd(q, k, v, o, lse[:, :, :3], do)
+    with pytest.raises(ValueError, match="shaped like q"):
+        flash_attention_bwd(q, k, v, o, lse, do[:, :, :3])
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_bwd(*(t.to("meta") for t in (q, k, v, o, lse, do)))
 
 
 # ---------------------------------------------------------------------- #

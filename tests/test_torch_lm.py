@@ -96,11 +96,24 @@ def test_llama_full_width_is_1_236b_parameters():
 # layers and attention
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("case", ["rms_norm", "rms_norm_bf16", "rope", "rope_batched",
-                                  "swiglu"])
+                                  "swiglu", "layer_norm", "softmax_xent", "softmax_xent_mask"])
 def test_layers_match_reference(case):
     rng = np.random.default_rng(7)
     x = rng.normal(size=(2, 4, 32, 16)).astype(np.float32)
-    if case.startswith("rms_norm"):
+    if case == "layer_norm":
+        gamma, beta = (rng.normal(size=16).astype(np.float32) for _ in range(2))
+        ref = jlayers.layer_norm(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+        port = tlayers.layer_norm(*map(torch.from_numpy, (x, gamma, beta)))
+    elif case.startswith("softmax_xent"):
+        labels = rng.integers(0, 16, x.shape[:-1]).astype(np.int32)
+        mask = (rng.random(x.shape[:-1]) < 0.7).astype(np.float32) if case.endswith("mask") \
+            else None
+        ref = jlayers.softmax_xent(jnp.asarray(4 * x), jnp.asarray(labels),
+                                   None if mask is None else jnp.asarray(mask))
+        port = tlayers.softmax_xent(torch.from_numpy(4 * x), torch.from_numpy(labels),
+                                    None if mask is None else torch.from_numpy(mask))
+        assert port.dim() == 0 and port.dtype == torch.float32
+    elif case.startswith("rms_norm"):
         gamma = rng.normal(size=16).astype(np.float32)
         dt = "bfloat16" if case.endswith("bf16") else "float32"
         ref = jlayers.rms_norm(jnp.asarray(x, getattr(jnp, dt)), jnp.asarray(gamma))
