@@ -9,7 +9,9 @@ Phases, one JSON line each:
 1. build   — compile the six CUDA kernel libraries (``src/repro_torch/csrc``),
              one ``nvcc`` per source, started together; count the tensor-core
              instructions (``HGMMA``) in each library's SASS
-             (``cuobjdump --dump-sass``): ``flash_attention`` must have some;
+             (``cuobjdump --dump-sass``): ``flash_attention`` and
+             ``flash_attention_bwd`` must have some, and ptxas must report no
+             spills for ``flash_attention_bwd``;
 2. engine  — ``create_engine("device", …)`` for gcn and then gat (heads=2) on
              ``make_graph("uniform", n, avg_degree=10, weighted=True)`` with
              128-wide random features and dims [128, 128, 128], driven by a
@@ -71,10 +73,11 @@ Phases, one JSON line each:
              ``flash_attention_lse``'s o bitwise ``flash_attention``'s and its
              lse against ``flash_attention_lse_ref`` at the forward's
              tolerance; ``flash_attention_bwd`` at the training shape (B 4,
-             Hq 32, Hkv 8, S 2048, dh 64, causal, fp32) against
-             ``flash_attention_bwd_ref`` at atol 2e-5 + rtol 2e-3 and a second
-             launch bitwise the first, timed beside the backward of
-             ``scaled_dot_product_attention``;
+             Hq 32, Hkv 8, S 2048, dh 64, causal) in fp32 against
+             ``flash_attention_bwd_ref`` at atol 2e-5 + rtol 2e-3 and in bf16
+             (a variant row) at 3e-2, each with a second launch bitwise the
+             first, timed beside the backward of
+             ``scaled_dot_product_attention`` in the same dtype;
              row_linear ≤ 1e-5 at M = n, where the wrapper takes the tiled
              kernel, and bitwise the general kernel there, at gat's per-edge
              M = E and at the incremental step's row cap; rows of
@@ -325,8 +328,11 @@ def phase_build() -> None:
     hgmma = {name: _sass_count(_lib_path(name), "HGMMA") for name in libs}
     emit({"phase": "build", "seconds": {k: v["seconds"] for k, v in res.items()},
           "ptxas": regs, "ptxas_spills": spills, "sass_hgmma": hgmma})
-    if not hgmma["flash_attention"]:
-        raise AssertionError("flash_attention's SASS has no HGMMA: it misses the tensor cores")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if not hgmma[name]:
+            raise AssertionError(f"{name}'s SASS has no HGMMA: it misses the tensor cores")
+    if spills["flash_attention_bwd"]:
+        raise AssertionError(f"flash_attention_bwd spills: {spills['flash_attention_bwd']}")
 
 
 def _sass_count(lib: Path, opcode: str) -> int:
@@ -1933,14 +1939,16 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
     return row
 
 
-def kernel_flash_attention_bwd(cfg, gen) -> dict:
-    """The backward kernels at the training shape of ``cfg`` (causal, GQA,
-    fp32): against ``flash_attention_bwd_ref`` on the kernel's o and lse,
-    a second launch bitwise the first, timed (both entries a call) beside
-    the plain version and the backward of ``scaled_dot_product_attention``
-    (one forward kept, ``torch.autograd.grad`` timed).  The bound is split
-    TF32's, as the forward's: 2.5 × the forward's operations, 3 TF32
-    products a product."""
+def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32") -> dict:
+    """The backward kernels at the training shape of ``cfg`` (causal, GQA)
+    in fp32, the training step's dtype (fp32 params keep the residual
+    stream fp32), or in bf16, which no main path runs: against
+    ``flash_attention_bwd_ref`` on the kernel's o and lse, a second launch
+    bitwise the first, timed (both entries a call) beside the plain version
+    and the backward of ``scaled_dot_product_attention`` in the same dtype
+    (one forward kept, ``torch.autograd.grad`` timed).  The bound is that of
+    the five products, 2.5 × the forward's operations: in fp32 at 3 TF32
+    products a product (split TF32, as the forward), in bf16 at one."""
     import torch
     import torch.nn.functional as F
 
@@ -1949,10 +1957,11 @@ def kernel_flash_attention_bwd(cfg, gen) -> dict:
 
     b, hq, hkv, s, dh = (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ,
                          cfg.resolved_head_dim)
-    q = torch.randn(b, hq, s, dh, device="cuda", generator=gen)
-    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
-    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen)
-    do = torch.randn(b, hq, s, dh, device="cuda", generator=gen)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
+    do = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
     o, lse = flash_attention_lse(q, k, v, causal=True)
 
     def run():
@@ -1960,9 +1969,11 @@ def kernel_flash_attention_bwd(cfg, gen) -> dict:
 
     grads = run()
     ref = kref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
-    atol, rtol = TOL_ATTN
-    within = all(bool(((g - r).abs() <= atol + rtol * r.abs()).all()) for g, r in zip(grads, ref))
-    errs = {n: float((g - r).abs().max()) for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+    atol, rtol = TOL_ATTN if dtype == "float32" else TOL_ATTN_BF16
+    within = all(bool(((g.float() - r.float()).abs() <= atol + rtol * r.float().abs()).all())
+                 for g, r in zip(grads, ref))
+    errs = {n: float((g.float() - r.float()).abs().max())
+            for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
     bitwise = all(bool(torch.equal(a, c)) for a, c in zip(grads, run()))
     del grads, ref
     ms = cuda_time_ms(run, 10)
@@ -1973,17 +1984,24 @@ def kernel_flash_attention_bwd(cfg, gen) -> dict:
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
     del out, leaves
     flops = 10 * dh * b * hq * (s * (s + 1) // 2)  # S, dP, dV, dK, dQ over the visible pairs
-    nbytes = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())  # q o dO dq, k v dk dv, lse
-    bound_ms, by = _bound(nbytes, SPLIT_TF32 * flops, TF32_FLOPS)
-    return {"name": "flash_attention_bwd",
-            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
-                      "dtype": "float32"},
-            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
-            "within_tol": within and bitwise, "bitwise_repeat": bitwise,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "bound_share": bound_ms / ms, "library_ms": lib_ms,
-            "library": "backward of F.scaled_dot_product_attention(is_causal, enable_gqa)",
-            "flops": flops, "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
+    # q o dO dq, k v dk dv in the dtype; lse in fp32
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    if dtype == "float32":
+        bound_ms, by = _bound(nbytes, SPLIT_TF32 * flops, TF32_FLOPS)
+    else:
+        bound_ms, by = _bound(nbytes, flops, BF16_FLOPS)
+    row = {"name": "flash_attention_bwd",
+           "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
+                     "dtype": dtype},
+           "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+           "within_tol": within and bitwise, "bitwise_repeat": bitwise,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+           "bound_share": bound_ms / ms, "library_ms": lib_ms,
+           "library": "backward of F.scaled_dot_product_attention(is_causal, enable_gqa)",
+           "flops": flops, "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
+    if dtype != "float32":
+        row["variant"] = dtype  # a check beside the fp32 row, not a summary row
+    return row
 
 
 def kernel_edge_softmax(graph, gen) -> dict:
@@ -2221,6 +2239,7 @@ def main(argv=None) -> int:
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),
         kernel_flash_attention_bwd(cfg, gen),
+        kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
         *kernel_row_linear(wl.base.n, wl.base.num_edges, caps["r"], gen),
         *kernel_row_sum_chunked(zipf, zipf_keys, WIDTH + 1, gen),

@@ -13,7 +13,7 @@
 //
 // q, o, dO, dq [B, Hq, Sq, dh]; k, v, dk, dv [B, Hkv, Sk, dh]; lse and D [B, Hq, Sq]
 // fp32; all contiguous and 16-byte aligned; fp32 or bf16 (gradients in the input
-// type), fp32 arithmetic and accumulation; dh ∈ {16, 32, 64, 128}.
+// type), fp32 accumulation; dh ∈ {16, 32, 64, 128}.
 //
 // Replaces: no TPU kernel.  The Pallas `flash_attention` (src/repro/kernels/
 // flash_attention.py) has no VJP, and the JAX package's training differentiates
@@ -23,34 +23,65 @@
 // backward of every layer of the LM's training step (nn/attention.py → the
 // autograd Function in kernels/flash_attention.py).
 //
-// What bounds it on an H100: operations.  The five products (S, dP, dV, dK, dQ) do
-// 2.5× the forward's: 10·dh operations per (query, visible key) pair, 1.72e11 at
-// the llama3.2-1b training shape (B 4, Hq 32, Hkv 8, S 2048, dh 64, causal),
-// against ≈ 0.34 GB of q, k, v, o, dO, lse read and dq, dk, dv written (0.10 ms at
-// 3.35 TB/s).  In split TF32 on the tensor cores (the forward's route) that is
-// 1.04 ms at 495 TFLOP/s; on the fp32 CUDA cores at 67 TFLOP/s, 2.57 ms.
+// What bounds it on an H100: tensor-core operations.  The five products (S, dP,
+// dV, dK, dQ) do 2.5× the forward's: 10·dh operations per (query, visible key)
+// pair, 1.72e11 at the llama3.2-1b training shape (B 4, Hq 32, Hkv 8, S 2048, dh
+// 64, causal), against ≈ 0.34 GB of q, k, v, o, dO, lse read and dq, dk, dv
+// written (0.10 ms at 3.35 TB/s).  fp32 inputs are multiplied in the forward's
+// error-compensated split TF32 (x = hi + lo, each product lo·hi + hi·lo + hi·hi
+// with fp32 accumulation; plain TF32 misses the fp32 tolerance by ~100×): 1.04 ms
+// at 495 TFLOP/s.  bf16 inputs take one bf16 product: 0.174 ms at 989 TFLOP/s.
+// This design runs seven products, not five (below): its floor is 7/5 of those,
+// 1.46 ms in fp32.  Measured at that shape (chip_smoke.py, NVIDIA H100 80GB
+// HBM3, 700 W): fp32 3.61 ms (29% of the 1.04 ms bound; the CUDA-core kernel
+// before it 8.07), bf16 0.78 ms (22% of 0.174 ms).  What holds it there: the
+// CUDA-core work between the products (each loop tile split, and in fp32
+// transposed, into the operand layout; exp, masks and dS; the fragments'
+// splits), which overlaps the tensor cores only across warpgroups, and the
+// operands' single buffer.
 //
-// What the design does about it: this first version is the simple one, on the
-// fp32 CUDA cores (tensor cores are later work).  Two kernels, so that every
-// output element has one owner and no float atomics are needed (the same bits on
-// every run):
-//   * the dQ kernel, one block per (b, q head, 64-row query tile), computes D for
-//     its rows from its dO and O tiles, writes it for the second kernel, and loops
-//     over the key tiles its rows can see (causal and window band), accumulating
-//     dQ in registers;
-//   * the dK/dV kernel, launched after it on the same stream, one block per (b, KV
-//     head, 64-key tile), loops over the g query heads of the group and the query
-//     tiles that can see its keys, accumulating dK and dV in registers.
-// D comes from the dQ kernel rather than a pre-pass: its block holds the rows' dO
-// already, and the stream orders the two launches.  Each kernel recomputes S and
-// dP (seven products in all against the minimum five), which is what removes the
-// atomics.  Tiles are staged in shared memory as fp32 rows padded by 4 floats, so
-// the 16-byte loads of eight neighbouring threads fall on distinct banks; 256
-// threads as 16 × 16, each computing a 4 × 4 block of a [64, 64] score tile (rows
-// ty + 16a, keys tx + 16b: 8 16-byte loads per 64 FMAs) or a 4 × dh/16 block of a
-// [64, dh] gradient tile (rows 4tx…4tx+3: 2 16-byte loads per 16 FMAs at dh 64).
-// The heaviest blocks under the causal mask go first (the dQ kernel's last query
-// tiles, the dK/dV kernel's first key tiles).  P uses exp2f with lse · log2 e.
+// What the design does about it: two kernels, so that every output element has
+// one owner and no float atomics are needed (the same bits on every run):
+//   * the dQ kernel, one block per (b, q head, tile of query rows), computes D
+//     for its rows, writes it for the second kernel, and loops over the key
+//     tiles its rows can see:  S = Q·Kᵀ, dP = dO·Vᵀ (Q and dO from shared
+//     memory by descriptor), P and dS in registers, dQ += dS·K;
+//   * the dK/dV kernel, launched after it on the same stream, one block per (b,
+//     KV head, tile of keys), loops over the g query heads of the group and the
+//     query tiles that see its keys:  Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (keys as M, K
+//     and V from shared memory by descriptor), which leaves Pᵀ and dSᵀ in
+//     exactly the registers that dV += Pᵀ·dO and dK += dSᵀ·Q take as A.
+// Each kernel recomputes S and dP (seven products against the minimum five),
+// which is what removes the atomics.  A block is one warpgroup per 64 rows (or
+// keys) it owns: two in fp32 up to dh 64, sharing the split of each loop tile
+// (the CUDA-core work of one warpgroup then runs beside the other's products),
+// one otherwise (Cfg).  P and dS never go to shared memory: the accumulator
+// gives a thread columns 2t, 2t+1 of each 8-group where the TF32 A fragment
+// wants t, t+4, so the transposed operands (Kᵀ; Qᵀ, dOᵀ) store each 8-group of
+// their K dimension in the order 0 2 4 6 1 3 5 7, as the forward's Vᵀ does;
+// bf16's k16 fragment matches the accumulator.  TF32 wgmma takes only K-major B,
+// so fp32 keeps a transposed split copy of each tile that is a B operand along
+// its rows (Kᵀ in the dQ kernel, Qᵀ and dOᵀ in the dK/dV kernel); bf16 keeps one
+// copy and reads it MN-major through wgmma's transpose bit.  The tensor cores'
+// fp32 sums truncate, so dQ, dK and dV are not one wgmma chain over the whole
+// loop (~3000 steps, which put dk and dv ~5e-4 off): each tile's product runs
+// in a fresh accumulator that the CUDA cores add to the running sum.  The TF32
+// splits use integer ALU operations (cvt.rna's bits, without conversions).
+// The loop's raw tiles (K and V, or Q and dO, each one contiguous run of rows
+// of one head) arrive by 1-D bulk async copies into a ring of stages completed
+// on mbarriers, so the copy of tile t + 1 overlaps the products of tile t; the
+// block splits each arrived tile into the operand layout (hopper.cuh), missing
+// rows of a ragged tile as zeros (stale shared memory could hold NaN, and 0 ·
+// NaN is NaN).  The operands have one buffer; at fp32 dh 64 the dK/dV kernel
+// holds K and V of 128 keys and Q, Qᵀ, dO and dOᵀ of 32 rows, each as hi and
+// lo, in 192 KB, and two 16 KB raw stages.  Masks are applied by select, only
+// on tiles that cross the band or the end of Sk; a warpgroup skips a tile none
+// of its rows (keys) meets; nothing branches between a wgmma's issue and its
+// wait.  The heaviest blocks under the causal mask go first (the dQ kernel's
+// last query tiles, the dK/dV kernel's first key tiles), and GQA reads KV head
+// h / g in place.  lse · log2 e and D are indexed by the accumulator's rows in
+// the dQ kernel (two a thread, in registers) and by its columns in the dK/dV
+// kernel (read from shared memory).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,115 +89,237 @@
 #include <type_traits>
 
 #include "error.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kTile = 64;        // query rows or keys of a tile
-constexpr int kThreads = 256;    // 16 × 16
-constexpr int kLdS = kTile + 4;  // padded row of a [64, 64] score tile
+using hopper::Mma;
+using hopper::Op;
+using hopper::Src;
+
+constexpr int kWgRows = 64;       // rows of one wgmma's M: query rows (dQ) or keys (dK/dV)
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have on an H100
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DH>
+template <typename T, int DH>
 struct Cfg {
-  static constexpr int kLd = DH + 4;    // padded row of a [64, DH] tile
-  static constexpr int kDpt = DH / 16;  // columns a thread owns in a [64, DH] gradient tile
-  static constexpr int kTileFloats = kTile * kLd;
-  static constexpr int kScoreFloats = kTile * kLdS;
-  static constexpr int kMinBlocks = DH <= 64 ? 2 : 1;  // two blocks an SM where they fit
+  static constexpr bool kSplit = std::is_same<T, float>::value;  // fp32: hi + lo
+  static constexpr Op kOp = kSplit ? Op::kTf32 : Op::kBf16;
+  static constexpr int kParts = kSplit ? 2 : 1;
+  static constexpr int kE = static_cast<int>(sizeof(T));  // operand bytes: tf32 4, bf16 2
+  static constexpr int kEPC = 16 / kE;                    // elements per 16-byte chunk
+  static constexpr int kCPR = DH / kEPC;                  // chunks per row
+  static constexpr int kKStep = 32 / kE;                  // k of one wgmma
+  // A fragment registers a thread for K = KD: tf32 4 per k8, bf16 4 per k16
+  template <int KD>
+  __host__ __device__ static constexpr int frag_regs() { return kSplit ? KD / 2 : KD / 4; }
+  // fp32 up to dh 64: two warpgroups a block, each owning 64 of the block's
+  // query rows (dQ) or keys (dK/dV) and sharing the split of each loop tile, so
+  // that the CUDA-core work of one hides behind the other's products.  fp32 at
+  // dh 128, whose 64-row operands alone take 128 KB, and bf16, whose blocks are
+  // small enough to run several to an SM and whose two-warpgroup kernels took
+  // more registers (fewer warps an SM, and spills at dh 128), take one.  The
+  // loop tile (keys a step of the dQ kernel, query rows a step of the dK/dV
+  // kernel) is as large as fits in 227 KB.
+  static constexpr int kWG = (kSplit && DH <= 64) ? 2 : 1;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kRows = kWgRows * kWG;
+  static constexpr int kTile = !kSplit || DH <= 32 ? 64 : DH == 64 ? 32 : 16;
+  static constexpr int kBlockPart = kRows * DH * kE;  // one part of a block operand
+  static constexpr int kTilePart = kTile * DH * kE;   // one part of a loop-tile operand
+  // operands of a loop tile: dQ: K, V (+ Kᵀ in fp32); dK/dV: Q, dO (+ Qᵀ, dOᵀ in fp32)
+  static constexpr int kTileOps = kSplit ? 3 : 2;
+  static constexpr int kTileOpsDkdv = kSplit ? 4 : 2;
+  static constexpr int smem(int tile_ops, int stages) {
+    return 2 * kParts * kBlockPart + tile_ops * kParts * kTilePart + stages * 2 * kTilePart +
+           2 * 4 * kRows + 8 * stages;  // + lse · log2 e and D of ≤ kRows rows, barriers
+  }
+  // two raw stages where they fit, else one
+  static constexpr int kStagesDq = smem(kTileOps, 2) <= kSmemMax ? 2 : 1;
+  static constexpr int kStagesDkdv = smem(kTileOpsDkdv, 2) <= kSmemMax ? 2 : 1;
+  static constexpr int kSmemDq = smem(kTileOps, kStagesDq);
+  static constexpr int kSmemDkdv = smem(kTileOpsDkdv, kStagesDkdv);
+  static_assert(kSmemDq <= kSmemMax && kSmemDkdv <= kSmemMax, "shared memory");
 };
 
-__device__ __forceinline__ void put4(float* dst, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+// x ≈ hi + lo, both TF32, with the bits of hopper::split_tf32 (cvt.rna: to
+// nearest, ties away from zero) formed by integer ALU operations, which the
+// SM issues at a higher rate than conversions.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(__float_as_uint(x));
+  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
 }
 
-// Rows [0, 64) of a row-major [rows, DH] tile in device memory → fp32 rows of
-// `dst` (stride DH + 4); rows ≥ nvalid become 0 and are not read.
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, float* dst, int nvalid) {
-  constexpr int kEpc = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte chunk
-  constexpr int kCpr = DH / kEpc;                          // chunks per row
-  for (int c = threadIdx.x; c < kTile * kCpr; c += kThreads) {
-    const int r = c / kCpr, col = (c % kCpr) * kEpc;
-    float* out = dst + r * Cfg<DH>::kLd + col;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nvalid)
-      x = __ldg(reinterpret_cast<const uint4*>(src + static_cast<long long>(r) * DH + col));
-    if constexpr (std::is_same<T, float>::value) {
-      put4(out, __uint_as_float(x.x), __uint_as_float(x.y), __uint_as_float(x.z),
-           __uint_as_float(x.w));
-    } else {  // eight bf16, low half first: a bf16 is the high half of its fp32
-      put4(out, __uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
-           __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
-      put4(out + 4, __uint_as_float(x.z << 16), __uint_as_float(x.z & 0xffff0000u),
-           __uint_as_float(x.w << 16), __uint_as_float(x.w & 0xffff0000u));
-    }
+// One 16-byte chunk of raw values → the operand part(s) at byte `off`.
+template <typename T>
+__device__ __forceinline__ void put_chunk(unsigned char* hi, unsigned char* lo, int off,
+                                          uint4 x) {
+  if constexpr (std::is_same<T, float>::value) {
+    uint4 h, l;
+    split_tf32(__uint_as_float(x.x), h.x, l.x);
+    split_tf32(__uint_as_float(x.y), h.y, l.y);
+    split_tf32(__uint_as_float(x.z), h.z, l.z);
+    split_tf32(__uint_as_float(x.w), h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  } else {
+    *reinterpret_cast<uint4*>(hi + off) = x;
   }
 }
 
-// c[a][b] = Σ_d A[ty + 16a][d] · B[tx + 16b][d] over two [64, DH] tiles.
-template <int DH>
-__device__ __forceinline__ void dot_tile(const float* A, const float* B, float c[4][4]) {
-  constexpr int LD = Cfg<DH>::kLd;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+// Rows [0, R) of a row-major [·, DH] tile → a K-major operand of R rows (DH
+// along K); rows ≥ nvalid become 0.  Each group of 8 threads takes 8 rows and 8
+// distinct chunks, so neither its reads nor its writes share a bank.  kGlobal:
+// the tile is in device memory, where rows ≥ nvalid may not be read; in shared
+// memory they are read and dropped.
+template <typename T, int DH, int R, bool kGlobal>
+__device__ __forceinline__ void put_rows(const T* raw, unsigned char* hi, unsigned char* lo,
+                                         int nvalid) {
+  using C = Cfg<T, DH>;
+  constexpr int CPR = C::kCPR, N = R * CPR, NT = C::kThreads;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int q = it * NT + static_cast<int>(threadIdx.x);
+    if (N % NT != 0 && q >= N) break;
+    const int i = q & 7, j = q >> 3;
+    const int r = (j % (R / 8)) * 8 + i, c = (j / (R / 8) + i) % CPR;
+    const uint4* src = reinterpret_cast<const uint4*>(raw + r * DH + c * C::kEPC);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (kGlobal) {
+      if (r < nvalid) x = *src;
+    } else {
+      const uint4 y = *src;
+      x = r < nvalid ? y : x;
+    }
+    put_chunk<T>(hi, lo, hopper::chunk_offset(R, r, c), x);
+  }
+}
+
+// The raw fp32 [R, DH] tile in shared memory → its transpose as a K-major
+// operand (DH rows, the R raw rows along K), each 8-group of raw rows stored as
+// 0 2 4 6 | 1 3 5 7: the order in which a thread's accumulator values sit in the
+// TF32 A fragment.  Raw rows ≥ nvalid become 0.
+template <int DH, int R>
+__device__ __forceinline__ void put_cols(const float* raw, unsigned char* hi, unsigned char* lo,
+                                         int nvalid) {
+  constexpr int NKC = R / 4, N = DH * NKC, NT = Cfg<float, DH>::kThreads;  // chunks along K
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(raw);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) c[a][b] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < DH; d += 4) {
-    float4 x[4], y[4];
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int q = it * NT + static_cast<int>(threadIdx.x);
+    if (N % NT != 0 && q >= N) break;
+    const int d = q % DH, kc = q / DH;
+    union {
+      uint4 u;
+      uint32_t v[4];
+    } x;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = *reinterpret_cast<const float4*>(A + (ty + 16 * a) * LD + d);
+    for (int e = 0; e < 4; ++e) {
+      const int row = 8 * (kc >> 1) + 2 * e + (kc & 1);
+      const uint32_t y = bits[row * DH + d];
+      x.v[e] = row < nvalid ? y : 0u;
+    }
+    put_chunk<float>(hi, lo, hopper::chunk_offset(DH, d, kc), x.u);
+  }
+}
+
+// An accumulator of N columns (N / 2 values a thread: acc[4i + 2h + e] is row
+// r0 + 8h, column 8i + 2·tig + e) → the A fragments of the product that takes it
+// with its columns along K.  TF32 (k8 steps): (r0, slot tig) = column 2·tig,
+// (r0 + 8, tig), (r0, tig + 4) = column 2·tig + 1, (r0 + 8, tig + 4), each split
+// into hi and lo; bf16 (k16 steps): pairs (r0, 2·tig), (r0 + 8, 2·tig), (r0, 2·tig
+// + 8), (r0 + 8, 2·tig + 8).
+template <typename T, int N>
+__device__ __forceinline__ void to_frags(const float* acc, uint32_t* hi, uint32_t* lo) {
+  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int b = 0; b < 4; ++b) y[b] = *reinterpret_cast<const float4*>(B + (tx + 16 * b) * LD + d);
+    for (int i = 0; i < N / 8; ++i) {
+      split_tf32(acc[4 * i + 0], hi[4 * i + 0], lo[4 * i + 0]);
+      split_tf32(acc[4 * i + 2], hi[4 * i + 1], lo[4 * i + 1]);
+      split_tf32(acc[4 * i + 1], hi[4 * i + 2], lo[4 * i + 2]);
+      split_tf32(acc[4 * i + 3], hi[4 * i + 3], lo[4 * i + 3]);
+    }
+  } else {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int i = 0; i < N / 16; ++i)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        c[a][b] = fmaf(x[a].x, y[b].x, c[a][b]);
-        c[a][b] = fmaf(x[a].y, y[b].y, c[a][b]);
-        c[a][b] = fmaf(x[a].z, y[b].z, c[a][b]);
-        c[a][b] = fmaf(x[a].w, y[b].w, c[a][b]);
+      for (int j = 0; j < 4; ++j) {
+        const int src = 8 * i + 4 * (j >> 1) + 2 * (j & 1);
+        __nv_bfloat162 pr = __floats2bfloat162_rn(acc[src], acc[src + 1]);
+        hi[4 * i + j] = *reinterpret_cast<uint32_t*>(&pr);
       }
   }
 }
 
-// N consecutive floats of shared memory (N = DH / 16: 1, 2, 4 or 8).
-template <int N>
-__device__ __forceinline__ void load_row(const float* src, float* x) {
-  if constexpr (N == 1) {
-    x[0] = src[0];
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    x[0] = t.x, x[1] = t.y;
-  } else {
+// d = A · Bᵀ over K = DH for 64 rows of A (rows [0, 64) at `a` of a K-major
+// operand of `a_rows` rows) and N rows of B (a K-major operand of N rows at
+// `b`); fp32 as lo·hi + hi·lo + hi·hi.  Issued, not waited for.
+template <typename T, int DH, int N>
+__device__ __forceinline__ void product_ss(float* d, const unsigned char* a, int a_rows,
+                                           int a_part, const unsigned char* b, int b_part) {
+  using C = Cfg<T, DH>;
+  constexpr int STEPS = DH / C::kKStep;
+  const uint64_t a_hi = hopper::make_desc(a, a_rows * 16, 128);
+  const uint64_t b_hi = hopper::make_desc(b, N * 16, 128);
+  if constexpr (C::kSplit) {
+    const uint64_t a_lo = a_hi + (a_part >> 4), b_lo = b_hi + (b_part >> 4);
 #pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(src + i);
-      x[i] = t.x, x[i + 1] = t.y, x[i + 2] = t.z, x[i + 3] = t.w;
-    }
+    for (int i = 0; i < STEPS; ++i)
+      Mma<C::kOp, Src::kSS, N>::run(d, a_lo + i * (2 * a_rows), b_hi + i * (2 * N), i > 0);
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i)
+      Mma<C::kOp, Src::kSS, N>::run(d, a_hi + i * (2 * a_rows), b_lo + i * (2 * N), 1);
   }
+#pragma unroll
+  for (int i = 0; i < STEPS; ++i)
+    Mma<C::kOp, Src::kSS, N>::run(d, a_hi + i * (2 * a_rows), b_hi + i * (2 * N),
+                                  C::kSplit || i > 0);
 }
 
-// acc[c][e] += Σ_r W[r][4tx + c] · X[r][ty · DH/16 + e] over a [64, 64] weight tile
-// (stride kLdS) and a [64, DH] tile: a [64, DH] gradient tile, reduced over r.
-template <int DH>
-__device__ __forceinline__ void acc_tile(const float* W, const float* X,
-                                         float acc[4][Cfg<DH>::kDpt]) {
-  constexpr int LD = Cfg<DH>::kLd, N = Cfg<DH>::kDpt;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    const float4 w = *reinterpret_cast<const float4*>(W + r * kLdS + 4 * tx);
-    float x[N];
-    load_row<N>(X + r * LD + ty * N, x);
+// acc += A · B over K = KD: A from the fragments of to_frags<T, KD>, B [KD × DH].
+// fp32: B is the transposed operand of put_cols (DH rows, KD along K); bf16: B
+// is the K-major operand of put_rows (KD rows, DH along K) read MN-major.  The
+// product runs in a fresh wgmma accumulator, NC ≤ 64 columns at a time, which
+// the CUDA cores then add to acc: no tensor-core chain outlives one tile.  (The
+// tensor cores' fp32 sums truncate; one chain over all of a 2048-row group,
+// ~3000 steps, put dk and dv ~5e-4 off, past the fp32 tolerance.)
+template <typename T, int DH, int KD>
+__device__ __forceinline__ void accumulate_rs(float* acc, const uint32_t* a_hi,
+                                              const uint32_t* a_lo, const unsigned char* b,
+                                              int b_part) {
+  using C = Cfg<T, DH>;
+  constexpr int STEPS = KD / C::kKStep, NC = DH < 64 ? DH : 64;
 #pragma unroll
-    for (int e = 0; e < N; ++e) {
-      acc[0][e] = fmaf(w.x, x[e], acc[0][e]);
-      acc[1][e] = fmaf(w.y, x[e], acc[1][e]);
-      acc[2][e] = fmaf(w.z, x[e], acc[2][e]);
-      acc[3][e] = fmaf(w.w, x[e], acc[3][e]);
+  for (int c = 0; c < DH / NC; ++c) {
+    float part[NC / 2];
+    hopper::wgmma_fence();
+    if constexpr (C::kSplit) {
+      const uint64_t b_hi = hopper::make_desc(b, DH * 16, 128) + c * NC;
+      const uint64_t b_lo = b_hi + (b_part >> 4);
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i)
+        Mma<Op::kTf32, Src::kRS, NC>::run(part, a_lo + 4 * i, b_hi + i * (2 * DH), i > 0);
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i)
+        Mma<Op::kTf32, Src::kRS, NC>::run(part, a_hi + 4 * i, b_lo + i * (2 * DH), 1);
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i)
+        Mma<Op::kTf32, Src::kRS, NC>::run(part, a_hi + 4 * i, b_hi + i * (2 * DH), 1);
+    } else {
+      // MN-major: 8 rows of K are 128 bytes apart, 8 columns of N KD · 16 bytes
+      const uint64_t b_mn = hopper::make_desc(b, 128, KD * 16) + c * (NC / 8) * KD;
+#pragma unroll
+      for (int i = 0; i < STEPS; ++i)
+        Mma<Op::kBf16, Src::kRST, NC>::run(part, a_hi + 4 * i, b_mn + i * 16, i > 0);
     }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[c * (NC / 2) + i] += part[i];
   }
 }
 
@@ -175,183 +328,375 @@ __device__ __forceinline__ bool visible(long long qpos, long long kpos, long lon
   return kpos < sk && (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// Rows 4tx + c < nrows, columns ty · DH/16 + e of a [64, DH] gradient tile at `out`.
-template <typename T, int DH>
-__device__ __forceinline__ void write_tile(T* out, const float acc[4][Cfg<DH>::kDpt],
-                                           float mul, int nrows) {
-  constexpr int N = Cfg<DH>::kDpt;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int r = 4 * tx + c;
-    if (r >= nrows) continue;
-#pragma unroll
-    for (int e = 0; e < N; ++e) store(out + static_cast<long long>(r) * DH + ty * N + e,
-                                      acc[c][e] * mul);
-  }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// Σ over one 16-byte chunk of x ∘ y in fp32, added to `sum` in element order.
+template <typename T>
+__device__ __forceinline__ float dot_chunk(uint4 x, uint4 y, float sum) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      sum = fmaf(__uint_as_float(xs[i]), __uint_as_float(ys[i]), sum);
+    } else {  // a bf16 is the high half of its fp32, low half first
+      sum = fmaf(__uint_as_float(xs[i] << 16), __uint_as_float(ys[i] << 16), sum);
+      sum = fmaf(__uint_as_float(xs[i] & 0xffff0000u), __uint_as_float(ys[i] & 0xffff0000u),
+                 sum);
+    }
+  }
+  return sum;
+}
+
+// The row mapping of the accumulators: this thread's warpgroup wg (of WG), its
+// rows r0 and r0 + 8 of the warpgroup's 64, and its column group tig.
+template <int WG>
+struct Lane {
+  int wg, r0, tig;
+  __device__ Lane() {
+    const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+    wg = WG == 1 ? 0 : tid >> 7;
+    r0 = warp * 16 + (lane >> 2);
+    tig = lane & 3;
+  }
+};
+
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, Cfg<DH>::kMinBlocks)
+__global__ void __launch_bounds__(Cfg<T, DH>::kThreads, 1)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ o, const float* __restrict__ lse,
               const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ delta,
               int hq, int g, long long sq, long long sk, float scale, int causal,
               long long window, long long q_offset) {
-  using C = Cfg<DH>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                     // Q tile
-  float* dos = qs + C::kTileFloats;     // dO tile
-  float* ks = dos + C::kTileFloats;     // K tile (first O's tile, for D)
-  float* vs = ks + C::kTileFloats;      // V tile
-  float* dst = vs + C::kTileFloats;     // dSᵀ [key][row], stride kLdS
-  float* lse2 = dst + C::kScoreFloats;  // the rows' lse · log2 e
-  float* drow = lse2 + kTile;           // the rows' D
+  using C = Cfg<T, DH>;
+  constexpr int R = C::kRows, BK = C::kTile, S = C::kStagesDq, NS = BK / 2, NO = DH / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* qs = smem;                                   // [Q parts]
+  unsigned char* dos = qs + C::kParts * C::kBlockPart;         // [dO parts]
+  unsigned char* ks = dos + C::kParts * C::kBlockPart;         // [K parts][V parts][Kᵀ parts]
+  unsigned char* vs = ks + C::kParts * C::kTilePart;
+  unsigned char* kts = vs + C::kParts * C::kTilePart;
+  unsigned char* raw = ks + C::kTileOps * C::kParts * C::kTilePart;  // [stage][K, V]
+  float* lse2s = reinterpret_cast<float*>(raw + S * 2 * C::kTilePart);  // the rows' lse · log2 e
+  float* drow = lse2s + R;                                              // the rows' D
+  uint64_t* full = reinterpret_cast<uint64_t*>(drow + R);
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x;
   const long long bh = blockIdx.x, b = bh / hq;
   const long long kvh = b * (hq / g) + (bh % hq) / g;
   // the last query tiles see the most keys under the causal mask: they go first
-  const long long q0 = (static_cast<long long>(gridDim.y) - 1 - blockIdx.y) * kTile;
-  const int nq = static_cast<int>(min(static_cast<long long>(kTile), sq - q0));
-  const long long row0 = bh * sq + q0;  // the tile's first row of [B · Hq · Sq]
+  const long long q0 = (static_cast<long long>(gridDim.y) - 1 - blockIdx.y) * R;
+  const int nq = static_cast<int>(min(static_cast<long long>(R), sq - q0));
+  const long long row0 = bh * sq + q0;  // the block's first row of [B · Hq · Sq]
+  const T* kp = k + kvh * sk * DH;
+  const T* vp = v + kvh * sk * DH;
 
-  load_tile<T, DH>(q + row0 * DH, qs, nq);
-  load_tile<T, DH>(dout + row0 * DH, dos, nq);
-  load_tile<T, DH>(o + row0 * DH, ks, nq);
-  if (tid < kTile) lse2[tid] = tid < nq ? lse[row0 + tid] * kLog2e : 0.0f;
-  __syncthreads();
-  {  // D = rowsum(dO ∘ O): four threads a row, a quarter of the columns each
-    const int r = tid >> 2, part = tid & 3;
-    float sum = 0.0f;
-#pragma unroll
-    for (int d = part * (DH / 4); d < (part + 1) * (DH / 4); ++d)
-      sum = fmaf(dos[r * C::kLd + d], ks[r * C::kLd + d], sum);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) {
-      drow[r] = sum;
-      if (r < nq) delta[row0 + r] = sum;
-    }
-  }
-  __syncthreads();  // D is in shared memory, O's tile may be overwritten
-
-  // the key tiles that some row of the block may see
+  // the key tiles that some row of the block may see: [t0, t0 + BK · n_tiles)
   long long k_lo = 0, k_hi = sk;
   if (causal) k_hi = min(k_hi, q0 + nq + q_offset);
   if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
-  const float scale_log2 = scale * kLog2e;
-  float acc[4][C::kDpt];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int e = 0; e < C::kDpt; ++e) acc[c][e] = 0.0f;
+  const long long t0 = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
 
-  for (long long k0 = (k_lo / kTile) * kTile; k0 < k_hi; k0 += kTile) {
-    const int nk = static_cast<int>(min(static_cast<long long>(kTile), sk - k0));
-    load_tile<T, DH>(k + (kvh * sk + k0) * DH, ks, nk);
-    load_tile<T, DH>(v + (kvh * sk + k0) * DH, vs, nk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<DH>(qs, ks, s);
-    dot_tile<DH>(dos, vs, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ty + 16 * a;
-      const long long qpos = q0 + i + q_offset;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int j = tx + 16 * bb;
-        const bool ok = i < nq && visible(qpos, k0 + j, sk, causal, window);
-        const float p = ok ? exp2f(s[a][bb] * scale_log2 - lse2[i]) : 0.0f;
-        dst[j * kLdS + i] = p * (dp[a][bb] - drow[i]);
-      }
-    }
-    __syncthreads();
-    acc_tile<DH>(dst, ks, acc);  // dQ += dS · K
-    __syncthreads();             // K, V and dSᵀ are free for the next tile
+  auto issue = [&](int t, int stage) {  // thread 0: bulk-copy K and V tile t into a raw stage
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const uint32_t bytes =
+        static_cast<uint32_t>(min(static_cast<long long>(BK), sk - k0)) * DH * C::kE;
+    unsigned char* dst = raw + stage * 2 * C::kTilePart;
+    hopper::mbar_expect_tx(&full[stage], 2 * bytes);
+    hopper::bulk_load(dst, kp + k0 * DH, bytes, &full[stage]);
+    hopper::bulk_load(dst + C::kTilePart, vp + k0 * DH, bytes, &full[stage]);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_mbar_init();
   }
-  write_tile<T, DH>(dq + row0 * DH, acc, scale, nq);
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < min(S, n_tiles); ++t) issue(t, t);
+  put_rows<T, DH, R, true>(q + row0 * DH, qs, qs + C::kBlockPart, nq);
+  put_rows<T, DH, R, true>(dout + row0 * DH, dos, dos + C::kBlockPart, nq);
+  {  // D = rowsum(dO ∘ O): two threads a row, half the columns each
+    const int r = tid >> 1, half = tid & 1;
+    float sum = 0.0f;
+    if (r < nq) {
+      const T* dr = dout + (row0 + r) * DH + half * (DH / 2);
+      const T* orow = o + (row0 + r) * DH + half * (DH / 2);
+#pragma unroll
+      for (int c = 0; c < DH / 2; c += C::kEPC)
+        sum = dot_chunk<T>(__ldg(reinterpret_cast<const uint4*>(dr + c)),
+                           __ldg(reinterpret_cast<const uint4*>(orow + c)), sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      drow[r] = sum;
+      if (r < nq) delta[row0 + r] = sum;
+    } else {
+      lse2s[r] = r < nq ? lse[row0 + r] * kLog2e : 0.0f;
+    }
+  }
+  __syncthreads();
+  // this warpgroup's rows: [wq0, wq0 + 64) of the block, at positions qa_lo … qa_hi
+  const Lane<C::kWG> ln;
+  const int wq0 = ln.wg * kWgRows;
+  const float lse2[2] = {lse2s[wq0 + ln.r0], lse2s[wq0 + ln.r0 + 8]};
+  const float drw[2] = {drow[wq0 + ln.r0], drow[wq0 + ln.r0 + 8]};
+  const bool rows = wq0 < nq;
+  const long long qa_lo = q0 + wq0 + q_offset;
+  const long long qa_hi = q0 + min(wq0 + kWgRows, nq) - 1 + q_offset;
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const int nk = static_cast<int>(min(static_cast<long long>(BK), sk - k0));
+    hopper::mbar_wait(&full[t % S], (t / S) & 1);
+    const T* rk = reinterpret_cast<const T*>(raw + (t % S) * 2 * C::kTilePart);
+    put_rows<T, DH, BK, false>(rk, ks, ks + C::kTilePart, nk);
+    put_rows<T, DH, BK, false>(rk + BK * DH, vs, vs + C::kTilePart, nk);
+    if constexpr (C::kSplit)
+      put_cols<DH, BK>(reinterpret_cast<const float*>(rk), kts, kts + C::kTilePart, nk);
+    hopper::fence_proxy_async();
+    __syncthreads();  // the operands are ready and the raw stage is free
+    if (tid == 0 && t + S < n_tiles) {
+      hopper::fence_proxy_async();
+      issue(t + S, t % S);
+    }
+
+    // does some row of this warpgroup see a key of this tile?  (With one
+    // warpgroup, always: the tiles are the block's.)
+    const bool active = C::kWG == 1 || (rows && !(causal && k0 > qa_hi) &&
+                                        !(window > 0 && k0 + BK - 1 <= qa_lo - window));
+    if (active) {
+      // S = Q · Kᵀ and dP = dO · Vᵀ
+      float s[NS], dp[NS];
+      hopper::wgmma_fence();
+      product_ss<T, DH, BK>(s, qs + wq0 * 16, R, C::kBlockPart, ks, C::kTilePart);
+      product_ss<T, DH, BK>(dp, dos + wq0 * 16, R, C::kBlockPart, vs, C::kTilePart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // P and dS = P ∘ (dP − D); s[4i + 2h + e] is row r0 + 8h, key k0 + 8i + 2·tig + e
+      const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
+                          (window > 0 && k0 <= qa_hi - window);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long qpos = qa_lo + ln.r0 + 8 * h;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * i + 2 * h + e;
+            float p = hopper::exp2_approx(fmaf(s[x], scale_log2, -lse2[h]));
+            if (masked)
+              p = visible(qpos, k0 + 8 * i + 2 * ln.tig + e, sk, causal, window) ? p : 0.0f;
+            dp[x] = p * (dp[x] - drw[h]);
+          }
+      }
+
+      // dQ += dS · K, dS from registers
+      constexpr int NF = C::template frag_regs<BK>();
+      uint32_t f_hi[NF], f_lo[C::kSplit ? NF : 1];
+      to_frags<T, BK>(dp, f_hi, f_lo);
+      accumulate_rs<T, DH, BK>(acc, f_hi, f_lo, C::kSplit ? kts : ks, C::kTilePart);
+      hopper::fence_regs(f_hi);
+      hopper::fence_regs(f_lo);
+    }
+    __syncthreads();  // the operands are free for tile t + 1
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wq0 + ln.r0 + 8 * h;
+    if (r >= nq) continue;
+    T* out = dq + (row0 + r) * DH + 2 * ln.tig;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, acc[4 * i + 2 * h] * scale, acc[4 * i + 2 * h + 1] * scale);
+  }
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, Cfg<DH>::kMinBlocks)
+__global__ void __launch_bounds__(Cfg<T, DH>::kThreads, 1)
 bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const float* __restrict__ lse, const T* __restrict__ dout,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                 int hq, int g, long long sq, long long sk, float scale, int causal,
                 long long window, long long q_offset) {
-  using C = Cfg<DH>;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                      // K tile
-  float* vs = ks + C::kTileFloats;       // V tile
-  float* qs = vs + C::kTileFloats;       // Q tile
-  float* dos = qs + C::kTileFloats;      // dO tile
-  float* ps = dos + C::kTileFloats;      // P [row][key], stride kLdS
-  float* dss = ps + C::kScoreFloats;     // dS [row][key]
-  float* lse2 = dss + C::kScoreFloats;   // the rows' lse · log2 e
-  float* drow = lse2 + kTile;            // the rows' D
+  using C = Cfg<T, DH>;
+  constexpr int R = C::kRows, BQ = C::kTile, S = C::kStagesDkdv, NS = BQ / 2, NO = DH / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ks = smem;                                    // [K parts]
+  unsigned char* vs = ks + C::kParts * C::kBlockPart;          // [V parts]
+  unsigned char* qs = vs + C::kParts * C::kBlockPart;          // [Q][dO][Qᵀ][dOᵀ], parts each
+  unsigned char* dos = qs + C::kParts * C::kTilePart;
+  unsigned char* qts = dos + C::kParts * C::kTilePart;
+  unsigned char* dots = qts + C::kParts * C::kTilePart;
+  unsigned char* raw = qs + C::kTileOpsDkdv * C::kParts * C::kTilePart;  // [stage][Q, dO]
+  float* lse2s = reinterpret_cast<float*>(raw + S * 2 * C::kTilePart);  // the tile's lse · log2 e
+  float* drow = lse2s + BQ;                                             // the tile's D
+  uint64_t* full = reinterpret_cast<uint64_t*>(drow + BQ);
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x;
   const long long bkv = blockIdx.x;  // b · Hkv + KV head
   const long long hkv = hq / g, b = bkv / hkv;
   const long long h0 = b * hq + (bkv % hkv) * g;  // b · Hq + the group's first q head
   // the first key tiles are seen by the most rows under the causal mask: they go first
-  const long long k0 = static_cast<long long>(blockIdx.y) * kTile;
-  const int nk = static_cast<int>(min(static_cast<long long>(kTile), sk - k0));
-  load_tile<T, DH>(k + (bkv * sk + k0) * DH, ks, nk);
-  load_tile<T, DH>(v + (bkv * sk + k0) * DH, vs, nk);
+  const long long k0 = static_cast<long long>(blockIdx.y) * R;
+  const int nk = static_cast<int>(min(static_cast<long long>(R), sk - k0));
 
-  // the query rows that see some key of the tile
+  // the query tiles that see some key of the block, for each of the g heads
   long long i_lo = 0, i_hi = sq;
   if (causal) i_lo = max(i_lo, k0 - q_offset);
   if (window > 0) i_hi = min(i_hi, k0 + nk - 1 + window - q_offset);
-  const float scale_log2 = scale * kLog2e;
-  float acc_k[4][C::kDpt], acc_v[4][C::kDpt];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int e = 0; e < C::kDpt; ++e) acc_k[c][e] = acc_v[c][e] = 0.0f;
+  const long long qt0 = (i_lo / BQ) * BQ;
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - qt0 + BQ - 1) / BQ) : 0;
+  const int n_tiles = g * n_qt;
+  auto tile_q0 = [&](int t) { return qt0 + static_cast<long long>(t % n_qt) * BQ; };
+  auto tile_row0 = [&](int t) { return (h0 + t / n_qt) * sq + tile_q0(t); };
 
-  for (int hg = 0; hg < g; ++hg) {
-    const long long bh = h0 + hg;
-    for (long long q0 = (i_lo / kTile) * kTile; q0 < i_hi; q0 += kTile) {
-      const int nq = static_cast<int>(min(static_cast<long long>(kTile), sq - q0));
-      const long long row0 = bh * sq + q0;
-      load_tile<T, DH>(q + row0 * DH, qs, nq);
-      load_tile<T, DH>(dout + row0 * DH, dos, nq);
-      if (tid < kTile) {
-        lse2[tid] = tid < nq ? lse[row0 + tid] * kLog2e : 0.0f;
-        drow[tid] = tid < nq ? delta[row0 + tid] : 0.0f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      dot_tile<DH>(qs, ks, s);
-      dot_tile<DH>(dos, vs, dp);
+  auto issue = [&](int t, int stage) {  // thread 0: bulk-copy Q and dO tile t into a raw stage
+    const uint32_t bytes =
+        static_cast<uint32_t>(min(static_cast<long long>(BQ), sq - tile_q0(t))) * DH * C::kE;
+    const long long row0 = tile_row0(t);
+    unsigned char* dst = raw + stage * 2 * C::kTilePart;
+    hopper::mbar_expect_tx(&full[stage], 2 * bytes);
+    hopper::bulk_load(dst, q + row0 * DH, bytes, &full[stage]);
+    hopper::bulk_load(dst + C::kTilePart, dout + row0 * DH, bytes, &full[stage]);
+  };
+  // threads < BQ: tile t's lse · log2 e and D for one row (0 past Sq)
+  float lse_next = 0.0f, d_next = 0.0f;
+  auto prefetch = [&](int t) {
+    if (tid < BQ && t < n_tiles && tile_q0(t) + tid < sq) {
+      lse_next = lse[tile_row0(t) + tid] * kLog2e;
+      d_next = delta[tile_row0(t) + tid];
+    } else {
+      lse_next = d_next = 0.0f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < min(S, n_tiles); ++t) issue(t, t);
+  put_rows<T, DH, R, true>(k + (bkv * sk + k0) * DH, ks, ks + C::kBlockPart, nk);
+  put_rows<T, DH, R, true>(v + (bkv * sk + k0) * DH, vs, vs + C::kBlockPart, nk);
+  prefetch(0);
+
+  // this warpgroup's keys: [wk0, wk0 + 64) of the block
+  const Lane<C::kWG> ln;
+  const int wk0 = ln.wg * kWgRows;
+  const long long kw = k0 + wk0;  // the first key's position
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[NO], acc_v[NO];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = ty + 16 * a;
-        const long long qpos = q0 + i + q_offset;
+  for (int i = 0; i < NO; ++i) acc_k[i] = acc_v[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const long long q0 = tile_q0(t);
+    const int nq = static_cast<int>(min(static_cast<long long>(BQ), sq - q0));
+    hopper::mbar_wait(&full[t % S], (t / S) & 1);
+    const T* rq = reinterpret_cast<const T*>(raw + (t % S) * 2 * C::kTilePart);
+    put_rows<T, DH, BQ, false>(rq, qs, qs + C::kTilePart, nq);
+    put_rows<T, DH, BQ, false>(rq + BQ * DH, dos, dos + C::kTilePart, nq);
+    if constexpr (C::kSplit) {
+      put_cols<DH, BQ>(reinterpret_cast<const float*>(rq), qts, qts + C::kTilePart, nq);
+      put_cols<DH, BQ>(reinterpret_cast<const float*>(rq) + BQ * DH, dots,
+                       dots + C::kTilePart, nq);
+    }
+    if (tid < BQ) {
+      lse2s[tid] = lse_next;
+      drow[tid] = d_next;
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();  // the operands are ready and the raw stage is free
+    if (tid == 0 && t + S < n_tiles) {
+      hopper::fence_proxy_async();
+      issue(t + S, t % S);
+    }
+    prefetch(t + 1);
+
+    // does a row of the tile see some key of this warpgroup?  (With one
+    // warpgroup, always: the tiles are the block's.)
+    const bool active =
+        C::kWG == 1 || (wk0 < nk && !(causal && kw > q0 + BQ - 1 + q_offset) &&
+                        !(window > 0 && kw + kWgRows - 1 <= q0 + q_offset - window));
+    if (active) {
+      // Sᵀ = K · Qᵀ and dPᵀ = V · dOᵀ (keys as M)
+      float s[NS], dp[NS];
+      hopper::wgmma_fence();
+      product_ss<T, DH, BQ>(s, ks + wk0 * 16, R, C::kBlockPart, qs, C::kTilePart);
+      product_ss<T, DH, BQ>(dp, vs + wk0 * 16, R, C::kBlockPart, dos, C::kTilePart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait_all();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+
+      // Pᵀ and dSᵀ; s[4i + 2h + e] is key kw + r0 + 8h, query row q0 + 8i + 2·tig + e
+      const bool masked = kw + kWgRows > sk || (causal && kw + kWgRows - 1 > q0 + q_offset) ||
+                          (window > 0 && kw <= q0 + BQ - 1 + q_offset - window);
 #pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const int j = tx + 16 * bb;
-          const bool ok = i < nq && visible(qpos, k0 + j, sk, causal, window);
-          const float p = ok ? exp2f(s[a][bb] * scale_log2 - lse2[i]) : 0.0f;
-          ps[i * kLdS + j] = p;
-          dss[i * kLdS + j] = p * (dp[a][bb] - drow[i]);
-        }
+      for (int i = 0; i < BQ / 8; ++i) {
+        const int c = 8 * i + 2 * ln.tig;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2s + c);
+        const float2 dd = *reinterpret_cast<const float2*>(drow + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * i + 2 * h + e;
+            float p = hopper::exp2_approx(fmaf(s[x], scale_log2, -(e ? l2.y : l2.x)));
+            if (masked)
+              p = visible(q0 + c + e + q_offset, kw + ln.r0 + 8 * h, sk, causal, window) ? p
+                                                                                        : 0.0f;
+            s[x] = p;
+            dp[x] = p * (dp[x] - (e ? dd.y : dd.x));
+          }
       }
-      __syncthreads();
-      acc_tile<DH>(ps, dos, acc_v);  // dV += Pᵀ · dO
-      acc_tile<DH>(dss, qs, acc_k);  // dK += dSᵀ · Q
-      __syncthreads();               // Q, dO, P and dS are free for the next tile
+
+      // dV += Pᵀ · dO, then dK += dSᵀ · Q, Pᵀ and dSᵀ from registers.  fp32
+      // fragments take twice the registers of the values: dSᵀ's are formed
+      // only once Pᵀ's are done with.
+      constexpr int NF = C::template frag_regs<BQ>();
+      uint32_t p_hi[NF], p_lo[C::kSplit ? NF : 1], ds_hi[NF], ds_lo[C::kSplit ? NF : 1];
+      to_frags<T, BQ>(s, p_hi, p_lo);
+      accumulate_rs<T, DH, BQ>(acc_v, p_hi, p_lo, C::kSplit ? dots : dos, C::kTilePart);
+      if constexpr (C::kSplit) hopper::fence_regs(dp);
+      to_frags<T, BQ>(dp, ds_hi, ds_lo);
+      accumulate_rs<T, DH, BQ>(acc_k, ds_hi, ds_lo, C::kSplit ? qts : qs, C::kTilePart);
+      hopper::fence_regs(p_hi);
+      hopper::fence_regs(p_lo);
+      hopper::fence_regs(ds_hi);
+      hopper::fence_regs(ds_lo);
+    }
+    __syncthreads();  // the operands and the tile's lse and D are free for tile t + 1
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wk0 + ln.r0 + 8 * h;
+    if (r >= nk) continue;
+    T* outk = dk + (bkv * sk + k0 + r) * DH + 2 * ln.tig;
+    T* outv = dv + (bkv * sk + k0 + r) * DH + 2 * ln.tig;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      store2(outk + 8 * i, acc_k[4 * i + 2 * h] * scale, acc_k[4 * i + 2 * h + 1] * scale);
+      store2(outv + 8 * i, acc_v[4 * i + 2 * h], acc_v[4 * i + 2 * h + 1]);
     }
   }
-  write_tile<T, DH>(dk + (bkv * sk + k0) * DH, acc_k, scale, nk);
-  write_tile<T, DH>(dv + (bkv * sk + k0) * DH, acc_v, 1.0f, nk);
 }
 
 struct Args {
@@ -364,15 +709,14 @@ struct Args {
 template <typename T, int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* lse,
               const void* dout, void* dq, void* delta, const Args& a, cudaStream_t stream) {
-  using C = Cfg<DH>;
-  constexpr int smem = static_cast<int>(sizeof(float)) *
-                       (4 * C::kTileFloats + C::kScoreFloats + 2 * kTile);
+  using C = Cfg<T, DH>;
+  constexpr int smem = C::kSmemDq;
   cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(a.b * a.hq),
-                  static_cast<unsigned>((a.sq + kTile - 1) / kTile));
-  bwd_dq_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+                  static_cast<unsigned>((a.sq + C::kRows - 1) / C::kRows));
+  bwd_dq_kernel<T, DH><<<grid, C::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<float*>(delta), static_cast<int>(a.hq),
@@ -384,15 +728,14 @@ template <typename T, int DH>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
                 const void* dout, const void* delta, void* dk, void* dv, const Args& a,
                 cudaStream_t stream) {
-  using C = Cfg<DH>;
-  constexpr int smem = static_cast<int>(sizeof(float)) *
-                       (4 * C::kTileFloats + 2 * C::kScoreFloats + 2 * kTile);
+  using C = Cfg<T, DH>;
+  constexpr int smem = C::kSmemDkdv;
   cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(a.b * a.hkv),
-                  static_cast<unsigned>((a.sk + kTile - 1) / kTile));
-  bwd_dkdv_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+                  static_cast<unsigned>((a.sk + C::kRows - 1) / C::kRows));
+  bwd_dkdv_kernel<T, DH><<<grid, C::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(lse), static_cast<const T*>(dout),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),

@@ -31,7 +31,8 @@ log-sum-exp ``lse = ln Σ_j exp(q·k_j · scale)`` over the visible keys, fp32
 :func:`flash_attention_bwd`, two hand-written kernels of
 ``repro_torch/csrc/flash_attention_bwd.cu``: the dQ kernel (which also
 writes D = rowsum(dO ∘ O)) and then the dK/dV kernel, each output element
-with one owner (no atomics).  Their plain versions are
+with one owner (no atomics), their products on the tensor cores as the
+forward's (split TF32 for fp32, bf16 for bf16).  Their plain versions are
 :func:`repro_torch.kernels.ref.flash_attention_lse_ref` and
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.  Without grad the
 path is the serving one: the same launch, no ``lse``, the same bits.
@@ -64,7 +65,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _BWD_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _BQ = 128  # query rows per block; the grid's second dimension holds Sq / 128 ≤ 65535
-_BWD_TILE = 64  # query rows (dQ) or keys (dK/dV) per block of the backward kernels
+#: the fewest query rows (dQ) or keys (dK/dV) a block of the backward kernels owns
+#: (64; 128 in fp32 up to dh 64): the grid's second dimension holds S / 64 ≤ 65535
+_BWD_TILE = 64
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,

@@ -394,13 +394,21 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, b, hq, hkv, sq, sk, causa
     _bwd_check(*_attn_inputs(b, hq, hkv, sq, sk, dh, dtype), causal, window, q_offset)
 
 
+#: the backward's loop steps: 64 keys or query rows, 32 in fp32 at dh 64, 16 in
+#: fp32 at dh 128 (its blocks: 128 query rows or keys, 64 in fp32 at dh 128)
+_BWD_STEP_EDGES = (15, 16, 17, 31, 32, 33)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
 @pytest.mark.parametrize("sq,sk,causal",
                          [(n, n, True) for n in _EDGES]
-                         + [(a, b_, False) for a, b_ in zip(_EDGES, reversed(_EDGES))])
+                         + [(a, b_, False) for a, b_ in zip(_EDGES, reversed(_EDGES))]
+                         + [(n, n, True) for n in _BWD_STEP_EDGES]
+                         + [(a, b_, False) for a in (15, 33, 129) for b_ in (17, 31, 64)])
 def test_flash_attention_bwd_kernels_match_plain_at_tile_edges(cuda, sq, sk, causal, dh, dtype):
-    """Around the backward's 64-row and 64-key tiles (and the forward's)."""
+    """Sq and Sk at a tile − 1, the tile and the tile + 1 of the backward's
+    blocks and loop steps (and the forward's tiles)."""
     _bwd_check(*_attn_inputs(1, 4, 2, sq, sk, dh, dtype, seed=sq * 1000 + sk), causal)
 
 

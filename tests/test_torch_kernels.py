@@ -544,6 +544,144 @@ def test_split_tf32_attention_holds_the_fp32_tolerance(b, hq, hkv, s, dh, causal
     assert not np.allclose(plain, ref, atol=2e-5, rtol=2e-3)
 
 
+def _tensor_core_attention_bwd(q, k, v, do, causal, window, mm):
+    """The backward kernels' arithmetic on the CPU, product by product: the
+    dQ kernel's S = mm(Q, Kᵀ), dP = mm(dO, Vᵀ), dQ = mm(dS, K)·scale and the
+    dK/dV kernel's Sᵀ = mm(K, Qᵀ), dPᵀ = mm(V, dOᵀ), dV = mm(Pᵀ, dO), dK =
+    mm(dSᵀ, Q)·scale (P and dS go into the products as they are, split when
+    ``mm`` splits), P = exp(S·scale − lse) on the visible keys, D =
+    rowsum(dO ∘ O); dK and dV summed over each KV head's query heads."""
+    b, hq, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    o, lse = kref.flash_attention_lse_ref(q, k, v, causal, window)
+    kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    scale = 1.0 / np.sqrt(dh)
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    ok = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    d = (do * o).sum(-1, keepdim=True)
+
+    def p_ds(s, dp):  # [.., Sq, Sk]
+        p = torch.where(ok, torch.exp(s * scale - lse[..., None]), 0.0)
+        return p, p * (dp - d)
+
+    _, ds = p_ds(mm(q, kr.transpose(2, 3)), mm(do, vr.transpose(2, 3)))  # dQ kernel
+    dq = mm(ds, kr) * scale
+    pt, dst = (x.transpose(2, 3) for x in p_ds(mm(kr, q.transpose(2, 3)).transpose(2, 3),
+                                                 mm(vr, do.transpose(2, 3)).transpose(2, 3)))
+    dv = mm(pt, do).reshape(b, hkv, g, sk, dh).sum(2)  # dK/dV kernel
+    dk = (mm(dst, q) * scale).reshape(b, hkv, g, sk, dh).sum(2)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,dh,causal,window",
+    [
+        (2, 4, 2, 256, 64, True, None),  # the shapes of the forward's split-TF32 test
+        (1, 2, 2, 128, 32, False, None),
+        (2, 4, 1, 256, 64, True, 64),
+        (1, 8, 4, 512, 128, True, None),
+        (1, 4, 1, 512, 64, True, None),
+    ],
+)
+def test_split_tf32_attention_bwd_holds_the_fp32_tolerance(b, hq, hkv, s, dh, causal, window):
+    """The backward kernels multiply fp32 as three TF32 products per product,
+    P and dS split like every other operand.  Emulated on the CPU, their seven
+    products hold dq, dk and dv to ``jax.vjp`` of the reference's
+    ``flash_attention_ref`` at the fp32 tolerance; plain TF32 misses it."""
+    arrs = _qkv(s + dh + 1, b, hq, hkv, s, s, dh)
+    do = np.random.default_rng(s + dh).normal(size=arrs[0].shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b_, c: jref.flash_attention_ref(a, b_, c, causal=causal,
+                                                                 window=window),
+                     *map(jnp.asarray, arrs))
+    ref = [np.asarray(x) for x in vjp(jnp.asarray(do))]
+    q, k, v, tdo = (torch.from_numpy(a) for a in (*arrs, do))
+    out = _tensor_core_attention_bwd(q, k, v, tdo, causal, window, _split_mm)
+    for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+        np.testing.assert_allclose(a.numpy(), r, atol=2e-5, rtol=2e-3, err_msg=name)
+    plain = _tensor_core_attention_bwd(q, k, v, tdo, causal, window,
+                                       lambda a, b_: _tf32(a) @ _tf32(b_))
+    for name, a, r in zip(("dq", "dk", "dv"), plain, ref):
+        assert not np.allclose(a.numpy(), r, atol=2e-5, rtol=2e-3), name
+
+
+_REORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])  # each 8-group of the B operand's K
+
+
+def _accumulator(p: np.ndarray) -> np.ndarray:
+    """A [64, N] tile as a wgmma accumulator holds it: thread t = 32·warp +
+    lane has, at index 4i + 2h + e, row 16·warp + lane // 4 + 8h and column
+    8i + 2·(lane % 4) + e."""
+    acc = np.empty((128, p.shape[1] // 2), p.dtype)
+    for t in range(128):
+        r0, tig = 16 * (t // 32) + (t % 32) // 4, t % 4
+        for i in range(p.shape[1] // 8):
+            for h in range(2):
+                for e in range(2):
+                    acc[t, 4 * i + 2 * h + e] = p[r0 + 8 * h, 8 * i + 2 * tig + e]
+    return acc
+
+
+def _a_operand(frag: np.ndarray, bf16: bool) -> np.ndarray:
+    """The [64, K] A operand that per-thread wgmma A fragments stand for, K
+    in the order the hardware reads it.  TF32 (m64k8, 4 registers a step):
+    (row r0, column tig), (r0 + 8, tig), (r0, tig + 4), (r0 + 8, tig + 4);
+    bf16 (m64k16, 4 registers of two values, the first in the low half):
+    (r0, 2·tig), (r0 + 8, 2·tig), (r0, 2·tig + 8), (r0 + 8, 2·tig + 8)."""
+    step = 16 if bf16 else 8
+    kd = frag.shape[1] // (8 if bf16 else 4) * step
+    a = np.empty((64, kd), frag.dtype)
+    for t in range(128):
+        r0, tig = 16 * (t // 32) + (t % 32) // 4, t % 4
+        for i in range(kd // step):
+            for j in range(4):
+                row = r0 + 8 * (j & 1)
+                if bf16:
+                    col = 16 * i + 2 * tig + 8 * (j >> 1)
+                    a[row, col:col + 2] = frag[t, 8 * i + 2 * j:8 * i + 2 * j + 2]
+                else:
+                    a[row, 8 * i + tig + 4 * (j >> 1)] = frag[t, 4 * i + j]
+    return a
+
+
+def _to_frags(acc: np.ndarray, bf16: bool) -> np.ndarray:
+    """The kernel's ``to_frags``: TF32 takes a thread's values of step i in
+    the order 0, 2, 1, 3; bf16 takes its pairs as they are (pair j of step i
+    is values 8i + 4·(j // 2) + 2·(j % 2) and the next)."""
+    if bf16:
+        idx = [8 * i + 4 * (j >> 1) + 2 * (j & 1) + e
+               for i in range(acc.shape[1] // 8) for j in range(4) for e in range(2)]
+    else:
+        idx = [4 * i + (0, 2, 1, 3)[j] for i in range(acc.shape[1] // 4) for j in range(4)]
+    return acc[:, idx]
+
+
+@pytest.mark.parametrize("kd", [8, 16, 64])
+def test_accumulator_to_a_fragment_reorder_keeps_the_product(kd):
+    """P and dS go from a product's accumulator straight into the next
+    product's A fragments.  In TF32 the accumulator gives a thread columns
+    2t, 2t + 1 of each 8-group where the fragment wants t, t + 4, so the A
+    operand the hardware reads is P with each 8-group of columns in the order
+    0 2 4 6 1 3 5 7; the kernel stores the B operand's K dimension in that
+    order, and A·B equals P·B exactly (integer values).  In bf16 the
+    fragment matches the accumulator: A is P itself."""
+    rng = np.random.default_rng(kd)
+    p = rng.integers(-8, 9, size=(64, kd)).astype(np.float64)
+    bmat = rng.integers(-8, 9, size=(kd, 24)).astype(np.float64)
+    order = (np.arange(kd) // 8) * 8 + _REORDER[np.arange(kd) % 8]
+    a = _a_operand(_to_frags(_accumulator(p), bf16=False), bf16=False)
+    np.testing.assert_array_equal(a, p[:, order])
+    np.testing.assert_array_equal(a @ bmat[order], p @ bmat)
+    assert not np.array_equal(a @ bmat, p @ bmat)  # B left in order would be wrong
+    if kd % 16 == 0:
+        np.testing.assert_array_equal(_a_operand(_to_frags(_accumulator(p), bf16=True),
+                                                 bf16=True), p)
+
+
 def test_tf32_rounding_matches_cvt_rna():
     """Ties round away from zero; the low 13 bits of the result are 0."""
     one = 1.0 + 2.0 ** -11  # exactly half a TF32 step above 1
