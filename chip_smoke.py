@@ -66,6 +66,21 @@ Phases, one JSON line each:
              gathered rows' gradient is rounded to bf16 on the way, within
              2^-7, one bf16 step; under compute_dtype fp32, where nothing
              rounds it, within 1e-3 too);
+5d. lm_moe_serve — the serving path on the MoE family: qwen3-moe-30b-a3b at
+             full width (d_model 2048, 32/4 heads of 128, QK norm, 128 experts,
+             top-8, expert width 768, vocab 151,936; fp32 params, bf16
+             compute and KV cache; random weights from a seeded CUDA
+             generator), cut in depth from 48 to 12 layers (48 are 122 GB in
+             fp32): batch 8, prompt 2048, 32 greedy steps through ``serve``,
+             counts zeroed before and read after; then a prefill alone, counted
+             the same way (``flash_attention`` and ``segment_spmm``, the MoE
+             combine, must each launch at least once a layer), with the
+             assignments each layer's capacity (161 tokens an expert and batch
+             row) kept and dropped; a profiled prefill and decode (matmuls,
+             attention, the combine, the rest);
+5e. lm_moe_consistency — the same weights at dropless capacity
+             (``capacity_factor = E / top_k``: which tokens overflow depends
+             on the context): teacher-forced as in phase 5, within 2e-2;
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
@@ -181,7 +196,11 @@ before its checks against ``full_forward``:
              beside the offload engine's.
 
 The kernel checks include ``delta_agg`` at the offload path's largest
-compact shape (a variant beside the engine's).  Then a ``{"kernels":
+compact shape (a variant beside the engine's), ``segment_spmm`` at the MoE
+combine's prefill shape on the records phase 5d's first layer gave it (16,384
+rows, 164,864 records, D 2048; also bitwise ``row_sum_chunked_plain`` and
+bitwise from launch to launch; timed beside ``index_add_``), and
+``flash_attention`` at the MoE prefill's shape (Hq 32, Hkv 4, dh 128).  Then a ``{"kernels":
 [...]}`` line (launches summed over every path that launched each kernel),
 the ``nvidia-smi`` name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -191,6 +210,7 @@ JAX package ``repro``.  Full ``nvcc`` logs go to ``build/repro_torch/logs/``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -226,6 +246,9 @@ GAT_HEADS = 2
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "llama3.2-1b", 8, 2048, 32
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 2048  # lm_train: 8,192 tokens a step
 CONSIST_LAYERS, CONSIST_SEQ = 2, 512  # lm_train_consistency: 2 layers, batch 1 × 512
+#: lm_moe_serve: qwen3-moe-30b-a3b at full width, cut in depth 48 → 12 layers (all 48 are
+#: 30.5B parameters, 122 GB in fp32, more than the card's 80 GB; 12 are 8.10B, 32.4 GB)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 12
 TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
 TOL_TRAIN_GRAD = 1e-3  # lm_train_consistency: each leaf's max |Δ| / its max |entry|
 #: the same for the embedding under compute_dtype bf16: the gradient of its gathered rows
@@ -1613,13 +1636,15 @@ def _device_split_ms(prof) -> dict:
     """Device milliseconds of a ``torch.profiler`` trace by kernel kind."""
     from torch.autograd import DeviceType
 
-    split = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "matmul": 0.0,
+             "segment_spmm": 0.0, "other": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         name = e.key.lower()
         kind = ("flash_attention" if "flash_attention" in name else
                 "flash_attention_bwd" if "bwd_dq_kernel" in name or "bwd_dkdv_kernel" in name
+                else "segment_spmm" if "row_sum" in name  # the MoE combine on the LM path
                 else "matmul" if any(w in name for w in ("gemm", "gemv", "splitk")) else "other")
         split[kind] += e.self_device_time_total / 1e3
     return split
@@ -1703,7 +1728,7 @@ def phase_lm_serve(seed: int, kernels: dict):
     return row, cfg, params
 
 
-def phase_lm_consistency(cfg, params, seed: int) -> dict:
+def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency") -> dict:
     """Teacher-forced: prefill into an fp32 cache + decode steps reproduce
     the full forward's logits at the same positions."""
     import torch
@@ -1720,13 +1745,156 @@ def phase_lm_consistency(cfg, params, seed: int) -> dict:
     for i in range(steps):
         logits, cache = decode_step(params, cfg, tokens[:, s + i:s + i + 1], cache)
         errs.append(float((logits[:, 0] - full[:, s + i]).abs().max()))
-    row = {"phase": "lm_consistency", "batch": b, "prompt": s, "steps": steps,
+    row = {"phase": phase, "batch": b, "prompt": s, "steps": steps,
            "finite": bool(torch.isfinite(full).all()),
            "max_abs_logit": float(full.abs().max()), "max_abs_err": max(errs), "per_step": errs}
     emit(row)
     if not (row["finite"] and row["max_abs_err"] <= TOL_TEACHER):
-        raise AssertionError(f"teacher-forced logits: max|Δ| {row['max_abs_err']} > {TOL_TEACHER}")
+        raise AssertionError(f"{phase}: teacher-forced logits: max|Δ| {row['max_abs_err']} > "
+                             f"{TOL_TEACHER}")
     return row
+
+
+def phase_lm_moe_serve(seed: int, kernels: dict):
+    """The serving path on the MoE family: qwen3-moe-30b-a3b at full width
+    (the depth cut to ``MOE_LAYERS``), ``serve`` with counts set to 0 just
+    before it and read just after.  Then a prefill alone, counted the same
+    way, with the combine's inputs read at each layer (assignments kept and
+    dropped by the capacity; the first layer's records, for the kernel row),
+    a profiled prefill and a profiled decode.  Returns the row, the config,
+    the weights and the first combine's ``(y, key, num_rows)``."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_model, prefill
+    from repro_torch.nn import moe as moe_mod
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), num_layers=MOE_LAYERS)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    serve(cfg, params, tokens[:, :64], 2)  # warm-up
+    _zero_counts(kernels)
+    res = serve(cfg, params, tokens, LM_GEN)
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    out = res.tokens
+    if out.shape != (LM_BATCH, LM_GEN + 1) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"lm_moe_serve: bad tokens {tuple(out.shape)}")
+
+    # the prefill path alone: its launches, and what each layer's combine was given
+    tok_t = torch.from_numpy(tokens).cuda()
+    kept, first_layer = [], {}
+    orig = moe_mod.combine
+
+    def reading_combine(y, key, num_rows):
+        kept.append((key < num_rows).sum())
+        if not first_layer:  # with random weights, the layer that keeps the most records
+            first_layer.update(y=y, key=key, num_rows=num_rows)
+        return orig(y, key, num_rows)
+
+    _zero_counts(kernels)
+    moe_mod.combine = reading_combine
+    try:
+        logits, _ = prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+    finally:
+        moe_mod.combine = orig
+    prefill_launches = _counts(kernels)
+    assignments = LM_BATCH * LM_PROMPT * cfg.top_k
+    kept = [int(k) for k in kept]
+    pre = _profiled(lambda: prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN))
+    _, cache = prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN)
+    first = out[:, :1]
+
+    def decode_steps():
+        nonlocal cache
+        tok = first
+        for _ in range(8):
+            step_logits, cache = decode_step(params, cfg, tok, cache)
+            tok = step_logits[:, -1].argmax(-1, keepdim=True)
+
+    dec = _profiled(decode_steps)
+    dec["steps"] = 8
+    del cache
+    cap = moe_mod.capacity(cfg.capacity_factor, cfg.top_k, LM_PROMPT, cfg.num_experts)
+    row = {"phase": "lm_moe_serve", "arch": cfg.name, "layers": cfg.num_layers,
+           "layers_published": get_arch(MOE_ARCH).num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "experts": cfg.num_experts, "top_k": cfg.top_k,
+           "moe_d_ff": cfg.moe_d_ff, "vocab": cfg.vocab_size, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count(), "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "capacity_factor": cfg.capacity_factor,
+           "capacity_tokens": cap, "dispatch_shape": [cfg.num_experts, LM_BATCH, cap,
+                                                      cfg.d_model],
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN, "init_s": init_s,
+           "prefill_s": res.prefill_s, "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / res.prefill_s,
+           "decode_ms_per_token": res.decode_s / LM_GEN * 1e3,
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / res.decode_s,
+           "peak_mem_bytes": peak, "launches": launches, "prefill_launches": prefill_launches,
+           "prefill_assignments_a_layer": assignments, "prefill_kept_by_layer": kept,
+           "prefill_dropped_by_layer": [assignments - k for k in kept],
+           "prefill_dropped_share": 1.0 - sum(kept) / (assignments * len(kept)),
+           "prefill_logits_finite": bool(torch.isfinite(logits).all()),
+           "profiled_prefill": pre, "profiled_decode": dec, "sample": out[0, :8].tolist()}
+    emit(row)
+    for name in ("flash_attention", "segment_spmm"):
+        if prefill_launches[name] < cfg.num_layers:
+            raise AssertionError(f"lm_moe_serve: {name} launched {prefill_launches[name]} "
+                                 f"times on the prefill path, expected {cfg.num_layers}")
+    if len(kept) != cfg.num_layers or not row["prefill_logits_finite"]:
+        raise AssertionError(f"lm_moe_serve: {len(kept)} combines, finite logits "
+                             f"{row['prefill_logits_finite']}")
+    return row, cfg, params, (first_layer["y"], first_layer["key"], first_layer["num_rows"])
+
+
+def kernel_moe_combine(y, key, num_rows: int) -> dict:
+    """``segment_spmm`` at the MoE combine's prefill shape, on the records the
+    first layer of ``lm_moe_serve``'s prefill gave it (the schedule built as
+    ``nn/moe.py`` ``combine`` builds it): against its plain version, bitwise
+    ``row_sum_chunked_plain`` (its documented order) and bitwise from one
+    launch to the next; timed beside ``index_add_`` over the unsorted keys
+    (dropped records into a spare row).  The bound counts the live records."""
+    import torch
+
+    from repro_torch.kernels.segment_spmm import (
+        row_sum_chunked_plain,
+        segment_spmm,
+        segment_spmm_plain,
+    )
+
+    sorted_key, order = torch.sort(key, stable=True)
+    row_ptr = torch.searchsorted(sorted_key, torch.arange(num_rows + 1, device="cuda"))
+    out = segment_spmm(y, row_ptr, order, num_rows)
+    again = segment_spmm(y, row_ptr, order, num_rows)
+    ref = segment_spmm_plain(y, row_ptr, order, num_rows)
+    chained = row_sum_chunked_plain(y, row_ptr, order)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    repeat_bitwise, chained_bitwise = bool(torch.equal(out, again)), bool(torch.equal(out, chained))
+    del out, again, ref, chained
+    d, live = y.shape[1], int(row_ptr[-1])
+    most = int(row_ptr.diff().max())
+    ms = cuda_time_ms(lambda: segment_spmm(y, row_ptr, order, num_rows), 20)
+    plain_ms = cuda_time_ms(lambda: segment_spmm_plain(y, row_ptr, order, num_rows), 5)
+    lib_ms = cuda_time_ms(
+        lambda: torch.zeros(num_rows + 1, d, device="cuda").index_add_(0, key, y), 20)
+    host_us = host_us_per_call(lambda: segment_spmm(y, row_ptr, order, num_rows), 20)
+    bound_ms, by = _bound(live * d * 4 + live * 8 + (num_rows + 1) * 8 + num_rows * d * 4,
+                          live * d)
+    return {"name": "segment_spmm", "variant": "moe_combine",
+            "shape": {"E": y.shape[0], "live": live, "D": d, "R": num_rows, "order": True,
+                      "max_records_a_row": most, **_chains(most)},
+            "max_abs_err": err, "repeat_bitwise": repeat_bitwise,
+            "chunked_order_bitwise": chained_bitwise,
+            "within_tol": err <= TOL_KERNEL and repeat_bitwise and chained_bitwise,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / ms, "library_ms": lib_ms, "host_us_per_call": host_us}
 
 
 def _entries(kernel) -> dict:
@@ -2200,8 +2368,14 @@ def main(argv=None) -> int:
     del params
     train = phase_lm_train(args.seed, kernels)
     train_check = phase_lm_train_consistency(args.seed, kernels)
+    moe, moe_cfg, moe_params, combine_in = phase_lm_moe_serve(args.seed, kernels)
+    phase_lm_consistency(dataclasses.replace(  # dropless: what overflows depends on context
+        moe_cfg, capacity_factor=moe_cfg.num_experts / moe_cfg.top_k), moe_params, args.seed,
+        phase="lm_moe_consistency")
+    del moe_params
+    _free_cuda()
     # every path's launches: the engine phases, the serving phases, the op, the LM
-    path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check]
+    path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -2236,8 +2410,10 @@ def main(argv=None) -> int:
     results += [
         skew_spmm,
         skew_delta,
+        kernel_moe_combine(*combine_in),
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),
+        {**kernel_flash_attention(moe_cfg, gen), "variant": "moe_prefill"},  # dh 128
         kernel_flash_attention_bwd(cfg, gen),
         kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
@@ -2265,13 +2441,16 @@ def main(argv=None) -> int:
         for extra in ("bound_share", "host_us_per_call", "fp32_simt_bound_ms", "general_ms"):
             if extra in res:
                 entry[extra] = res[extra]
+        if name in ("segment_spmm", "flash_attention"):  # of which the MoE serve path's
+            entry["launches_lm_moe_serve"] = moe["launches"][name]
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
             entry["launches_by_entry"] = train["bwd_launches_by_entry"]
             entry["launches_by_path"] = {row["phase"]: row["launches"][name]
                                          for row in (train, train_check)}
         others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "bound_share", "library_ms",
-                                     "general_ms", "within_tol", "host_us_per_call")
+                                     "general_ms", "within_tol", "host_us_per_call",
+                                     "repeat_bitwise", "chunked_order_bitwise")
                    if k in r}
                   for r in results if r["name"] == name and "variant" in r]
         if others:

@@ -1,9 +1,11 @@
-"""Architecture registry of the port: the dense GQA transformers.
+"""Architecture registry of the port: the dense GQA transformers and the MoE
+family.
 
 The JAX package's registry (``repro.configs``) names ten architectures; the
-port serves the four dense ones, which share every line of its LM path.
-Naming one of the other six raises ``NotImplementedError`` with the
-ROADMAP.md item that ports its family."""
+port serves the four dense ones and the two MoE ones, which share its LM
+path but for the feed-forward half of a block.  Naming one of the other four
+raises ``NotImplementedError`` with the ROADMAP.md item that ports its
+family."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,12 +18,12 @@ _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
     "llama3.2-1b": "llama3_2_1b",
     "minicpm-2b": "minicpm_2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
 }
 
 #: architectures of the JAX package not ported yet → where ROADMAP.md queues them
 NOT_PORTED = {
-    "qwen3-moe-30b-a3b": "moe: ROADMAP.md Queue 1 item 10c (nn/moe.py)",
-    "moonshot-v1-16b-a3b": "moe: ROADMAP.md Queue 1 item 10c (nn/moe.py)",
     "hymba-1.5b": "hybrid: ROADMAP.md Queue 1 item 10d (nn/ssm.py, ring decode)",
     "xlstm-1.3b": "ssm/xlstm: ROADMAP.md Queue 1 item 10d (nn/ssm.py)",
     "seamless-m4t-large-v2": "audio/encdec: ROADMAP.md Queue 1 item 10e (models/encdec.py)",
@@ -41,9 +43,8 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU tests: ``repro.configs.reduced_config``
-    for the dense family."""
-    return dataclasses.replace(
-        cfg,
+    for the dense and MoE families."""
+    kw = dict(
         num_layers=4,
         d_model=64,
         num_heads=4,
@@ -56,6 +57,9 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         remat=False,
         chunk=16,
     )
+    if cfg.is_moe:
+        kw.update(num_experts=8, top_k=2, moe_d_ff=32, d_ff=0)
+    return dataclasses.replace(cfg, **kw)
 
 
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "ARCH_NAMES", "NOT_PORTED", "get_arch",

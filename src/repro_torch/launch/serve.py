@@ -1,8 +1,10 @@
-"""Serving entry point: batched prefill + greedy decode loop for a dense LM.
+"""Serving entry point: batched prefill + greedy decode loop for a dense or MoE LM.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b        # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
         --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+        --reduced --device cpu
 
 Weights are random, from a seeded ``torch.Generator``; prompt tokens from
 ``numpy.random.default_rng(0)``.  Only ``--reduced`` cuts the config.

@@ -1,9 +1,9 @@
 """Model zoo API of the port: init / loss / forward / prefill / decode per
-architecture, the counterpart of ``repro.models`` for the dense LM.
+architecture, the counterpart of ``repro.models`` for the dense and MoE LMs.
 
 ``batch`` is a dict with ``"tokens"`` ``[B, S]`` (int tensor on the
 parameters' device), as in the reference.  Configs of a family not ported
-yet (encoder-decoder, MoE, hymba, xlstm, vlm) raise ``NotImplementedError``
+yet (encoder-decoder, hymba, xlstm, vlm) raise ``NotImplementedError``
 naming their ROADMAP.md item."""
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any]):
 
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
-    """Logits [B, S, V] (the reference's ``(logits, aux)`` has aux = 0 here)."""
+    """Logits [B, S, V]: the first of the reference's ``(logits, aux)``
+    (``repro_torch.models.lm.forward_with_aux`` gives both)."""
     return _lm.forward(params, cfg, batch["tokens"])
 
 

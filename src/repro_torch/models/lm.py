@@ -1,11 +1,13 @@
-"""Decoder-only LM, dense GQA family (qwen2.5 / granite / llama3.2 / minicpm).
+"""Decoder-only LM: the dense GQA family (qwen2.5 / granite / llama3.2 /
+minicpm) and the MoE family (qwen3-moe, moonshot).
 
-The counterpart of the ``block_pattern == "attn"`` dense branch of
-``repro.models.lm``.  Parameters are a plain dict of tensors with the
-reference's tree and layouts: stacked ``[L, …]`` layer weights under
+The counterpart of the ``block_pattern == "attn"`` branch of
+``repro.models.lm``, dense and MoE.  Parameters are a plain dict of tensors
+with the reference's tree and layouts: stacked ``[L, …]`` layer weights under
 ``blocks`` (``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo[,bq,bk,bv][,q_norm,k_norm]}``,
-``mlp.{wg,wi,wo}``), ``embed`` ``[V, D]``, ``final_norm`` and, when the
-embeddings are not tied, ``lm_head`` ``[D, V]``.  Python loops over the
+and either ``mlp.{wg,wi,wo}`` or, for MoE, ``moe.{router,wi,wg,wo[,shared_*]}``
+(:mod:`repro_torch.nn.moe`)), ``embed`` ``[V, D]``, ``final_norm`` and, when
+the embeddings are not tied, ``lm_head`` ``[D, V]``.  Python loops over the
 layers stand where the reference has ``lax.scan``.
 
 Numerics follow the reference: the embedding rows are cast to
@@ -14,17 +16,17 @@ configs' fp32 params the residual stream is fp32 from layer 0's attention
 on; the KV cache is ``cache_dtype`` (bf16 unless asked).
 
 Training: :func:`lm_loss` is the reference's next-token cross entropy
-(plus 0.01 · the MoE aux loss, 0 for the dense family).  Its gradient flows
-through ``flash_attention``'s autograd Function, whose backward is a
-hand-written kernel on the card.  With ``cfg.remat`` and a gradient to
+plus 0.01 · the MoE aux loss (the layers' mean; 0 for the dense family).
+Its gradient flows through ``flash_attention``'s autograd Function, whose
+backward is a hand-written kernel on the card, and the MoE combine's.  With ``cfg.remat`` and a gradient to
 compute, :func:`forward` wraps each layer in
 ``torch.utils.checkpoint.checkpoint`` (the reference's ``jax.checkpoint``
 of its scan body): only each layer's input is kept, and the backward
 recomputes the layer.  Without a gradient, forward and prefill are the
 serving path, unchanged.
 
-MoE, hymba and xlstm blocks and the vlm patch frontend are not ported yet
-(ROADMAP.md Queue 1 items 10c–10f).
+Hymba and xlstm blocks, the encoder-decoder and the vlm patch frontend are
+not ported yet (ROADMAP.md Queue 1 items 10d–10f).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from repro_torch.nn.attention import (
     init_attention,
 )
 from repro_torch.nn.layers import rms_norm, softmax_xent, stacked_dense, swiglu
+from repro_torch.nn.moe import init_moe, moe_apply
 from repro_torch.train.tree import tree_leaves
 
 FULL_WINDOW = 1 << 30
@@ -53,7 +56,6 @@ Params = Dict[str, object]
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise for a family the port does not serve yet, naming its ROADMAP item."""
     item = ("10e (encoder-decoder)" if cfg.encdec else
-            "10c (MoE)" if cfg.is_moe else
             "10d (hymba, xlstm)" if cfg.block_pattern != "attn" else
             "10f (vlm patches)" if cfg.num_patches else None)
     if item:
@@ -84,12 +86,17 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
         "attn": init_attention(gen, L, d, cfg.num_heads, cfg.num_kv_heads,
                                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
                                qk_norm=cfg.qk_norm, dtype=dtype),
-        "mlp": {
+    }
+    if cfg.is_moe:
+        params["blocks"]["moe"] = init_moe(gen, L, d, cfg.moe_d_ff, cfg.num_experts, dtype,
+                                           num_shared=cfg.num_shared_experts,
+                                           shared_d_ff=cfg.moe_d_ff)
+    else:
+        params["blocks"]["mlp"] = {
             "wg": stacked_dense(gen, L, (d, cfg.d_ff), dtype),
             "wi": stacked_dense(gen, L, (d, cfg.d_ff), dtype),
             "wo": stacked_dense(gen, L, (cfg.d_ff, d), dtype),
-        },
-    }
+        }
     return params
 
 
@@ -121,15 +128,23 @@ def _attn_kwargs(cfg: ArchConfig) -> dict:
                 rope_theta=cfg.rope_theta, causal=True)
 
 
-def _mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return x + swiglu(rms_norm(x, p["ln2"]), p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"])
+def _ffn(cfg: ArchConfig, p, x: torch.Tensor):
+    """The block's second half: ``(x + ffn(ln2(x)), aux)``, aux None for a
+    dense MLP."""
+    h = rms_norm(x, p["ln2"])
+    if cfg.is_moe:
+        out, aux = moe_apply(p["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        return x + out, aux
+    return x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"]), None
 
 
 def _attn_block(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int],
                 cache: Optional[KVCache], index: int):
+    """``(x, new_cache, aux)`` of one layer."""
     out, new_cache = attention_apply(p["attn"], rms_norm(x, p["ln1"]), **_attn_kwargs(cfg),
                                      window=window, cache=cache, cache_index=index)
-    return _mlp(p, x + out), new_cache
+    x, aux = _ffn(cfg, p, x + out)
+    return x, new_cache, aux
 
 
 # ====================================================================== #
@@ -174,35 +189,46 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ====================================================================== #
 # full forward, prefill, decode
 # ====================================================================== #
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full forward (no cache): logits [B, S, V].  (The reference also
-    returns an aux loss, which is 0 without MoE.)  With ``cfg.remat``, grad
-    enabled and a parameter that requires it, each layer runs under
-    ``checkpoint`` (recomputed in the backward)."""
+def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
+    """Full forward (no cache): ``(logits [B, S, V], aux)``, the reference's
+    ``forward``; aux is the MoE aux loss averaged over the layers, 0 for the
+    dense family.  With ``cfg.remat``, grad enabled and a parameter that
+    requires it, each layer runs under ``checkpoint`` (recomputed in the
+    backward)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
+    auxs = []
     for l, w in enumerate(_windows(cfg)):
         p = _layer(params["blocks"], l)
         if remat:
-            x = checkpoint(_remat_body, cfg, p, x, w, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_remat_body, cfg, p, x, w, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x, _ = _attn_block(cfg, p, x, w, None, 0)
-    return _logits(params, cfg, rms_norm(x, params["final_norm"]))
+            x, _, aux = _attn_block(cfg, p, x, w, None, 0)
+        auxs.append(aux)
+    logits = _logits(params, cfg, rms_norm(x, params["final_norm"]))
+    aux = (torch.stack(auxs).mean() if cfg.is_moe else
+           torch.zeros((), dtype=torch.float32, device=logits.device))
+    return logits, aux
 
 
-def _remat_body(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    return _attn_block(cfg, p, x, window, None, 0)[0]
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The logits [B, S, V] of :func:`forward_with_aux`."""
+    return forward_with_aux(params, cfg, tokens)[0]
+
+
+def _remat_body(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]):
+    x, _, aux = _attn_block(cfg, p, x, window, None, 0)
+    return x, aux
 
 
 def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
-    """Next-token cross entropy (+ 0.01 · MoE aux, 0 here): ``(loss, {"ce",
+    """Next-token cross entropy + 0.01 · the MoE aux loss: ``(loss, {"ce",
     "aux"})``.  batch: ``tokens`` and ``labels`` [B, S]."""
-    logits = forward(params, cfg, batch["tokens"])
+    logits, aux = forward_with_aux(params, cfg, batch["tokens"])
     ce = softmax_xent(logits, batch["labels"])
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -217,7 +243,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
         p = _layer(params["blocks"], l)
         out, k, v = attention_prefill_kv(p["attn"], rms_norm(x, p["ln1"]), **_attn_kwargs(cfg),
                                          window=w)
-        x = _mlp(p, x + out)
+        x, _ = _ffn(cfg, p, x + out)
         # in place into the preallocated cache; [S, s_max) stays 0, as the
         # reference's padded copy
         cache.k[l, :, :, :s] = k
@@ -232,7 +258,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, cache: LMC
     advanced.  As in the reference, dense decode attends without a window."""
     x = _embed(params, cfg, token)
     for l in range(cfg.num_layers):
-        x, _ = _attn_block(cfg, _layer(params["blocks"], l), x, None,
-                           KVCache(cache.k[l], cache.v[l]), cache.index)
+        x, _, _ = _attn_block(cfg, _layer(params["blocks"], l), x, None,
+                              KVCache(cache.k[l], cache.v[l]), cache.index)
     x = rms_norm(x, params["final_norm"])
     return _logits(params, cfg, x), cache._replace(index=cache.index + 1)

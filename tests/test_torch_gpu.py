@@ -15,8 +15,8 @@ flash_attention, its lse and its backward vs their plain versions 2e-5/2e-3
 in fp32 and 3e-2 in bf16 (the reference's tests/test_kernels.py);
 edge_softmax_normalize exactly (one IEEE division per element on both sides); engine on the card vs the same engine
 on the CPU 1e-5 per batch (different matmul kernels); the reduced LM on the
-card vs the CPU 1e-4 (fp32 cache and compute); the invariants inside the
-port are bitwise.
+card vs the CPU 1e-4 (fp32 cache and compute), the MoE combine bitwise the
+CPU's; the invariants inside the port are bitwise.
 """
 import dataclasses
 
@@ -436,7 +436,7 @@ def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(cuda):
         fmod.flash_attention_bwd(q48, k48, v48, q48, lse, q48)
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b"])
+@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b", "qwen3-moe-30b-a3b"])
 def test_reduced_lm_loss_and_grads_on_card_match_cpu(cuda, name):
     """The training path on the card: the loss and every gradient leaf against
     the same model on the CPU (fp32, 1e-4 relative to the leaf's largest
@@ -493,6 +493,59 @@ def test_reduced_lm_on_card_matches_cpu(cuda, name):
     card = _serve_steps(on_card, cfg, tokens.cuda())
     for i, (a, c) in enumerate(zip(card, _serve_steps(params, cfg, tokens))):
         torch.testing.assert_close(a.cpu(), c, atol=1e-4, rtol=1e-4, msg=f"step {i}")
+    res = serve(cfg, on_card, tokens[:, :8], 6)
+    assert res.tokens.is_cuda and res.tokens.shape == (2, 7)
+    torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 6).tokens)
+
+
+def test_moe_combine_kernel_matches_cpu_and_repeats_bitwise(cuda):
+    """The MoE combine (``nn/moe.py`` ``combine``: its device-built schedule,
+    then ``segment_spmm``) on the card: one kernel launch, the CPU's sums bit
+    for bit (each row one chain in record order from 0, at most top_k = 8
+    records a row), the same bits from launch to launch, and the gradient of
+    a gather."""
+    from repro_torch.nn import moe as moe_mod
+
+    rng = np.random.default_rng(7)
+    b, s, e, c, d = 4, 300, 16, 40, 2048
+    sel = np.stack([np.stack([rng.permutation(s)[:c] for _ in range(b)]) for _ in range(e)])
+    valid = rng.random((e, b, c)) < 0.7
+    key = np.where(valid, np.arange(b)[None, :, None] * s + sel, b * s).reshape(-1)
+    y = torch.from_numpy(rng.normal(size=(e * b * c, d)).astype(np.float32))
+    key_t = torch.from_numpy(key)
+    n0 = smod.KERNEL.launches
+    out = moe_mod.combine(y.cuda(), key_t.cuda(), b * s)
+    assert smod.KERNEL.launches == n0 + 1
+    assert torch.equal(out, moe_mod.combine(y.cuda(), key_t.cuda(), b * s))
+    assert torch.equal(out.cpu(), moe_mod.combine(y, key_t, b * s))
+    yg = y.cuda().requires_grad_()
+    g = torch.randn(b * s, d, device="cuda")
+    (moe_mod.combine(yg, key_t.cuda(), b * s) * g).sum().backward()
+    assert torch.equal(yg.grad, torch.cat([g, g.new_zeros(1, d)])[key_t.cuda()])
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b"])
+def test_reduced_moe_on_card_matches_cpu(cuda, name):
+    """The reduced MoE LM on the card against the CPU (fp32 cache and compute,
+    1e-4): forward, prefill and teacher-forced decode at dropless capacity,
+    and ``serve``'s tokens; the combine runs in ``segment_spmm`` once a
+    layer, the attention in ``flash_attention`` once a layer of the forward."""
+    cfg = reduced_config(get_arch(name))
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    params = lm_models.init_model(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    n_attn, n_comb = fmod.KERNEL.launches, smod.KERNEL.launches
+    full = lm_models.forward(on_card, cfg, {"tokens": tokens.cuda()})
+    assert fmod.KERNEL.launches == n_attn + cfg.num_layers
+    assert smod.KERNEL.launches == n_comb + cfg.num_layers
+    torch.testing.assert_close(full.cpu(), lm_models.forward(params, cfg, {"tokens": tokens}),
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(full, lm_models.forward(on_card, cfg, {"tokens": tokens.cuda()}))
+    card = _serve_steps(on_card, cfg, tokens.cuda())
+    for i, (a, c) in enumerate(zip(card, _serve_steps(params, cfg, tokens))):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-4, rtol=1e-4, msg=f"step {i}")
+        torch.testing.assert_close(a[:, 0], full[:, 35 + i], atol=1e-4, rtol=1e-4)
     res = serve(cfg, on_card, tokens[:, :8], 6)
     assert res.tokens.is_cuda and res.tokens.shape == (2, 7)
     torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 6).tokens)

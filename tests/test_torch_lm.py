@@ -81,11 +81,18 @@ def test_unported_families_raise():
             tconfigs.get_arch(name)
     with pytest.raises(KeyError):
         tconfigs.get_arch("gpt-5")
-    moe = dataclasses.replace(tconfigs.get_arch("llama3.2-1b"), num_experts=8, top_k=2)
-    with pytest.raises(NotImplementedError):
-        tmodels.init_model(torch.Generator().manual_seed(0), moe)
-    with pytest.raises(NotImplementedError, match="10e"):
-        tmodels.init_cache(dataclasses.replace(moe, encdec=True), 1, 8, device="cpu")
+    assert len(tconfigs.NOT_PORTED) == 4 and not any(
+        jconfigs.get_arch(n).is_moe for n in tconfigs.NOT_PORTED)
+    # the MoE family builds (tests/test_torch_moe.py holds it to the reference)
+    moe = tconfigs.reduced_config(tconfigs.get_arch("qwen3-moe-30b-a3b"))
+    assert "moe" in tmodels.init_model(torch.Generator().manual_seed(0), moe)["blocks"]
+    dense = tconfigs.reduced_config(tconfigs.get_arch("llama3.2-1b"))
+    for what, kw in (("10d", dict(block_pattern="hymba")), ("10d", dict(block_pattern="xlstm")),
+                     ("10f", dict(num_patches=8)), ("10e", dict(encdec=True))):
+        with pytest.raises(NotImplementedError, match=what):
+            tmodels.init_model(torch.Generator().manual_seed(0), dataclasses.replace(dense, **kw))
+        with pytest.raises(NotImplementedError, match=what):
+            tmodels.init_cache(dataclasses.replace(moe, **kw), 1, 8, device="cpu")
 
 
 def test_llama_full_width_is_1_236b_parameters():
