@@ -81,6 +81,38 @@ Phases, one JSON line each:
 5e. lm_moe_consistency — the same weights at dropless capacity
              (``capacity_factor = E / top_k``: which tokens overflow depends
              on the context): teacher-forced as in phase 5, within 2e-2;
+5f. lm_hymba_serve — the serving path on hymba-1.5b at full width and depth
+             (32 layers, d_model 1600, 25/5 heads of 64, 25 SSD heads of
+             state 16, expand 2, window 1024 with global layers 0/15/31,
+             vocab 32,001; 1.72B parameters; fp32 params, bf16 compute and
+             cache; random weights from a seeded CUDA generator; the MoE
+             weights freed first): batch 8, prompt 2048, 32 greedy steps
+             through ``serve`` (s_max 2080 > 1024: the KV cache is a
+             1024-slot ring), counts zeroed before and read after; then a
+             prefill alone, counted the same way: ``flash_attention`` must
+             launch once a layer, 29 times at window 1024 and 3 times
+             unmasked; a profiled prefill and decode;
+5g. lm_hymba_consistency — the same weights in fp32 compute, as the
+             reference's own check runs (its reduced configs), teacher-forced
+             as in phase 5 (s_max 260 < the window: no ring wrap), within
+             2e-2; then in the config's bf16 compute, measured and not held:
+             there decode rounds layer 0's conv carry to bf16 and the forward
+             does not, by the reference's design;
+5h. lm_hymba_ring — the same weights with every layer windowed
+             (``full_attn_layers=()``), fp32 compute: a prompt of 1,100 and 8
+             teacher-forced steps into an fp32 cache of 1,024 slots, so the
+             ring wraps in the prefill and in decode; the ring decode's logits
+             against the windowed kernel's forward, within 2e-2;
+5i. lm_xlstm_serve — xlstm-1.3b at full width and depth (48 layers: 6 groups
+             of an sLSTM and 7 mLSTM blocks, d_model 2048, 4 heads of 512,
+             vocab 50,304; 1.39B parameters), as phase 5f; no TPU kernel on
+             its path; the counted prefill also times the sLSTM step loops
+             (synchronised) and gives their share of the prefill;
+5j. lm_xlstm_consistency — its weights, teacher-forced as in phase 5 in fp32
+             compute, then measured in bf16 compute, as phase 5g (there layer
+             0's sLSTM output is rounded to bf16 and the layers above amplify a
+             rounding step; each consistency row also gives the forward over
+             the prompt alone against the forward over all of it);
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
@@ -199,8 +231,11 @@ The kernel checks include ``delta_agg`` at the offload path's largest
 compact shape (a variant beside the engine's), ``segment_spmm`` at the MoE
 combine's prefill shape on the records phase 5d's first layer gave it (16,384
 rows, 164,864 records, D 2048; also bitwise ``row_sum_chunked_plain`` and
-bitwise from launch to launch; timed beside ``index_add_``), and
-``flash_attention`` at the MoE prefill's shape (Hq 32, Hkv 4, dh 128).  Then a ``{"kernels":
+bitwise from launch to launch; timed beside ``index_add_``),
+``flash_attention`` at the MoE prefill's shape (Hq 32, Hkv 4, dh 128), and
+at hymba's prefill shape (Hq 25 over Hkv 5, dh 64, fp32, window 1024: its
+bound counts the band's 1,573,376 key–query pairs a head, not causal's
+2,098,176; SDPA with the band as a boolean mask beside it).  Then a ``{"kernels":
 [...]}`` line (launches summed over every path that launched each kernel),
 the ``nvidia-smi`` name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -249,6 +284,10 @@ CONSIST_LAYERS, CONSIST_SEQ = 2, 512  # lm_train_consistency: 2 layers, batch 1 
 #: lm_moe_serve: qwen3-moe-30b-a3b at full width, cut in depth 48 → 12 layers (all 48 are
 #: 30.5B parameters, 122 GB in fp32, more than the card's 80 GB; 12 are 8.10B, 32.4 GB)
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 12
+#: the recurrent families at full width and depth (hymba 1.72B parameters, xlstm 1.39B)
+HYMBA_ARCH, XLSTM_ARCH = "hymba-1.5b", "xlstm-1.3b"
+#: lm_hymba_ring: a prompt past hymba's 1024-slot window, then teacher-forced steps
+RING_PROMPT, RING_STEPS = 1100, 8
 TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
 TOL_TRAIN_GRAD = 1e-3  # lm_train_consistency: each leaf's max |Δ| / its max |entry|
 #: the same for the embedding under compute_dtype bf16: the gradient of its gathered rows
@@ -1728,31 +1767,162 @@ def phase_lm_serve(seed: int, kernels: dict):
     return row, cfg, params
 
 
-def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency") -> dict:
+def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
+                         prompt: int = 256, steps: int = 4, ring_slots: int = 0,
+                         check: bool = True) -> dict:
     """Teacher-forced: prefill into an fp32 cache + decode steps reproduce
-    the full forward's logits at the same positions."""
+    the full forward's logits at the same positions.  ``ring_slots``: the
+    cache must be a ring of that many K/V slots (hymba past its window).
+    ``check=False`` only measures (a difference the model has by design)."""
     import torch
 
     from repro_torch.models import decode_step, forward, prefill
 
-    b, s, steps = 2, 256, 4
+    b, s = 2, prompt
     rng = np.random.default_rng(seed + 1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + steps))).cuda()
     full = forward(params, cfg, {"tokens": tokens})
+    # the same forward over the prompt alone: how far the model itself moves
+    # when only the shapes of its products change (no cache, no decode)
+    prefix_err = float((forward(params, cfg, {"tokens": tokens[:, :s]}) - full[:, :s]).abs().max())
     logits, cache = prefill(params, cfg, {"tokens": tokens[:, :s]}, s_max=s + steps,
                             cache_dtype=torch.float32)
+    slots = cache.k.shape[3] if hasattr(cache, "k") else None
     errs = [float((logits[:, 0] - full[:, s - 1]).abs().max())]
     for i in range(steps):
         logits, cache = decode_step(params, cfg, tokens[:, s + i:s + i + 1], cache)
         errs.append(float((logits[:, 0] - full[:, s + i]).abs().max()))
-    row = {"phase": phase, "batch": b, "prompt": s, "steps": steps,
-           "finite": bool(torch.isfinite(full).all()),
-           "max_abs_logit": float(full.abs().max()), "max_abs_err": max(errs), "per_step": errs}
+    row = {"phase": phase, "compute_dtype": cfg.compute_dtype, "batch": b, "prompt": s,
+           "steps": steps, "cache_slots": slots, "finite": bool(torch.isfinite(full).all()),
+           "max_abs_logit": float(full.abs().max()), "max_abs_err": max(errs), "per_step": errs,
+           "forward_prefix_max_abs_err": prefix_err, "checked": check}
     emit(row)
+    if not check:
+        return row
     if not (row["finite"] and row["max_abs_err"] <= TOL_TEACHER):
         raise AssertionError(f"{phase}: teacher-forced logits: max|Δ| {row['max_abs_err']} > "
                              f"{TOL_TEACHER}")
+    if ring_slots and slots != ring_slots:
+        raise AssertionError(f"{phase}: the cache has {slots} slots, not a ring of {ring_slots}")
     return row
+
+
+def phase_lm_recurrent_serve(arch: str, seed: int, kernels: dict):
+    """The serving path on a recurrent family at full width and depth:
+    ``serve`` with counts set to 0 just before it and read just after; then
+    a prefill alone, counted the same way, with the window each
+    ``flash_attention`` call was given (hymba) and the seconds spent in the
+    sLSTM step loop (xlstm; synchronised around each loop); a profiled
+    prefill and decode.  Returns the row, the config and the weights."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_model, prefill
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = get_arch(arch)
+    hymba = cfg.block_pattern == "hymba"
+    phase = f"lm_{'hymba' if hymba else 'xlstm'}_serve"
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(seed + 7).integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    serve(cfg, params, tokens[:, :64], 2)  # warm-up
+    _zero_counts(kernels)
+    res = serve(cfg, params, tokens, LM_GEN)
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    out = res.tokens
+    if out.shape != (LM_BATCH, LM_GEN + 1) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{phase}: bad tokens {tuple(out.shape)}")
+
+    tok_t = torch.from_numpy(tokens).cuda()
+    windows, slstm_s = [], [0.0]
+    orig_attn, orig_slstm = kops.flash_attention, lm_mod.slstm_seq
+
+    def reading_attn(q, k, v, causal=True, window=None, q_offset=0):
+        windows.append(window)
+        return orig_attn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    def timed_slstm(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = orig_slstm(*args, **kw)
+        torch.cuda.synchronize()
+        slstm_s[0] += time.perf_counter() - t
+        return y
+
+    _zero_counts(kernels)
+    kops.flash_attention, lm_mod.slstm_seq = reading_attn, timed_slstm
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+    finally:
+        kops.flash_attention, lm_mod.slstm_seq = orig_attn, orig_slstm
+    prefill_launches = _counts(kernels)
+    slots = cache.k.shape[3] if hymba else None
+    finite = bool(torch.isfinite(logits).all())
+    del cache
+    pre = _profiled(lambda: prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN))
+    _, cache = prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN)
+    first = out[:, :1]
+
+    def decode_steps():
+        nonlocal cache
+        tok = first
+        for _ in range(8):
+            step_logits, cache = decode_step(params, cfg, tok, cache)
+            tok = step_logits[:, -1].argmax(-1, keepdim=True)
+
+    dec = _profiled(decode_steps)
+    dec["steps"] = 8
+    del cache
+    row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+           "params": cfg.param_count(), "param_elements": sum(
+               t.numel() for t in tree_leaves(params)), "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "gen": LM_GEN, "init_s": init_s, "prefill_s": res.prefill_s,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / res.prefill_s,
+           "decode_ms_per_token": res.decode_s / LM_GEN * 1e3,
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / res.decode_s,
+           "peak_mem_bytes": peak, "launches": launches, "prefill_launches": prefill_launches,
+           "counted_prefill_s": counted_s, "prefill_logits_finite": finite,
+           "profiled_prefill": pre, "profiled_decode": dec, "sample": out[0, :8].tolist()}
+    if hymba:
+        row.update(window=cfg.window, global_layers=list(cfg.full_attn_layers),
+                   ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state, cache_slots=slots,
+                   prefill_windows={str(w): windows.count(w) for w in sorted(
+                       set(windows), key=lambda w: -1 if w is None else w)})
+    else:
+        row.update(groups=cfg.num_layers // cfg.slstm_every, slstm_every=cfg.slstm_every,
+                   slstm_loop_s=slstm_s[0], slstm_share_of_prefill=slstm_s[0] / counted_s)
+    emit(row)
+    if not finite:
+        raise AssertionError(f"{phase}: the prefill's logits are not finite")
+    if hymba:
+        windowed = len(cfg.full_attn_layers)
+        if (prefill_launches["flash_attention"] != cfg.num_layers
+                or launches["flash_attention"] != cfg.num_layers
+                or windows.count(cfg.window) != cfg.num_layers - windowed
+                or windows.count(None) != windowed):
+            raise AssertionError(f"{phase}: flash_attention launched {prefill_launches} times "
+                                 f"(serve: {launches}) with windows {windows}, expected "
+                                 f"{cfg.num_layers}: one a layer of the prefill")
+        if slots != cfg.window:
+            raise AssertionError(f"{phase}: the cache has {slots} slots, not a "
+                                 f"{cfg.window}-slot ring")
+    return row, cfg, params
 
 
 def phase_lm_moe_serve(seed: int, kernels: dict):
@@ -2055,10 +2225,13 @@ def _rel_err(card, cpu) -> float:
     return float((card.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
 
 
-def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
+def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None) -> dict:
     """The prefill shape of ``cfg`` (causal, GQA) in fp32, the main path's
-    dtype, or in bf16.  The bound is the design's: fp32 runs three TF32
-    products per product (split TF32), bf16 one bf16 product."""
+    dtype, or in bf16; with a sliding ``window``, the pairs of the band.
+    The bound is the design's over the visible key–query pairs: fp32 runs
+    three TF32 products per product (split TF32), bf16 one bf16 product.
+    The library call is ``scaled_dot_product_attention``, causal or with
+    the band as a boolean mask."""
     import torch
     import torch.nn.functional as F
 
@@ -2071,24 +2244,36 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
     q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
     k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
     v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
-    out = flash_attention(q, k, v, causal=True)
-    o_lse, lse = flash_attention_lse(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    o_lse, lse = flash_attention_lse(q, k, v, causal=True, window=window)
     lse_same_o = bool(torch.equal(o_lse, out))  # the lse output leaves o's bits alone
     out = out.float()
-    ref, lse_ref = kref.flash_attention_lse_ref(q, k, v, causal=True)
+    ref, lse_ref = kref.flash_attention_lse_ref(q, k, v, causal=True, window=window)
     ref = ref.float()
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True).float()
+    if window is None:
+        sdpa = dict(is_causal=True)
+    else:
+        pos = torch.arange(s, device="cuda")
+        rel = pos[:, None] - pos[None, :]
+        sdpa = dict(attn_mask=(rel >= 0) & (rel < window))
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **sdpa)
+
+    lib = library().float()
     atol, rtol = TOL_ATTN if dtype == "float32" else TOL_ATTN_BF16
     lse_err = float((lse - lse_ref).abs().max())
     lse_ok = bool(((lse - lse_ref).abs() <= TOL_ATTN[0] + TOL_ATTN[1] * lse_ref.abs()).all())
     within = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()) and lse_same_o and lse_ok
     err, lib_err = float((out - ref).abs().max()), float((lib - ref).abs().max())
     del out, ref, lib, o_lse, lse, lse_ref
-    ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True), 20)
-    plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, causal=True), 3, warmup=1)
-    lib_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), 10)
-    flops = 4 * dh * b * hq * (s * (s + 1) // 2)  # q·k and p·v over the visible pairs
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True, window=window), 20)
+    plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, causal=True, window=window),
+                            3, warmup=1)
+    lib_ms = cuda_time_ms(library, 10)
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w  # visible key–query pairs a head
+    flops = 4 * dh * b * hq * pairs  # q·k and p·v over the visible pairs
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     if dtype == "float32":
         bound_ms, by = _bound(nbytes, SPLIT_TF32 * flops, TF32_FLOPS)
@@ -2096,7 +2281,7 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32") -> dict:
         bound_ms, by = _bound(nbytes, flops, BF16_FLOPS)
     row = {"name": "flash_attention",
            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
-                     "dtype": dtype},
+                     "window": window, "dtype": dtype, "visible_pairs_a_head": pairs},
            "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err,
            "lse_same_o_bits": lse_same_o, "lse_max_abs_err": lse_err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
@@ -2373,9 +2558,31 @@ def main(argv=None) -> int:
         moe_cfg, capacity_factor=moe_cfg.num_experts / moe_cfg.top_k), moe_params, args.seed,
         phase="lm_moe_consistency")
     del moe_params
+    hymba, hymba_cfg, rec_params = phase_lm_recurrent_serve(HYMBA_ARCH, args.seed, kernels)
+    # held in fp32 compute, as the reference's own check (its reduced configs): under
+    # bf16 compute hymba's decode rounds layer 0's conv carry to bf16, which the
+    # forward does not (the reference's _ssd_branch); that run is measured, not held
+    hymba32 = dataclasses.replace(hymba_cfg, compute_dtype="float32")
+    phase_lm_consistency(hymba32, rec_params, args.seed, phase="lm_hymba_consistency")
+    phase_lm_consistency(hymba_cfg, rec_params, args.seed, phase="lm_hymba_consistency_bf16",
+                         check=False)
+    phase_lm_consistency(dataclasses.replace(hymba32, full_attn_layers=()), rec_params,
+                         args.seed, phase="lm_hymba_ring", prompt=RING_PROMPT, steps=RING_STEPS,
+                         ring_slots=hymba_cfg.window)
+    del rec_params
+    xlstm, xlstm_cfg, rec_params = phase_lm_recurrent_serve(XLSTM_ARCH, args.seed, kernels)
+    # fp32 compute, as hymba's: under bf16 compute layer 0's sLSTM output is rounded to
+    # bf16, and where two orders of its fp32 sum straddle a rounding boundary the 47
+    # layers above amplify the step (the forward over the prompt alone moves as much)
+    phase_lm_consistency(dataclasses.replace(xlstm_cfg, compute_dtype="float32"), rec_params,
+                         args.seed, phase="lm_xlstm_consistency")
+    phase_lm_consistency(xlstm_cfg, rec_params, args.seed, phase="lm_xlstm_consistency_bf16",
+                         check=False)
+    del rec_params
     _free_cuda()
     # every path's launches: the engine phases, the serving phases, the op, the LM
-    path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe]
+    path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe,
+                                                             hymba, xlstm]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -2414,6 +2621,8 @@ def main(argv=None) -> int:
         kernel_flash_attention(cfg, gen),
         kernel_flash_attention(cfg, gen, "bfloat16"),
         {**kernel_flash_attention(moe_cfg, gen), "variant": "moe_prefill"},  # dh 128
+        {**kernel_flash_attention(hymba_cfg, gen, window=hymba_cfg.window),
+         "variant": "hymba_prefill"},  # Hq 25 over Hkv 5, the 1024 band
         kernel_flash_attention_bwd(cfg, gen),
         kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
@@ -2443,6 +2652,8 @@ def main(argv=None) -> int:
                 entry[extra] = res[extra]
         if name in ("segment_spmm", "flash_attention"):  # of which the MoE serve path's
             entry["launches_lm_moe_serve"] = moe["launches"][name]
+        if name == "flash_attention":  # and hymba's
+            entry["launches_lm_hymba_serve"] = hymba["launches"][name]
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
             entry["launches_by_entry"] = train["bwd_launches_by_entry"]
             entry["launches_by_path"] = {row["phase"]: row["launches"][name]

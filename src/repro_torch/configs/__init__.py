@@ -1,11 +1,10 @@
-"""Architecture registry of the port: the dense GQA transformers and the MoE
-family.
+"""Architecture registry of the port: the dense GQA transformers, the MoE
+family and the recurrent families (hymba, xlstm).
 
 The JAX package's registry (``repro.configs``) names ten architectures; the
-port serves the four dense ones and the two MoE ones, which share its LM
-path but for the feed-forward half of a block.  Naming one of the other four
-raises ``NotImplementedError`` with the ROADMAP.md item that ports its
-family."""
+port serves the four dense ones, the two MoE ones, hymba-1.5b and
+xlstm-1.3b.  Naming one of the other two raises ``NotImplementedError``
+with the ROADMAP.md item that ports its family."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,12 +19,12 @@ _ARCH_MODULES = {
     "minicpm-2b": "minicpm_2b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "hymba-1.5b": "hymba_1_5b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 #: architectures of the JAX package not ported yet → where ROADMAP.md queues them
 NOT_PORTED = {
-    "hymba-1.5b": "hybrid: ROADMAP.md Queue 1 item 10d (nn/ssm.py, ring decode)",
-    "xlstm-1.3b": "ssm/xlstm: ROADMAP.md Queue 1 item 10d (nn/ssm.py)",
     "seamless-m4t-large-v2": "audio/encdec: ROADMAP.md Queue 1 item 10e (models/encdec.py)",
     "pixtral-12b": "vlm: ROADMAP.md Queue 1 item 10f (the patch frontend)",
 }
@@ -43,9 +42,9 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduced_config(cfg: ArchConfig) -> ArchConfig:
     """Tiny same-family config for CPU tests: ``repro.configs.reduced_config``
-    for the dense and MoE families."""
+    for the ported families."""
     kw = dict(
-        num_layers=4,
+        num_layers=4 if cfg.block_pattern != "xlstm" else (cfg.slstm_every or 4),
         d_model=64,
         num_heads=4,
         num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads < cfg.num_heads else 4,
@@ -59,6 +58,11 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
     )
     if cfg.is_moe:
         kw.update(num_experts=8, top_k=2, moe_d_ff=32, d_ff=0)
+    if cfg.block_pattern == "hymba":
+        kw.update(ssm_heads=4, ssm_expand=2, ssm_state=4, window=16,
+                  full_attn_layers=(0,), d_ff=128)
+    if cfg.block_pattern == "xlstm":
+        kw.update(slstm_every=4, d_ff=0)
     return dataclasses.replace(cfg, **kw)
 
 

@@ -1,9 +1,10 @@
-"""Serving entry point: batched prefill + greedy decode loop for a dense or MoE LM.
+"""Serving entry point: batched prefill + greedy decode loop for any ported
+LM (dense, MoE, hymba, xLSTM).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b        # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
         --batch 4 --prompt-len 32 --gen 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --reduced --device cpu
 
 Weights are random, from a seeded ``torch.Generator``; prompt tokens from
@@ -35,8 +36,9 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(cfg: ArchConfig, params, tokens, gen: int) -> ServeResult:
-    """Prefill ``tokens`` [B, S] into a bf16 cache of ``S + gen`` positions,
-    then ``gen`` greedy decode steps.  Runs where ``params`` lie; the loop
+    """Prefill ``tokens`` [B, S] into a bf16 cache of ``S + gen`` positions
+    (hymba: a ring of ``window`` slots when that is fewer; xLSTM: its
+    recurrent states), then ``gen`` greedy decode steps.  Runs where ``params`` lie; the loop
     keeps the tokens on that device (argmax there, no read-back per step)."""
     set_fp32_precision()
     dev = params["embed"].device

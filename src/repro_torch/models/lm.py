@@ -1,32 +1,49 @@
 """Decoder-only LM: the dense GQA family (qwen2.5 / granite / llama3.2 /
-minicpm) and the MoE family (qwen3-moe, moonshot).
+minicpm), the MoE family (qwen3-moe, moonshot), hymba (parallel attention
+and SSD heads) and xLSTM (sLSTM-led groups of mLSTM blocks).
 
-The counterpart of the ``block_pattern == "attn"`` branch of
-``repro.models.lm``, dense and MoE.  Parameters are a plain dict of tensors
-with the reference's tree and layouts: stacked ``[L, …]`` layer weights under
-``blocks`` (``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo[,bq,bk,bv][,q_norm,k_norm]}``,
-and either ``mlp.{wg,wi,wo}`` or, for MoE, ``moe.{router,wi,wg,wo[,shared_*]}``
-(:mod:`repro_torch.nn.moe`)), ``embed`` ``[V, D]``, ``final_norm`` and, when
-the embeddings are not tied, ``lm_head`` ``[D, V]``.  Python loops over the
-layers stand where the reference has ``lax.scan``.
+The counterpart of ``repro.models.lm`` for these four families.  Parameters
+are a plain dict of tensors with the reference's tree and layouts: stacked
+``[L, …]`` layer weights under ``blocks`` (``ln1``, ``ln2``,
+``attn.{wq,wk,wv,wo[,bq,bk,bv][,q_norm,k_norm]}``, and either
+``mlp.{wg,wi,wo}`` or, for MoE, ``moe.{router,wi,wg,wo[,shared_*]}``
+(:mod:`repro_torch.nn.moe`); hymba adds ``ssd.{w_in,conv_w,w_bc,w_dt,a_log,
+dt_bias,d_skip,w_out,out_norm}``), ``embed`` ``[V, D]``, ``final_norm`` and,
+when the embeddings are not tied, ``lm_head`` ``[D, V]``.  xLSTM has no
+``blocks``: ``slstm_blocks`` ``[G, …]`` and ``mlstm_blocks`` ``[G, P−1, …]``
+for G groups of P layers.  Python loops over the layers stand where the
+reference has ``lax.scan``.
 
 Numerics follow the reference: the embedding rows are cast to
 ``compute_dtype`` and ``rms_norm`` multiplies by an fp32 gamma, so with the
 configs' fp32 params the residual stream is fp32 from layer 0's attention
-on; the KV cache is ``cache_dtype`` (bf16 unless asked).
+on; the KV cache is ``cache_dtype`` (bf16 unless asked), and so are the
+recurrent families' convolution carries (their matrix and scalar states are
+fp32).
+
+Attention dispatch: every call with more than one query row goes to
+``flash_attention`` with the layer's window as a Python int, hymba's too
+(1024, or ``None`` on its global layers 0, 15 and 31).  The reference's
+layer scan traces hymba's mixed window schedule, and ``attention_core``
+then takes its einsum path: the same function by another route; the port
+keeps the hand-written kernel on the main path.  Hymba's decode attends to
+a ring buffer of ``window`` slots in every layer, the global ones too
+(:func:`repro_torch.nn.attention.ring_decode_attention`), as the
+reference's: past the window, decode and the full forward differ by design
+on those layers.
 
 Training: :func:`lm_loss` is the reference's next-token cross entropy
-plus 0.01 · the MoE aux loss (the layers' mean; 0 for the dense family).
+plus 0.01 · the MoE aux loss (the layers' mean; 0 for the other families).
 Its gradient flows through ``flash_attention``'s autograd Function, whose
-backward is a hand-written kernel on the card, and the MoE combine's.  With ``cfg.remat`` and a gradient to
-compute, :func:`forward` wraps each layer in
-``torch.utils.checkpoint.checkpoint`` (the reference's ``jax.checkpoint``
-of its scan body): only each layer's input is kept, and the backward
-recomputes the layer.  Without a gradient, forward and prefill are the
-serving path, unchanged.
+backward is a hand-written kernel on the card, and the MoE combine's.  With
+``cfg.remat`` and a gradient to compute, :func:`forward` wraps each layer
+(each hymba layer; xLSTM's mLSTM blocks only, as the reference: a
+checkpointed sLSTM step loop would recompute its full-sequence gates) in
+``torch.utils.checkpoint.checkpoint``.  Without a gradient, forward and
+prefill are the serving path, unchanged.
 
-Hymba and xlstm blocks, the encoder-decoder and the vlm patch frontend are
-not ported yet (ROADMAP.md Queue 1 items 10d–10f).
+The encoder-decoder and the vlm patch frontend are not ported yet
+(ROADMAP.md Queue 1 items 10e–10f).
 """
 from __future__ import annotations
 
@@ -34,6 +51,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -42,9 +60,21 @@ from repro_torch.nn.attention import (
     attention_apply,
     attention_prefill_kv,
     init_attention,
+    ring_decode_attention,
 )
 from repro_torch.nn.layers import rms_norm, softmax_xent, stacked_dense, swiglu
 from repro_torch.nn.moe import init_moe, moe_apply
+from repro_torch.nn.ssm import (
+    MLSTMState,
+    SLSTMState,
+    causal_conv,
+    mlstm_chunked,
+    mlstm_step,
+    slstm_seq,
+    slstm_step,
+    ssd_chunked,
+    ssd_step,
+)
 from repro_torch.train.tree import tree_leaves
 
 FULL_WINDOW = 1 << 30
@@ -56,7 +86,6 @@ Params = Dict[str, object]
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise for a family the port does not serve yet, naming its ROADMAP item."""
     item = ("10e (encoder-decoder)" if cfg.encdec else
-            "10d (hymba, xlstm)" if cfg.block_pattern != "attn" else
             "10f (vlm patches)" if cfg.num_patches else None)
     if item:
         raise NotImplementedError(
@@ -66,11 +95,74 @@ def _check_ported(cfg: ArchConfig) -> None:
 # ====================================================================== #
 # init
 # ====================================================================== #
+def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device).mul_(std)
+
+
+def _init_mlp(gen: torch.Generator, L: int, d: int, f: int, dtype):
+    return {"wg": stacked_dense(gen, L, (d, f), dtype), "wi": stacked_dense(gen, L, (d, f), dtype),
+            "wo": stacked_dense(gen, L, (f, d), dtype)}
+
+
+def _init_ssd_branch(gen: torch.Generator, L: int, d: int, cfg: ArchConfig, dtype):
+    """Mamba-2/SSD branch (hymba)."""
+    di, h, n, dev = cfg.ssm_expand * d, cfg.ssm_heads, cfg.ssm_state, gen.device
+    return {
+        "w_in": stacked_dense(gen, L, (d, 2 * di), dtype),
+        "conv_w": _normal(gen, (L, cfg.conv_width, di), 0.2, dtype),
+        "w_bc": stacked_dense(gen, L, (di, 2 * h * n), dtype),
+        "w_dt": stacked_dense(gen, L, (di, h), dtype),
+        "a_log": torch.zeros(L, h, dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(L, h, dtype=torch.float32, device=dev),
+        "d_skip": torch.ones(L, h, dtype=torch.float32, device=dev),
+        "w_out": stacked_dense(gen, L, (di, d), dtype),
+        "out_norm": torch.ones(L, di, dtype=dtype, device=dev),
+    }
+
+
+def _init_mlstm_blocks(gen: torch.Generator, groups: int, per: int, d: int, heads: int,
+                       conv_width: int, dtype):
+    dev = gen.device
+
+    def sd(*shape):
+        return _normal(gen, (groups, per, *shape), shape[0] ** -0.5, dtype)
+
+    return {
+        "ln": torch.ones(groups, per, d, dtype=dtype, device=dev),
+        "w_up": sd(d, 2 * d),
+        "conv_w": _normal(gen, (groups, per, conv_width, d), 0.2, dtype),
+        "wq": sd(d, d), "wk": sd(d, d), "wv": sd(d, d),
+        "w_gates": sd(d, 2 * heads),
+        "b_gates": torch.zeros(groups, per, 2 * heads, dtype=torch.float32, device=dev),
+        "w_down": sd(d, d),
+        "out_norm": torch.ones(groups, per, d, dtype=dtype, device=dev),
+    }
+
+
+def _init_slstm_blocks(gen: torch.Generator, groups: int, d: int, dtype):
+    return {
+        "ln": torch.ones(groups, d, dtype=dtype, device=gen.device),
+        "wz": stacked_dense(gen, groups, (d, d), dtype),
+        "wif": stacked_dense(gen, groups, (d, 2 * d), dtype),
+        "wo_gate": stacked_dense(gen, groups, (d, d), dtype),
+        "w_down": stacked_dense(gen, groups, (d, d), dtype),
+    }
+
+
+def _xlstm_groups(cfg: ArchConfig):
+    """(groups, layers a group): one sLSTM and ``per − 1`` mLSTM blocks each."""
+    per = cfg.slstm_every or cfg.num_layers
+    if cfg.num_layers % per:
+        raise ValueError("xlstm layers must divide into sLSTM-led groups")
+    return cfg.num_layers // per, per
+
+
 def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random parameters drawn from ``gen`` on its device, with the
     reference's scales: ``0.02 · normal`` for the embedding,
-    ``normal · fan_in^-1/2`` for dense weights, ones for norms, zeros for
-    biases."""
+    ``normal · fan_in^-1/2`` for dense weights, ``0.2 · normal`` for the
+    convolutions, ones for norms and ``d_skip``, zeros for biases,
+    ``a_log`` and ``dt_bias``."""
     _check_ported(cfg)
     dtype, dev = DTYPES[cfg.param_dtype], gen.device
     d, L = cfg.d_model, cfg.num_layers
@@ -80,23 +172,28 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = stacked_dense(gen, 1, (d, cfg.vocab_size), dtype)[0]
+    if cfg.block_pattern == "xlstm":
+        groups, per = _xlstm_groups(cfg)
+        params["slstm_blocks"] = _init_slstm_blocks(gen, groups, d, dtype)
+        params["mlstm_blocks"] = _init_mlstm_blocks(gen, groups, per - 1, d, cfg.num_heads,
+                                                    cfg.conv_width, dtype)
+        return params
+    hymba = cfg.block_pattern == "hymba"
     params["blocks"] = {
         "ln1": torch.ones(L, d, dtype=dtype, device=dev),
         "ln2": torch.ones(L, d, dtype=dtype, device=dev),
         "attn": init_attention(gen, L, d, cfg.num_heads, cfg.num_kv_heads,
-                               cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
-                               qk_norm=cfg.qk_norm, dtype=dtype),
+                               cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias and not hymba,
+                               qk_norm=cfg.qk_norm and not hymba, dtype=dtype),
     }
+    if hymba:
+        params["blocks"]["ssd"] = _init_ssd_branch(gen, L, d, cfg, dtype)
     if cfg.is_moe:
         params["blocks"]["moe"] = init_moe(gen, L, d, cfg.moe_d_ff, cfg.num_experts, dtype,
                                            num_shared=cfg.num_shared_experts,
                                            shared_d_ff=cfg.moe_d_ff)
     else:
-        params["blocks"]["mlp"] = {
-            "wg": stacked_dense(gen, L, (d, cfg.d_ff), dtype),
-            "wi": stacked_dense(gen, L, (d, cfg.d_ff), dtype),
-            "wo": stacked_dense(gen, L, (cfg.d_ff, d), dtype),
-        }
+        params["blocks"]["mlp"] = _init_mlp(gen, L, d, cfg.d_ff, dtype)
     return params
 
 
@@ -116,7 +213,7 @@ def _windows(cfg: ArchConfig):
 
 
 def _layer(tree, l: int):
-    """Layer ``l``'s slice of the stacked ``blocks`` tree (views, no copy)."""
+    """Layer ``l``'s slice of a stacked tree (views, no copy)."""
     return {k: _layer(v, l) if isinstance(v, dict) else v[l] for k, v in tree.items()}
 
 
@@ -125,7 +222,7 @@ def _layer(tree, l: int):
 # ====================================================================== #
 def _attn_kwargs(cfg: ArchConfig) -> dict:
     return dict(n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-                rope_theta=cfg.rope_theta, causal=True)
+                rope_theta=cfg.rope_theta)
 
 
 def _ffn(cfg: ArchConfig, p, x: torch.Tensor):
@@ -142,36 +239,187 @@ def _attn_block(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int],
                 cache: Optional[KVCache], index: int):
     """``(x, new_cache, aux)`` of one layer."""
     out, new_cache = attention_apply(p["attn"], rms_norm(x, p["ln1"]), **_attn_kwargs(cfg),
-                                     window=window, cache=cache, cache_index=index)
+                                     causal=True, window=window, cache=cache,
+                                     cache_index=index)
     x, aux = _ffn(cfg, p, x + out)
     return x, new_cache, aux
+
+
+def _ssd_branch(cfg: ArchConfig, p, h: torch.Tensor, ssm_state: torch.Tensor,
+                conv_carry: Optional[torch.Tensor], decoding: bool):
+    """Mamba-2/SSD branch of h [B, S, D] (S = 1 when decoding): (out,
+    state, conv carry).  k = B, q = C, v = the convolved input."""
+    di = cfg.ssm_expand * cfg.d_model
+    nh, ns = cfg.ssm_heads, cfg.ssm_state
+    dh = di // nh
+    xr, z = (h @ p["w_in"]).chunk(2, dim=-1)
+    xr, conv_carry = causal_conv(xr, p["conv_w"], conv_carry)
+    xr = F.silu(xr)
+    bmat, cmat = (xr @ p["w_bc"]).chunk(2, dim=-1)  # [B, S, H·ns] each
+    b, s, _ = h.shape
+    k = bmat.reshape(b, s, nh, ns)
+    q = cmat.reshape(b, s, nh, ns)
+    v = xr.reshape(b, s, nh, dh)
+    dt = F.softplus(xr @ p["w_dt"] + p["dt_bias"])  # [B, S, H]
+    la = -dt * torch.exp(p["a_log"])  # log decay ≤ 0
+    if decoding:
+        ssm_state, y = ssd_step(ssm_state, q[:, 0], k[:, 0], v[:, 0], la[:, 0])
+        y = y[:, None]
+    else:
+        y, ssm_state = ssd_chunked(q, k, v, la, s0=ssm_state, chunk=min(cfg.chunk, s))
+    y = y + (p["d_skip"][None, None, :, None] * v).to(y.dtype)
+    y = y.reshape(b, s, di).to(h.dtype)
+    y = rms_norm(y, p["out_norm"]) * F.silu(z)
+    return (y @ p["w_out"]).to(h.dtype), ssm_state, conv_carry
+
+
+def _hymba_rest(cfg: ArchConfig, p, x: torch.Tensor, h: torch.Tensor, attn_out: torch.Tensor,
+                ssm_state: torch.Tensor, conv_carry: Optional[torch.Tensor], decoding: bool):
+    """A hymba layer after its attention: the SSD heads of the same input h,
+    the two branches averaged into the residual, then the MLP."""
+    ssd_out, ssm_state, conv_carry = _ssd_branch(cfg, p["ssd"], h, ssm_state, conv_carry,
+                                                 decoding)
+    x = x + 0.5 * (attn_out + ssd_out)
+    x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"])
+    return x, ssm_state, conv_carry
+
+
+def _ssm_zeros(cfg: ArchConfig, b: int, device) -> torch.Tensor:
+    di = cfg.ssm_expand * cfg.d_model
+    return torch.zeros(b, cfg.ssm_heads, cfg.ssm_state, di // cfg.ssm_heads,
+                       dtype=torch.float32, device=device)
+
+
+def _hymba_layer(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]):
+    """One hymba layer of the full forward (no cache): ``(x, None)``."""
+    h = rms_norm(x, p["ln1"])
+    attn_out, _ = attention_apply(p["attn"], h, **_attn_kwargs(cfg), causal=True, window=window)
+    x, _, _ = _hymba_rest(cfg, p, x, h, attn_out, _ssm_zeros(cfg, x.shape[0], x.device), None,
+                          h.shape[1] == 1)
+    return x, None
+
+
+def _mlstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[MLSTMState],
+                 conv_carry: Optional[torch.Tensor], decoding: bool):
+    """(x, state, conv carry).  q and k read the convolved input, v the
+    input before the convolution; k is scaled by dh^-1/2."""
+    d, nh = cfg.d_model, cfg.num_heads
+    dh = d // nh
+    b, s, _ = x.shape
+    h = rms_norm(x, p["ln"])
+    xm, zg = (h @ p["w_up"]).chunk(2, dim=-1)
+    xc, conv_carry = causal_conv(xm, p["conv_w"], conv_carry)
+    xc = F.silu(xc)
+    q = (xc @ p["wq"]).reshape(b, s, nh, dh)
+    k = (xc @ p["wk"]).reshape(b, s, nh, dh) / (dh ** 0.5)
+    v = (xm @ p["wv"]).reshape(b, s, nh, dh)
+    gates = (h @ p["w_gates"]).float() + p["b_gates"]
+    lf_raw, li = gates.chunk(2, dim=-1)  # [B, S, H]: forget first, then input
+    lf = F.logsigmoid(lf_raw)
+    if decoding:
+        state, y = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0], lf[:, 0], li[:, 0])
+        y = y[:, None]
+    else:
+        y, state = mlstm_chunked(q, k, v, lf, li, st=state, chunk=min(cfg.chunk, s))
+    y = y.reshape(b, s, d).to(x.dtype)
+    y = rms_norm(y, p["out_norm"]) * F.silu(zg)
+    return x + y @ p["w_down"], state, conv_carry
+
+
+def _mlstm_layer(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """One mLSTM block of the full forward (initial state, no carry)."""
+    return _mlstm_block(cfg, p, x, None, None, False)[0]
+
+
+def _slstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[SLSTMState],
+                 decoding: bool):
+    """(x, state).  The gate projection splits as (input, forget)."""
+    d, nh = cfg.d_model, cfg.num_heads
+    dh = d // nh
+    b, s, _ = x.shape
+    h = rms_norm(x, p["ln"])
+    z = torch.tanh(h @ p["wz"]).reshape(b, s, nh, dh)
+    li, lf_raw = (h @ p["wif"]).float().reshape(b, s, nh, 2 * dh).chunk(2, dim=-1)
+    lf = F.logsigmoid(lf_raw)
+    o = torch.sigmoid(h @ p["wo_gate"]).reshape(b, s, nh, dh)
+    if decoding:
+        state, y = slstm_step(state, z[:, 0].float(), lf[:, 0], li[:, 0], o[:, 0].float())
+        y = y[:, None]
+    else:
+        y, state = slstm_seq(z, lf, li, o, st=state)
+    y = y.reshape(b, s, d).to(x.dtype)
+    # bf16 y (layer 0 under bf16 compute) @ fp32 weights: JAX promotes the
+    # product to fp32, torch.matmul would refuse it
+    w = p["w_down"]
+    return x + y.to(torch.promote_types(y.dtype, w.dtype)) @ w, state
 
 
 # ====================================================================== #
 # caches
 # ====================================================================== #
 class LMCache(NamedTuple):
-    """Stacked-per-layer decode state.  ``index`` is the next position to
-    write, a host int: the decode loop needs no read-back from the card."""
+    """Stacked-per-layer decode state of the attention families.  ``index``
+    is the next position to write, a host int: the decode loop needs no
+    read-back from the card.  Hymba adds its SSD states and convolution
+    carries; its K/V are a ring of ``window`` slots once the context is
+    longer than the window."""
 
     k: torch.Tensor  # [L, B, Hkv, S_cache, dh]
     v: torch.Tensor
     index: int
+    ssm: Optional[torch.Tensor] = None  # [L, B, H_ssm, ns, dh_ssm] fp32 (hymba)
+    conv: Optional[torch.Tensor] = None  # [L, B, kw-1, di] (hymba)
+
+
+class XLSTMCache(NamedTuple):
+    """xLSTM decode state: per group its sLSTM state, per mLSTM block its
+    matrix state and convolution carry; no K/V.  ``index`` a host int."""
+
+    s_c: torch.Tensor  # [G, B, H, dh]
+    s_n: torch.Tensor
+    s_m: torch.Tensor
+    m_c: torch.Tensor  # [G, P-1, B, H, dh, dh]
+    m_n: torch.Tensor  # [G, P-1, B, H, dh]
+    m_m: torch.Tensor  # [G, P-1, B, H]
+    conv: torch.Tensor  # [G, P-1, B, kw-1, D]
+    index: int
 
 
 def cache_len(cfg: ArchConfig, s_max: int) -> int:
-    """Per-layer KV length: the full context for the dense family (the
-    reference's hymba ring buffer comes with hymba)."""
+    """Per-layer KV length: a ring buffer of ``window`` slots for hymba when
+    the context is longer than the window, else the full context."""
+    if cfg.block_pattern == "hymba" and cfg.window and s_max > cfg.window:
+        return cfg.window
     return s_max
 
 
-def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16,
-               device="cuda") -> LMCache:
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, device="cuda"):
+    """An empty :class:`LMCache` (:class:`XLSTMCache` for xLSTM) on ``device``."""
     _check_ported(cfg)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len(cfg, s_max),
-             cfg.resolved_head_dim)
-    return LMCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device), index=0)
+    L, d, kw = cfg.num_layers, cfg.d_model, cfg.conv_width
+
+    def zeros(*shape, dt=torch.float32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def init_m(*shape):
+        return torch.full(shape, -1e30, dtype=torch.float32, device=device)
+
+    if cfg.block_pattern == "xlstm":
+        g, per = _xlstm_groups(cfg)
+        nh = cfg.num_heads
+        dh = d // nh
+        return XLSTMCache(s_c=zeros(g, batch, nh, dh), s_n=zeros(g, batch, nh, dh),
+                          s_m=init_m(g, batch, nh, dh), m_c=zeros(g, per - 1, batch, nh, dh, dh),
+                          m_n=zeros(g, per - 1, batch, nh, dh), m_m=init_m(g, per - 1, batch, nh),
+                          conv=zeros(g, per - 1, batch, kw - 1, d, dt=dtype), index=0)
+    shape = (L, batch, cfg.num_kv_heads, cache_len(cfg, s_max), cfg.resolved_head_dim)
+    cache = LMCache(k=zeros(*shape, dt=dtype), v=zeros(*shape, dt=dtype), index=0)
+    if cfg.block_pattern == "hymba":
+        di = cfg.ssm_expand * d
+        cache = cache._replace(
+            ssm=zeros(L, batch, cfg.ssm_heads, cfg.ssm_state, di // cfg.ssm_heads),
+            conv=zeros(L, batch, kw - 1, di, dt=dtype))
+    return cache
 
 
 # ====================================================================== #
@@ -192,22 +440,32 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
     """Full forward (no cache): ``(logits [B, S, V], aux)``, the reference's
     ``forward``; aux is the MoE aux loss averaged over the layers, 0 for the
-    dense family.  With ``cfg.remat``, grad enabled and a parameter that
-    requires it, each layer runs under ``checkpoint`` (recomputed in the
-    backward)."""
+    other families.  With ``cfg.remat``, grad enabled and a parameter that
+    requires it, each layer (xLSTM: each mLSTM block) runs under
+    ``checkpoint`` (recomputed in the backward)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
-    auxs = []
-    for l, w in enumerate(_windows(cfg)):
-        p = _layer(params["blocks"], l)
+
+    def run(body, *args):
         if remat:
-            x, aux = checkpoint(_remat_body, cfg, p, x, w, use_reentrant=False,
-                                preserve_rng_state=False)
-        else:
-            x, _, aux = _attn_block(cfg, p, x, w, None, 0)
-        auxs.append(aux)
+            return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        return body(*args)
+
+    auxs = []
+    if cfg.block_pattern == "xlstm":
+        groups, per = _xlstm_groups(cfg)
+        for g in range(groups):
+            x, _ = _slstm_block(cfg, _layer(params["slstm_blocks"], g), x, None, False)
+            mlstm = _layer(params["mlstm_blocks"], g)
+            for j in range(per - 1):
+                x = run(_mlstm_layer, cfg, _layer(mlstm, j), x)
+    else:
+        body = _hymba_layer if cfg.block_pattern == "hymba" else _attn_layer
+        for l, w in enumerate(_windows(cfg)):
+            x, aux = run(body, cfg, _layer(params["blocks"], l), x, w)
+            auxs.append(aux)
     logits = _logits(params, cfg, rms_norm(x, params["final_norm"]))
     aux = (torch.stack(auxs).mean() if cfg.is_moe else
            torch.zeros((), dtype=torch.float32, device=logits.device))
@@ -219,7 +477,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tens
     return forward_with_aux(params, cfg, tokens)[0]
 
 
-def _remat_body(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]):
+def _attn_layer(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]):
+    """One layer of the dense or MoE full forward: ``(x, aux)``."""
     x, _, aux = _attn_block(cfg, p, x, window, None, 0)
     return x, aux
 
@@ -232,6 +491,15 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
+def ring_slots(s: int, slots: int) -> np.ndarray:
+    """The prompt position a prefill of ``s`` tokens leaves in each of a
+    ring's ``slots``: the latest p < s with p ≡ j (mod slots), clipped to
+    [0, s − 1] (a slot no position reached holds position 0's K/V; decode
+    masks it)."""
+    j = np.arange(slots)
+    return np.clip((s - 1) - np.mod(s - 1 - j, slots), 0, s - 1)
+
+
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
             cache_dtype=torch.bfloat16):
     """Fill a decode cache from a prompt; returns (last-token logits
@@ -239,26 +507,80 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
     x = _embed(params, cfg, tokens)
     b, s, _ = x.shape
     cache = init_cache(cfg, b, s_max, cache_dtype, device=x.device)
-    for l, w in enumerate(_windows(cfg)):
-        p = _layer(params["blocks"], l)
-        out, k, v = attention_prefill_kv(p["attn"], rms_norm(x, p["ln1"]), **_attn_kwargs(cfg),
-                                         window=w)
-        x, _ = _ffn(cfg, p, x + out)
-        # in place into the preallocated cache; [S, s_max) stays 0, as the
-        # reference's padded copy
-        cache.k[l, :, :, :s] = k
-        cache.v[l, :, :, :s] = v
+    if cfg.block_pattern == "xlstm":
+        groups, per = _xlstm_groups(cfg)
+        for g in range(groups):
+            x, st = _slstm_block(cfg, _layer(params["slstm_blocks"], g), x, None, False)
+            for dst, src in zip((cache.s_c, cache.s_n, cache.s_m), st):
+                dst[g] = src
+            mlstm = _layer(params["mlstm_blocks"], g)
+            for j in range(per - 1):
+                carry = torch.zeros(b, cfg.conv_width - 1, cfg.d_model, dtype=x.dtype,
+                                    device=x.device)
+                x, st, carry = _mlstm_block(cfg, _layer(mlstm, j), x, None, carry, False)
+                for dst, src in zip((cache.m_c, cache.m_n, cache.m_m, cache.conv),
+                                    (*st, carry)):
+                    dst[g, j] = src
+    else:
+        hymba = cfg.block_pattern == "hymba"
+        if hymba:
+            slots = torch.from_numpy(ring_slots(s, cache.k.shape[3])).to(x.device)
+        for l, w in enumerate(_windows(cfg)):
+            p = _layer(params["blocks"], l)
+            h = rms_norm(x, p["ln1"])
+            out, k, v = attention_prefill_kv(p["attn"], h, **_attn_kwargs(cfg), causal=True,
+                                             window=w)
+            if hymba:
+                carry = torch.zeros(b, cfg.conv_width - 1, cfg.ssm_expand * cfg.d_model,
+                                    dtype=x.dtype, device=x.device)
+                x, cache.ssm[l], cache.conv[l] = _hymba_rest(
+                    cfg, p, x, h, out, _ssm_zeros(cfg, b, x.device), carry, False)
+                cache.k[l] = k.index_select(2, slots)
+                cache.v[l] = v.index_select(2, slots)
+            else:
+                x, _ = _ffn(cfg, p, x + out)
+                # in place into the preallocated cache; [S, s_max) stays 0, as the
+                # reference's padded copy
+                cache.k[l, :, :, :s] = k
+                cache.v[l, :, :, :s] = v
     x = rms_norm(x, params["final_norm"])
     return _logits(params, cfg, x[:, -1:]), cache._replace(index=s)
 
 
-def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, cache: LMCache):
+def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor, cache):
     """One decode step.  token [B, 1] int.  Returns (logits [B, 1, V], cache)
     with the cache written in place at ``cache.index`` and the index
-    advanced.  As in the reference, dense decode attends without a window."""
+    advanced.  As in the reference, dense decode attends without a window
+    and hymba's attends to its ring in every layer."""
     x = _embed(params, cfg, token)
-    for l in range(cfg.num_layers):
-        x, _, _ = _attn_block(cfg, _layer(params["blocks"], l), x, None,
-                              KVCache(cache.k[l], cache.v[l]), cache.index)
+    index = cache.index
+    if cfg.block_pattern == "xlstm":
+        groups, per = _xlstm_groups(cfg)
+        for g in range(groups):
+            x, st = _slstm_block(cfg, _layer(params["slstm_blocks"], g), x,
+                                 SLSTMState(cache.s_c[g], cache.s_n[g], cache.s_m[g]), True)
+            for dst, src in zip((cache.s_c, cache.s_n, cache.s_m), st):
+                dst[g] = src
+            mlstm = _layer(params["mlstm_blocks"], g)
+            for j in range(per - 1):
+                x, st, carry = _mlstm_block(
+                    cfg, _layer(mlstm, j), x,
+                    MLSTMState(cache.m_c[g, j], cache.m_n[g, j], cache.m_m[g, j]),
+                    cache.conv[g, j].to(x.dtype), True)
+                for dst, src in zip((cache.m_c, cache.m_n, cache.m_m, cache.conv),
+                                    (*st, carry)):
+                    dst[g, j] = src
+    elif cfg.block_pattern == "hymba":
+        for l in range(cfg.num_layers):
+            p = _layer(params["blocks"], l)
+            h = rms_norm(x, p["ln1"])
+            out, _, _ = ring_decode_attention(p["attn"], h, cache.k[l], cache.v[l], index,
+                                              **_attn_kwargs(cfg))
+            x, cache.ssm[l], cache.conv[l] = _hymba_rest(
+                cfg, p, x, h, out, cache.ssm[l], cache.conv[l].to(x.dtype), True)
+    else:
+        for l in range(cfg.num_layers):
+            x, _, _ = _attn_block(cfg, _layer(params["blocks"], l), x, None,
+                                  KVCache(cache.k[l], cache.v[l]), index)
     x = rms_norm(x, params["final_norm"])
-    return _logits(params, cfg, x), cache._replace(index=cache.index + 1)
+    return _logits(params, cfg, x), cache._replace(index=index + 1)

@@ -4,35 +4,43 @@ port's parameters.
     tree = jax.tree.map(np.asarray, repro.models.init_model(key, cfg)[0])
     params = lm_params_from_numpy(tree, "cuda")
 
-Leaf by leaf, same names, shapes and dtypes.  Any missing or extra leaf
-raises; so does an optional group that is only partly there (the attention
-biases, the QK norms, the MoE shared expert).  A block's feed-forward half is
-either the dense ``blocks/mlp`` group or the ``blocks/moe`` group, exactly
-one of them, whole."""
+Leaf by leaf, same names, shapes and dtypes.  The leaves a tree must have
+depend on its family, which the tree shows: ``slstm_blocks``/``mlstm_blocks``
+(xLSTM, no ``blocks``), ``blocks/ssd`` (hymba: attention, SSD heads and a
+dense MLP), else the dense or MoE transformer, whose feed-forward half is
+either ``blocks/mlp`` or ``blocks/moe``, exactly one of them, whole.  Any
+missing or extra leaf raises; so does an optional group that is only partly
+there (the attention biases, the QK norms, the MoE shared expert)."""
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, FrozenSet, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 
-_REQUIRED = frozenset({
-    "embed", "final_norm", "blocks/ln1", "blocks/ln2",
+_TOP = frozenset({"embed", "final_norm"})
+_ATTN = frozenset({
+    "blocks/ln1", "blocks/ln2",
     "blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv", "blocks/attn/wo",
 })
-#: the feed-forward half of a block: dense, or MoE; exactly one, whole
 _MLP = frozenset({"blocks/mlp/wg", "blocks/mlp/wi", "blocks/mlp/wo"})
 _MOE = frozenset({"blocks/moe/router", "blocks/moe/wi", "blocks/moe/wg", "blocks/moe/wo"})
+_SSD = frozenset(f"blocks/ssd/{k}" for k in (
+    "w_in", "conv_w", "w_bc", "w_dt", "a_log", "dt_bias", "d_skip", "w_out", "out_norm"))
+_XLSTM = frozenset(
+    [f"slstm_blocks/{k}" for k in ("ln", "wz", "wif", "wo_gate", "w_down")]
+    + [f"mlstm_blocks/{k}" for k in ("ln", "w_up", "conv_w", "wq", "wk", "wv", "w_gates",
+                                     "b_gates", "w_down", "out_norm")])
 #: optional leaves, each group present in full or not at all
-_GROUPS = (
-    frozenset({"lm_head"}),  # untied embeddings
+_HEAD = frozenset({"lm_head"})  # untied embeddings
+_ATTN_GROUPS = (
     frozenset({"blocks/attn/bq", "blocks/attn/bk", "blocks/attn/bv"}),  # qkv_bias
     frozenset({"blocks/attn/q_norm", "blocks/attn/k_norm"}),  # qk_norm
-    frozenset({"blocks/moe/shared_wi", "blocks/moe/shared_wg",
-               "blocks/moe/shared_wo"}),  # num_shared_experts
 )
+_SHARED = frozenset({"blocks/moe/shared_wi", "blocks/moe/shared_wg",
+                     "blocks/moe/shared_wo"})  # num_shared_experts
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -45,17 +53,28 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     return flat
 
 
+def _leaf_sets(names) -> Tuple[FrozenSet[str], Tuple[FrozenSet[str], ...]]:
+    """The leaves a tree of this family must have, and its optional groups."""
+    if any(n.startswith(("slstm_blocks/", "mlstm_blocks/")) for n in names):
+        return _TOP | _XLSTM, (_HEAD,)
+    if any(n.startswith("blocks/ssd/") for n in names):
+        return _TOP | _ATTN | _SSD | _MLP, (_HEAD,)
+    if any(n.startswith("blocks/moe/") for n in names):
+        return _TOP | _ATTN | _MOE, (_HEAD, *_ATTN_GROUPS, _SHARED)
+    return _TOP | _ATTN | _MLP, (_HEAD, *_ATTN_GROUPS)
+
+
 def lm_params_from_numpy(tree: Mapping, device="cuda") -> dict:
     """Copy every leaf of ``tree`` to a tensor on ``device``; returns the
     port's nested parameter dict."""
     flat = _flatten(tree)
     names = set(flat)
-    ffn = _MOE if any(n.startswith("blocks/moe/") for n in names) else _MLP
-    missing = set((_REQUIRED | ffn) - names)
-    for group in _GROUPS:
+    required, groups = _leaf_sets(names)
+    missing = set(required - names)
+    for group in groups:
         if names & group:
             missing |= group - names
-    extra = names - _REQUIRED - ffn - frozenset().union(*_GROUPS)
+    extra = names - required - frozenset().union(*groups)
     if missing or extra:
         raise ValueError(f"LM parameter tree does not fit the port: missing {sorted(missing)}, "
                          f"extra {sorted(extra)}")

@@ -6,10 +6,16 @@ the full forward) goes to the ``flash_attention`` kernel; a decode step
 (one query row against the cache) takes the plain grouped-GQA path, as the
 reference sends decode to XLA's einsum and not to its Pallas kernel.
 
+Hymba's decode step attends to a ring-buffer window cache through
+:func:`ring_decode_attention`, a plain grouped-GQA path as the reference's.
+Its prefill and full forward reach ``flash_attention`` with each layer's
+window as a Python int (1024, or ``None`` on the global layers); the
+reference, whose layer scan traces hymba's mixed window schedule, takes its
+einsum path there instead: the same function by another route.
+
 The reference's ``ashard`` sharding annotations are the identity outside a
 mesh and are left out; they come with the sharded LM (ROADMAP.md Queue 1
-item 10g).  Ring decode (hymba) and cross attention (encdec) come with
-their families.
+item 10g).  Cross attention (encdec) comes with its family.
 """
 from __future__ import annotations
 
@@ -132,3 +138,32 @@ def attention_prefill_kv(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads
     caller can fill its cache."""
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, 0)
     return _merge_heads(attention_core(q, k, v, causal, window, 0), p), k, v
+
+
+def ring_decode_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, ck: torch.Tensor,
+                          cv: torch.Tensor, index: int, *, n_heads: int, n_kv: int,
+                          head_dim: int, rope_theta: float = 1e6
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sliding-window decode of x [B, 1, D] at absolute position ``index``
+    against a ring-buffer cache ck, cv [B, Hkv, W, dh] of rope-applied keys.
+    Slot s holds position ``index − ((index − s) mod W)``; slots with a
+    negative position (not written yet) are masked.  Writes slot ``index mod
+    W`` in place and returns (out [B, 1, D], ck, cv).
+
+    Unlike :func:`attention_core`'s decode, this is the reference's fp32
+    path: q and the cache are read as fp32 (q is not rounded to the cache's
+    dtype) and the probabilities are not rounded to v's dtype."""
+    b = x.shape[0]
+    w = ck.shape[2]
+    q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, index)
+    slot = index % w
+    ck[:, :, slot:slot + 1] = k
+    cv[:, :, slot:slot + 1] = v
+    pos = index - torch.remainder(index - torch.arange(w, device=x.device), w)
+    g = n_heads // n_kv
+    qf = q.reshape(b, n_kv, g, 1, head_dim).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, ck.float()) / math.sqrt(head_dim)
+    probs = torch.softmax(logits.masked_fill(pos < 0, -1e30), dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, cv.float())
+    out = out.reshape(b, n_heads, 1, head_dim).to(x.dtype)
+    return _merge_heads(out, p), ck, cv

@@ -15,8 +15,8 @@ flash_attention, its lse and its backward vs their plain versions 2e-5/2e-3
 in fp32 and 3e-2 in bf16 (the reference's tests/test_kernels.py);
 edge_softmax_normalize exactly (one IEEE division per element on both sides); engine on the card vs the same engine
 on the CPU 1e-5 per batch (different matmul kernels); the reduced LM on the
-card vs the CPU 1e-4 (fp32 cache and compute), the MoE combine bitwise the
-CPU's; the invariants inside the port are bitwise.
+card vs the CPU 1e-4 (fp32 cache and compute; the reduced xlstm 3e-4), the MoE
+combine bitwise the CPU's; the invariants inside the port are bitwise.
 """
 import dataclasses
 
@@ -549,6 +549,34 @@ def test_reduced_moe_on_card_matches_cpu(cuda, name):
     res = serve(cfg, on_card, tokens[:, :8], 6)
     assert res.tokens.is_cuda and res.tokens.shape == (2, 7)
     torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 6).tokens)
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-1.3b"])
+def test_reduced_recurrent_lm_on_card_matches_cpu(cuda, name):
+    """The reduced hymba (layers 1–3 windowed at 16, so the kernel's band
+    path runs; a 16-slot ring cache past position 16) and xlstm on the card
+    against the CPU (fp32 cache and compute): forward, prefill and
+    teacher-forced decode, and ``serve``'s tokens.  hymba's forward launches
+    ``flash_attention`` once a layer; xlstm runs no kernel.  Tolerance 1e-4,
+    3e-4 for xlstm: its fp32 result is itself ~1.4e-4 from float64
+    (tests/test_torch_recurrent_lm.py)."""
+    hymba = name.startswith("hymba")
+    tol = 1e-4 if hymba else 3e-4
+    cfg = reduced_config(get_arch(name))
+    params = lm_models.init_model(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    n0 = fmod.KERNEL.launches
+    full = lm_models.forward(on_card, cfg, {"tokens": tokens.cuda()})
+    assert fmod.KERNEL.launches == n0 + (cfg.num_layers if hymba else 0)
+    torch.testing.assert_close(full.cpu(), lm_models.forward(params, cfg, {"tokens": tokens}),
+                               atol=tol, rtol=tol)
+    card = _serve_steps(on_card, cfg, tokens.cuda())
+    for i, (a, c) in enumerate(zip(card, _serve_steps(params, cfg, tokens))):
+        torch.testing.assert_close(a.cpu(), c, atol=tol, rtol=tol, msg=f"step {i}")
+    res = serve(cfg, on_card, tokens[:, :8], 12)  # hymba: s_max 20 > 16, a ring
+    assert res.tokens.is_cuda and res.tokens.shape == (2, 13)
+    torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 12).tokens)
 
 
 def _serve_steps(params, cfg, tokens, prompt=36):

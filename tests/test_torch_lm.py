@@ -81,14 +81,18 @@ def test_unported_families_raise():
             tconfigs.get_arch(name)
     with pytest.raises(KeyError):
         tconfigs.get_arch("gpt-5")
-    assert len(tconfigs.NOT_PORTED) == 4 and not any(
-        jconfigs.get_arch(n).is_moe for n in tconfigs.NOT_PORTED)
-    # the MoE family builds (tests/test_torch_moe.py holds it to the reference)
+    assert len(tconfigs.NOT_PORTED) == 2 and not any(
+        jconfigs.get_arch(n).is_moe or jconfigs.get_arch(n).block_pattern != "attn"
+        for n in tconfigs.NOT_PORTED)
+    # the MoE and recurrent families build (tests/test_torch_moe.py and
+    # tests/test_torch_recurrent_lm.py hold them to the reference)
     moe = tconfigs.reduced_config(tconfigs.get_arch("qwen3-moe-30b-a3b"))
     assert "moe" in tmodels.init_model(torch.Generator().manual_seed(0), moe)["blocks"]
+    for name, key in (("hymba-1.5b", "blocks"), ("xlstm-1.3b", "slstm_blocks")):
+        cfg = tconfigs.reduced_config(tconfigs.get_arch(name))
+        assert key in tmodels.init_model(torch.Generator().manual_seed(0), cfg)
     dense = tconfigs.reduced_config(tconfigs.get_arch("llama3.2-1b"))
-    for what, kw in (("10d", dict(block_pattern="hymba")), ("10d", dict(block_pattern="xlstm")),
-                     ("10f", dict(num_patches=8)), ("10e", dict(encdec=True))):
+    for what, kw in (("10f", dict(num_patches=8)), ("10e", dict(encdec=True))):
         with pytest.raises(NotImplementedError, match=what):
             tmodels.init_model(torch.Generator().manual_seed(0), dataclasses.replace(dense, **kw))
         with pytest.raises(NotImplementedError, match=what):
