@@ -113,6 +113,22 @@ Phases, one JSON line each:
              0's sLSTM output is rounded to bf16 and the layers above amplify a
              rounding step; each consistency row also gives the forward over
              the prompt alone against the forward over all of it);
+5k. lm_encdec_serve — the serving path on the encoder-decoder,
+             seamless-m4t-large-v2, at full width and depth (24 encoder and
+             24 decoder layers, d_model 1024, 16 heads of 64, d_ff 8192,
+             vocab 256,206, frame embeddings of 160, the stubbed audio
+             frontend; 2.03B parameters; fp32 params, bf16 compute and
+             cache; random weights from a seeded CUDA generator; the xlstm
+             weights freed first): batch 8, 2048 source frames, prompt
+             2048, 32 greedy steps through ``serve``, counts zeroed before
+             and read after; then a prefill alone, counted the same way,
+             each ``flash_attention`` call's ``causal``, Sq and Sk read: 72
+             launches, 48 non-causal (the encoder's self attention and the
+             cross attention) and 24 causal; a profiled prefill and decode;
+5l. lm_encdec_consistency — the same weights, teacher-forced as in phase 5
+             over a source of 300 frames (the cross attention Sq 256 over a
+             ragged Sk, non-causal), within 2e-2 in fp32 compute and in the
+             config's bf16 compute;
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
@@ -235,7 +251,11 @@ bitwise from launch to launch; timed beside ``index_add_``),
 ``flash_attention`` at the MoE prefill's shape (Hq 32, Hkv 4, dh 128), and
 at hymba's prefill shape (Hq 25 over Hkv 5, dh 64, fp32, window 1024: its
 bound counts the band's 1,573,376 key–query pairs a head, not causal's
-2,098,176; SDPA with the band as a boolean mask beside it).  Then a ``{"kernels":
+2,098,176; SDPA with the band as a boolean mask beside it), and non-causal
+at seamless's encoder shape (B 8, 16/16 heads, S 2048, dh 64: 4,194,304
+pairs a head; SDPA with ``is_causal=False``), at a cross shape over a
+ragged source (Sq 2048 over Sk 1,999), and causal at its decoder's shape
+(the same heads, group 1), each with a second launch bitwise the first.  Then a ``{"kernels":
 [...]}`` line (launches summed over every path that launched each kernel),
 the ``nvidia-smi`` name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -288,6 +308,10 @@ MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 12
 HYMBA_ARCH, XLSTM_ARCH = "hymba-1.5b", "xlstm-1.3b"
 #: lm_hymba_ring: a prompt past hymba's 1024-slot window, then teacher-forced steps
 RING_PROMPT, RING_STEPS = 1100, 8
+#: the encoder-decoder at full width and depth (24 + 24 layers, 2.03B parameters); its
+#: consistency phase's source is 300 frames (a ragged Sk for the cross attention over a
+#: 256-token prompt), and its kernel row's cross shape Sq 2048 over Sk 1,999
+ENCDEC_ARCH, ENCDEC_CONSIST_FRAMES, ENCDEC_CROSS_SK = "seamless-m4t-large-v2", 300, 1999
 TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
 TOL_TRAIN_GRAD = 1e-3  # lm_train_consistency: each leaf's max |Δ| / its max |entry|
 #: the same for the embedding under compute_dtype bf16: the gradient of its gathered rows
@@ -1769,11 +1793,13 @@ def phase_lm_serve(seed: int, kernels: dict):
 
 def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
                          prompt: int = 256, steps: int = 4, ring_slots: int = 0,
-                         check: bool = True) -> dict:
+                         check: bool = True, frames: int = 0) -> dict:
     """Teacher-forced: prefill into an fp32 cache + decode steps reproduce
     the full forward's logits at the same positions.  ``ring_slots``: the
     cache must be a ring of that many K/V slots (hymba past its window).
-    ``check=False`` only measures (a difference the model has by design)."""
+    ``check=False`` only measures (a difference the model has by design).
+    ``frames``: an encoder-decoder's source length (normal draws after the
+    tokens), the same source in every call."""
     import torch
 
     from repro_torch.models import decode_step, forward, prefill
@@ -1781,11 +1807,16 @@ def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
     b, s = 2, prompt
     rng = np.random.default_rng(seed + 1)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + steps))).cuda()
-    full = forward(params, cfg, {"tokens": tokens})
+    src = {}
+    if cfg.encdec:
+        src["frames"] = torch.from_numpy(
+            rng.normal(size=(b, frames, cfg.d_frontend)).astype(np.float32)).cuda()
+    full = forward(params, cfg, {"tokens": tokens, **src})
     # the same forward over the prompt alone: how far the model itself moves
     # when only the shapes of its products change (no cache, no decode)
-    prefix_err = float((forward(params, cfg, {"tokens": tokens[:, :s]}) - full[:, :s]).abs().max())
-    logits, cache = prefill(params, cfg, {"tokens": tokens[:, :s]}, s_max=s + steps,
+    prefix_err = float((forward(params, cfg, {"tokens": tokens[:, :s], **src})
+                        - full[:, :s]).abs().max())
+    logits, cache = prefill(params, cfg, {"tokens": tokens[:, :s], **src}, s_max=s + steps,
                             cache_dtype=torch.float32)
     slots = cache.k.shape[3] if hasattr(cache, "k") else None
     errs = [float((logits[:, 0] - full[:, s - 1]).abs().max())]
@@ -1796,6 +1827,8 @@ def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
            "steps": steps, "cache_slots": slots, "finite": bool(torch.isfinite(full).all()),
            "max_abs_logit": float(full.abs().max()), "max_abs_err": max(errs), "per_step": errs,
            "forward_prefix_max_abs_err": prefix_err, "checked": check}
+    if cfg.encdec:
+        row["frames"] = frames
     emit(row)
     if not check:
         return row
@@ -1922,6 +1955,111 @@ def phase_lm_recurrent_serve(arch: str, seed: int, kernels: dict):
         if slots != cfg.window:
             raise AssertionError(f"{phase}: the cache has {slots} slots, not a "
                                  f"{cfg.window}-slot ring")
+    return row, cfg, params
+
+
+def phase_lm_encdec_serve(seed: int, kernels: dict):
+    """The serving path on the encoder-decoder at full width and depth:
+    ``serve`` on tokens and as many source frames (normal draws of the same
+    generator after the tokens, as ``repro.launch.serve`` draws them),
+    counts set to 0 just before it and read just after; then a prefill alone, counted the
+    same way, with each ``flash_attention`` call's ``causal``, Sq and Sk read
+    (24 encoder layers non-causal, 24 decoder layers causal, 24 cross
+    attentions non-causal); a profiled prefill and decode.  Returns the
+    row, the config and the weights."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_model, prefill
+    from repro_torch.train.tree import tree_leaves
+
+    phase = "lm_encdec_serve"
+    cfg = get_arch(ENCDEC_ARCH)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    frames = rng.normal(size=(LM_BATCH, LM_PROMPT, cfg.d_frontend)).astype(np.float32)
+    serve(cfg, params, tokens[:, :64], 2, frames[:, :64])  # warm-up
+    _zero_counts(kernels)
+    res = serve(cfg, params, tokens, LM_GEN, frames)
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    out = res.tokens
+    if out.shape != (LM_BATCH, LM_GEN + 1) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{phase}: bad tokens {tuple(out.shape)}")
+
+    batch = {"tokens": torch.from_numpy(tokens).cuda(), "frames": torch.from_numpy(frames).cuda()}
+    calls, orig_attn = [], kops.flash_attention
+
+    def reading_attn(q, k, v, causal=True, window=None, q_offset=0):
+        calls.append((bool(causal), q.shape[2], k.shape[2]))
+        return orig_attn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    _zero_counts(kernels)
+    kops.flash_attention = reading_attn
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, batch, s_max=LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+    finally:
+        kops.flash_attention = orig_attn
+    prefill_launches = _counts(kernels)
+    finite = bool(torch.isfinite(logits).all())
+    cache_bytes = {name: getattr(cache, name).numel() * getattr(cache, name).element_size()
+                   for name in ("k", "v", "mem_k", "mem_v")}
+    del cache
+    pre = _profiled(lambda: prefill(params, cfg, batch, s_max=LM_PROMPT + LM_GEN))
+    _, cache = prefill(params, cfg, batch, s_max=LM_PROMPT + LM_GEN)
+    first = out[:, :1]
+
+    def decode_steps():
+        nonlocal cache
+        tok = first
+        for _ in range(8):
+            step_logits, cache = decode_step(params, cfg, tok, cache)
+            tok = step_logits[:, -1].argmax(-1, keepdim=True)
+
+    dec = _profiled(decode_steps)
+    dec["steps"] = 8
+    del cache
+    by_kind = {"non_causal": sum(not c for c, _, _ in calls),
+               "causal": sum(c for c, _, _ in calls)}
+    row = {"phase": phase, "arch": cfg.name, "enc_layers": cfg.enc_layers,
+           "dec_layers": cfg.num_layers, "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "d_frontend": cfg.d_frontend, "params": cfg.param_count(),
+           "param_elements": sum(t.numel() for t in tree_leaves(params)),
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "batch": LM_BATCH, "frames": LM_PROMPT, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "init_s": init_s, "prefill_s": res.prefill_s,
+           "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / res.prefill_s,
+           "decode_ms_per_token": res.decode_s / LM_GEN * 1e3,
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / res.decode_s,
+           "peak_mem_bytes": peak, "cache_bytes": cache_bytes, "launches": launches,
+           "prefill_launches": prefill_launches, "prefill_attention_calls": by_kind,
+           "counted_prefill_s": counted_s, "prefill_logits_finite": finite,
+           "profiled_prefill": pre, "profiled_decode": dec, "sample": out[0, :8].tolist()}
+    emit(row)
+    if not finite:
+        raise AssertionError(f"{phase}: the prefill's logits are not finite")
+    expected = cfg.enc_layers + 2 * cfg.num_layers
+    if (prefill_launches["flash_attention"] != expected
+            or launches["flash_attention"] != expected or len(calls) != expected
+            or by_kind != {"non_causal": cfg.enc_layers + cfg.num_layers,
+                           "causal": cfg.num_layers}
+            or any((s_q, s_k) != (LM_PROMPT, LM_PROMPT) for _, s_q, s_k in calls)):
+        raise AssertionError(f"{phase}: flash_attention launched {prefill_launches} times "
+                             f"(serve: {launches}), calls {by_kind}, expected {expected}: "
+                             "one an encoder layer, two a decoder layer")
     return row, cfg, params
 
 
@@ -2225,13 +2363,17 @@ def _rel_err(card, cpu) -> float:
     return float((card.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
 
 
-def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None) -> dict:
-    """The prefill shape of ``cfg`` (causal, GQA) in fp32, the main path's
-    dtype, or in bf16; with a sliding ``window``, the pairs of the band.
-    The bound is the design's over the visible key–query pairs: fp32 runs
-    three TF32 products per product (split TF32), bf16 one bf16 product.
-    The library call is ``scaled_dot_product_attention``, causal or with
-    the band as a boolean mask."""
+def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal: bool = True,
+                           sk: int = None) -> dict:
+    """The prefill shape of ``cfg`` (GQA; causal, or not with ``causal=False``,
+    as the encoder's self attention and the cross attention run; ``sk`` keys,
+    the prompt's length unless given) in fp32, the main path's dtype, or in
+    bf16; with a sliding ``window``, the pairs of the band.  The bound is the
+    design's over the visible key–query pairs (Sq·Sk a head when not causal):
+    fp32 runs three TF32 products per product (split TF32), bf16 one bf16
+    product.  The library call is ``scaled_dot_product_attention``, causal or
+    not, or with the band as a boolean mask.  A second launch must give the
+    first's bits."""
     import torch
     import torch.nn.functional as F
 
@@ -2240,18 +2382,21 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None) -> dic
 
     b, hq, hkv, s, dh = (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT,
                          cfg.resolved_head_dim)
+    sk = s if sk is None else sk
     dt = getattr(torch, dtype)
     q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
-    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
-    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
-    out = flash_attention(q, k, v, causal=True, window=window)
-    o_lse, lse = flash_attention_lse(q, k, v, causal=True, window=window)
+    k = torch.randn(b, hkv, sk, dh, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, hkv, sk, dh, device="cuda", generator=gen).to(dt)
+    mask = dict(causal=causal, window=window)
+    out = flash_attention(q, k, v, **mask)
+    repeat = bool(torch.equal(out, flash_attention(q, k, v, **mask)))
+    o_lse, lse = flash_attention_lse(q, k, v, **mask)
     lse_same_o = bool(torch.equal(o_lse, out))  # the lse output leaves o's bits alone
     out = out.float()
-    ref, lse_ref = kref.flash_attention_lse_ref(q, k, v, causal=True, window=window)
+    ref, lse_ref = kref.flash_attention_lse_ref(q, k, v, **mask)
     ref = ref.float()
     if window is None:
-        sdpa = dict(is_causal=True)
+        sdpa = dict(is_causal=causal)
     else:
         pos = torch.arange(s, device="cuda")
         rel = pos[:, None] - pos[None, :]
@@ -2264,15 +2409,18 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None) -> dic
     atol, rtol = TOL_ATTN if dtype == "float32" else TOL_ATTN_BF16
     lse_err = float((lse - lse_ref).abs().max())
     lse_ok = bool(((lse - lse_ref).abs() <= TOL_ATTN[0] + TOL_ATTN[1] * lse_ref.abs()).all())
-    within = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()) and lse_same_o and lse_ok
+    within = (bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()) and lse_same_o
+              and lse_ok and repeat)
     err, lib_err = float((out - ref).abs().max()), float((lib - ref).abs().max())
     del out, ref, lib, o_lse, lse, lse_ref
-    ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True, window=window), 20)
-    plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, causal=True, window=window),
-                            3, warmup=1)
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, **mask), 20)
+    plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, **mask), 3, warmup=1)
     lib_ms = cuda_time_ms(library, 10)
-    w = s if window is None else min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w  # visible key–query pairs a head
+    if not causal:
+        pairs = s * sk  # every key of every row
+    else:
+        w = s if window is None else min(window, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w  # visible key–query pairs a head
     flops = 4 * dh * b * hq * pairs  # q·k and p·v over the visible pairs
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
     if dtype == "float32":
@@ -2280,10 +2428,10 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None) -> dic
     else:
         bound_ms, by = _bound(nbytes, flops, BF16_FLOPS)
     row = {"name": "flash_attention",
-           "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
+           "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "Sk": sk, "dh": dh, "causal": causal,
                      "window": window, "dtype": dtype, "visible_pairs_a_head": pairs},
            "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err,
-           "lse_same_o_bits": lse_same_o, "lse_max_abs_err": lse_err,
+           "lse_same_o_bits": lse_same_o, "lse_max_abs_err": lse_err, "repeat_bitwise": repeat,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
            "library_ms": lib_ms, "flops": flops,
            "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
@@ -2579,10 +2727,17 @@ def main(argv=None) -> int:
     phase_lm_consistency(xlstm_cfg, rec_params, args.seed, phase="lm_xlstm_consistency_bf16",
                          check=False)
     del rec_params
+    encdec, encdec_cfg, encdec_params = phase_lm_encdec_serve(args.seed, kernels)
+    # 300 frames: the cross attention runs Sq 256 over a ragged Sk, non-causal
+    for compute, phase in (("float32", "lm_encdec_consistency"),
+                           ("bfloat16", "lm_encdec_consistency_bf16")):
+        phase_lm_consistency(dataclasses.replace(encdec_cfg, compute_dtype=compute),
+                             encdec_params, args.seed, phase=phase, frames=ENCDEC_CONSIST_FRAMES)
+    del encdec_params
     _free_cuda()
     # every path's launches: the engine phases, the serving phases, the op, the LM
     path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe,
-                                                             hymba, xlstm]
+                                                             hymba, xlstm, encdec]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -2623,6 +2778,13 @@ def main(argv=None) -> int:
         {**kernel_flash_attention(moe_cfg, gen), "variant": "moe_prefill"},  # dh 128
         {**kernel_flash_attention(hymba_cfg, gen, window=hymba_cfg.window),
          "variant": "hymba_prefill"},  # Hq 25 over Hkv 5, the 1024 band
+        # the encoder-decoder: the encoder's self attention (non-causal, Sq = Sk; the serve
+        # cell's cross attention has this shape too), a cross attention over a source no
+        # multiple of the key tile, and the decoder's causal self attention (group 1)
+        {**kernel_flash_attention(encdec_cfg, gen, causal=False), "variant": "encdec_encoder"},
+        {**kernel_flash_attention(encdec_cfg, gen, causal=False, sk=ENCDEC_CROSS_SK),
+         "variant": "encdec_cross"},
+        {**kernel_flash_attention(encdec_cfg, gen), "variant": "encdec_decoder"},
         kernel_flash_attention_bwd(cfg, gen),
         kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
@@ -2652,8 +2814,11 @@ def main(argv=None) -> int:
                 entry[extra] = res[extra]
         if name in ("segment_spmm", "flash_attention"):  # of which the MoE serve path's
             entry["launches_lm_moe_serve"] = moe["launches"][name]
-        if name == "flash_attention":  # and hymba's
+        if name == "flash_attention":  # and hymba's, and the encoder-decoder's
             entry["launches_lm_hymba_serve"] = hymba["launches"][name]
+            entry["launches_lm_encdec_serve"] = encdec["launches"][name]
+            entry["launches_lm_encdec_serve_non_causal"] = encdec[
+                "prefill_attention_calls"]["non_causal"]
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
             entry["launches_by_entry"] = train["bwd_launches_by_entry"]
             entry["launches_by_path"] = {row["phase"]: row["launches"][name]

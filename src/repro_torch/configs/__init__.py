@@ -1,10 +1,11 @@
 """Architecture registry of the port: the dense GQA transformers, the MoE
-family and the recurrent families (hymba, xlstm).
+family, the recurrent families (hymba, xlstm) and the encoder-decoder
+(seamless-m4t).
 
 The JAX package's registry (``repro.configs``) names ten architectures; the
-port serves the four dense ones, the two MoE ones, hymba-1.5b and
-xlstm-1.3b.  Naming one of the other two raises ``NotImplementedError``
-with the ROADMAP.md item that ports its family."""
+port serves the four dense ones, the two MoE ones, hymba-1.5b, xlstm-1.3b
+and seamless-m4t-large-v2.  Naming pixtral-12b raises
+``NotImplementedError`` with the ROADMAP.md item that ports its family."""
 from __future__ import annotations
 
 import dataclasses
@@ -21,11 +22,11 @@ _ARCH_MODULES = {
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "hymba-1.5b": "hymba_1_5b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 #: architectures of the JAX package not ported yet → where ROADMAP.md queues them
 NOT_PORTED = {
-    "seamless-m4t-large-v2": "audio/encdec: ROADMAP.md Queue 1 item 10e (models/encdec.py)",
     "pixtral-12b": "vlm: ROADMAP.md Queue 1 item 10f (the patch frontend)",
 }
 
@@ -63,6 +64,8 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
                   full_attn_layers=(0,), d_ff=128)
     if cfg.block_pattern == "xlstm":
         kw.update(slstm_every=4, d_ff=0)
+    if cfg.encdec:
+        kw.update(enc_layers=2, d_frontend=24)
     return dataclasses.replace(cfg, **kw)
 
 

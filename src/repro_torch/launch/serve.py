@@ -1,14 +1,18 @@
 """Serving entry point: batched prefill + greedy decode loop for any ported
-LM (dense, MoE, hymba, xLSTM).
+LM (dense, MoE, hymba, xLSTM, the encoder-decoder).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b        # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
         --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+        --reduced --device cpu
 
 Weights are random, from a seeded ``torch.Generator``; prompt tokens from
-``numpy.random.default_rng(0)``.  Only ``--reduced`` cuts the config.
+``numpy.random.default_rng(0)``, then, for the encoder-decoder, as many
+source frames as the prompt has tokens from the same generator (as
+``repro.launch.serve`` draws them).  Only ``--reduced`` cuts the config.
 """
 from __future__ import annotations
 
@@ -35,17 +39,24 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(cfg: ArchConfig, params, tokens, gen: int) -> ServeResult:
+def serve(cfg: ArchConfig, params, tokens, gen: int, frames=None) -> ServeResult:
     """Prefill ``tokens`` [B, S] into a bf16 cache of ``S + gen`` positions
     (hymba: a ring of ``window`` slots when that is fewer; xLSTM: its
-    recurrent states), then ``gen`` greedy decode steps.  Runs where ``params`` lie; the loop
-    keeps the tokens on that device (argmax there, no read-back per step)."""
+    recurrent states; the encoder-decoder: also the cross memory of
+    ``frames`` [B, S_src, d_frontend], which it requires), then ``gen``
+    greedy decode steps.  Runs where ``params`` lie; the loop keeps the
+    tokens on that device (argmax there, no read-back per step).  The
+    prefill's time includes the encoder's."""
     set_fp32_precision()
     dev = params["embed"].device
-    tokens = torch.as_tensor(tokens).to(dev)
+    batch = {"tokens": torch.as_tensor(tokens).to(dev)}
+    if cfg.encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: serve needs its frames")
+        batch["frames"] = torch.as_tensor(frames).to(dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, {"tokens": tokens}, s_max=tokens.shape[1] + gen)
+    logits, cache = prefill(params, cfg, batch, s_max=batch["tokens"].shape[1] + gen)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -76,7 +87,9 @@ def main(argv=None) -> None:
     params = init_model(torch.Generator(device=dev).manual_seed(0), cfg)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    res = serve(cfg, params, tokens, args.gen)
+    frames = (rng.normal(size=(args.batch, args.prompt_len, cfg.d_frontend)).astype(np.float32)
+              if cfg.encdec else None)
+    res = serve(cfg, params, tokens, args.gen, frames)
     print(f"arch={cfg.name} device={dev} prefill={res.prefill_s * 1e3:.1f}ms "
           f"decode={res.decode_s / max(args.gen, 1) * 1e3:.2f}ms/tok "
           f"throughput={args.batch * args.gen / res.decode_s:.1f}tok/s")

@@ -42,8 +42,14 @@ checkpointed sLSTM step loop would recompute its full-sequence gates) in
 ``torch.utils.checkpoint.checkpoint``.  Without a gradient, forward and
 prefill are the serving path, unchanged.
 
-The encoder-decoder and the vlm patch frontend are not ported yet
-(ROADMAP.md Queue 1 items 10e–10f).
+The encoder-decoder is :mod:`repro_torch.models.encdec` (the model zoo,
+:mod:`repro_torch.models`, dispatches on ``cfg.encdec``); this module
+refuses its configs.  That module builds its layers from seven helpers of
+this one (``_attn_kwargs``, ``_embed``, ``_ffn``, ``_init_mlp``,
+``_layer``, ``_logits``, ``_remat_runner``): a change to one of them must
+keep both families, and ``tests/test_torch_encdec.py`` holds the
+encoder-decoder against the reference through them.  The vlm patch
+frontend is not ported yet (ROADMAP.md Queue 1 item 10f).
 """
 from __future__ import annotations
 
@@ -84,12 +90,15 @@ Params = Dict[str, object]
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    """Raise for a family the port does not serve yet, naming its ROADMAP item."""
-    item = ("10e (encoder-decoder)" if cfg.encdec else
-            "10f (vlm patches)" if cfg.num_patches else None)
-    if item:
+    """Raise for a config this module does not serve: an encoder-decoder
+    (:mod:`repro_torch.models.encdec` serves it) or a vlm (not ported yet,
+    naming its ROADMAP item)."""
+    if cfg.encdec:
+        raise NotImplementedError(f"{cfg.name}: an encoder-decoder config; use "
+                                  "repro_torch.models.encdec (or repro_torch.models)")
+    if cfg.num_patches:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet (ROADMAP.md Queue 1 item {item})")
+            f"{cfg.name}: not ported yet (ROADMAP.md Queue 1 item 10f (vlm patches))")
 
 
 # ====================================================================== #
@@ -445,14 +454,7 @@ def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
     ``checkpoint`` (recomputed in the backward)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
-    remat = cfg.remat and torch.is_grad_enabled() and any(
-        t.requires_grad for t in tree_leaves(params))
-
-    def run(body, *args):
-        if remat:
-            return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
-        return body(*args)
-
+    run = _remat_runner(cfg, params)
     auxs = []
     if cfg.block_pattern == "xlstm":
         groups, per = _xlstm_groups(cfg)
@@ -475,6 +477,21 @@ def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """The logits [B, S, V] of :func:`forward_with_aux`."""
     return forward_with_aux(params, cfg, tokens)[0]
+
+
+def _remat_runner(cfg: ArchConfig, params: Params):
+    """``run(body, *args)``: ``body(*args)``, under ``checkpoint`` (recomputed
+    in the backward) when ``cfg.remat``, grad is enabled and a parameter
+    requires it."""
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+
+    def run(body, *args):
+        if remat:
+            return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        return body(*args)
+
+    return run
 
 
 def _attn_layer(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]):

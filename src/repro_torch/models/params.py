@@ -5,9 +5,12 @@ port's parameters.
     params = lm_params_from_numpy(tree, "cuda")
 
 Leaf by leaf, same names, shapes and dtypes.  The leaves a tree must have
-depend on its family, which the tree shows: ``slstm_blocks``/``mlstm_blocks``
-(xLSTM, no ``blocks``), ``blocks/ssd`` (hymba: attention, SSD heads and a
-dense MLP), else the dense or MoE transformer, whose feed-forward half is
+depend on its family, which the tree shows: ``enc_blocks``/``dec_blocks``
+(the encoder-decoder: ``frame_proj``, ``lm_head``, both final norms, the
+encoder's self attention and MLP, the decoder's self and cross attention and
+MLP; no optional leaf), ``slstm_blocks``/``mlstm_blocks`` (xLSTM, no
+``blocks``), ``blocks/ssd`` (hymba: attention, SSD heads and a dense MLP),
+else the dense or MoE transformer, whose feed-forward half is
 either ``blocks/mlp`` or ``blocks/moe``, exactly one of them, whole.  Any
 missing or extra leaf raises; so does an optional group that is only partly
 there (the attention biases, the QK norms, the MoE shared expert)."""
@@ -33,6 +36,14 @@ _XLSTM = frozenset(
     [f"slstm_blocks/{k}" for k in ("ln", "wz", "wif", "wo_gate", "w_down")]
     + [f"mlstm_blocks/{k}" for k in ("ln", "w_up", "conv_w", "wq", "wk", "wv", "w_gates",
                                      "b_gates", "w_down", "out_norm")])
+_PROJ = ("wq", "wk", "wv", "wo")
+_ENCDEC = frozenset(
+    ["embed", "lm_head", "frame_proj", "final_norm", "enc_final_norm"]
+    + [f"enc_blocks/{k}" for k in ("ln1", "ln2")]
+    + [f"enc_blocks/attn/{k}" for k in _PROJ] + [f"enc_blocks/mlp/{k}" for k in ("wg", "wi", "wo")]
+    + [f"dec_blocks/{k}" for k in ("ln1", "ln_x", "ln2")]
+    + [f"dec_blocks/{a}/{k}" for a in ("attn", "xattn") for k in _PROJ]
+    + [f"dec_blocks/mlp/{k}" for k in ("wg", "wi", "wo")])
 #: optional leaves, each group present in full or not at all
 _HEAD = frozenset({"lm_head"})  # untied embeddings
 _ATTN_GROUPS = (
@@ -55,6 +66,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
 
 def _leaf_sets(names) -> Tuple[FrozenSet[str], Tuple[FrozenSet[str], ...]]:
     """The leaves a tree of this family must have, and its optional groups."""
+    if any(n.startswith(("enc_blocks/", "dec_blocks/")) for n in names):
+        return _ENCDEC, ()
     if any(n.startswith(("slstm_blocks/", "mlstm_blocks/")) for n in names):
         return _TOP | _XLSTM, (_HEAD,)
     if any(n.startswith("blocks/ssd/") for n in names):

@@ -13,9 +13,15 @@ window as a Python int (1024, or ``None`` on the global layers); the
 reference, whose layer scan traces hymba's mixed window schedule, takes its
 einsum path there instead: the same function by another route.
 
+Cross attention (the encoder-decoder): :func:`cross_memory` projects the
+encoder output once into K/V of ``n_heads`` heads (no RoPE), and
+:func:`cross_attention_apply` attends to them through :func:`attention_core`
+unmasked: ``flash_attention`` non-causal with Sq ≠ Sk in a prefill or a full
+forward, the plain grouped path at decode.
+
 The reference's ``ashard`` sharding annotations are the identity outside a
 mesh and are left out; they come with the sharded LM (ROADMAP.md Queue 1
-item 10g).  Cross attention (encdec) comes with its family.
+item 10g).
 """
 from __future__ import annotations
 
@@ -138,6 +144,40 @@ def attention_prefill_kv(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads
     caller can fill its cache."""
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, 0)
     return _merge_heads(attention_core(q, k, v, causal, window, 0), p), k, v
+
+
+def init_cross_attention(gen: torch.Generator, layers: int, d_model: int, d_enc: int,
+                         n_heads: int, head_dim: int, dtype=torch.float32
+                         ) -> Dict[str, torch.Tensor]:
+    """Stacked ``[layers, …]`` cross-attention projections: q from the
+    decoder's width, k and v from the encoder's, all ``n_heads`` heads."""
+    return {
+        "wq": stacked_dense(gen, layers, (d_model, n_heads * head_dim), dtype),
+        "wk": stacked_dense(gen, layers, (d_enc, n_heads * head_dim), dtype),
+        "wv": stacked_dense(gen, layers, (d_enc, n_heads * head_dim), dtype),
+        "wo": stacked_dense(gen, layers, (n_heads * head_dim, d_model), dtype),
+    }
+
+
+def cross_attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                          memory_kv: Tuple[torch.Tensor, torch.Tensor], *, n_heads: int,
+                          head_dim: int) -> torch.Tensor:
+    """x [B, Sq, D] over precomputed memory K/V ([B, H, Sk, dh] each),
+    unmasked and without RoPE → [B, Sq, D]."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim).transpose(1, 2)
+    k, v = memory_kv
+    return _merge_heads(attention_core(q, k, v, False, None, 0), p)
+
+
+def cross_memory(p: Dict[str, torch.Tensor], enc: torch.Tensor, n_heads: int, head_dim: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder output enc [B, Sk, D_enc] as cross-attention K/V, each
+    [B, H, Sk, dh] (once per request)."""
+    b, sk, _ = enc.shape
+    k = (enc @ p["wk"]).reshape(b, sk, n_heads, head_dim).transpose(1, 2)
+    v = (enc @ p["wv"]).reshape(b, sk, n_heads, head_dim).transpose(1, 2)
+    return k, v
 
 
 def ring_decode_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, ck: torch.Tensor,

@@ -41,7 +41,9 @@ def synthetic_batch(cfg: ArchConfig, tcfg: TrainConfig, step: int,
                     device="cuda") -> Dict[str, torch.Tensor]:
     """Deterministic-in-step synthetic LM data (replayable on rollback), the
     reference's tokens from the same numpy generator: next token = (token ·
-    31 + position) mod min(vocab, 97); labels are the tokens shifted by one."""
+    31 + position) mod min(vocab, 97); labels are the tokens shifted by one.
+    An encoder-decoder config also gets ``frames`` [B, S, d_frontend], normal
+    draws of the same generator after the tokens, as the reference's."""
     rng = np.random.default_rng(tcfg.seed + step)
     vocab_eff = min(cfg.vocab_size, 97)
     b, s = tcfg.batch, tcfg.seq_len
@@ -51,8 +53,12 @@ def synthetic_batch(cfg: ArchConfig, tcfg: TrainConfig, step: int,
     tokens = np.concatenate(toks, axis=1).astype(np.int32)
     labels = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1).astype(np.int32)
     dev = resolve_device(device)
-    return {"tokens": torch.from_numpy(tokens).to(dev),
-            "labels": torch.from_numpy(labels).to(dev)}
+    batch = {"tokens": torch.from_numpy(tokens).to(dev),
+             "labels": torch.from_numpy(labels).to(dev)}
+    if cfg.encdec:
+        frames = rng.normal(size=(b, s, cfg.d_frontend)).astype(np.float32)
+        batch["frames"] = torch.from_numpy(frames).to(dev)
+    return batch
 
 
 def value_and_grad(params, cfg: ArchConfig, batch):

@@ -14,9 +14,10 @@ Tolerances: kernel vs plain version 1e-5 (fp32, different summation order);
 flash_attention, its lse and its backward vs their plain versions 2e-5/2e-3
 in fp32 and 3e-2 in bf16 (the reference's tests/test_kernels.py);
 edge_softmax_normalize exactly (one IEEE division per element on both sides); engine on the card vs the same engine
-on the CPU 1e-5 per batch (different matmul kernels); the reduced LM on the
-card vs the CPU 1e-4 (fp32 cache and compute; the reduced xlstm 3e-4), the MoE
-combine bitwise the CPU's; the invariants inside the port are bitwise.
+on the CPU 1e-5 per batch (different matmul kernels); the reduced LMs (the
+encoder-decoder too) on the card vs the CPU 1e-4 (fp32 cache and compute;
+the reduced xlstm 3e-4), the MoE combine bitwise the CPU's; the invariants
+inside the port are bitwise.
 """
 import dataclasses
 
@@ -412,6 +413,22 @@ def test_flash_attention_bwd_kernels_match_plain_at_tile_edges(cuda, sq, sk, cau
     _bwd_check(*_attn_inputs(1, 4, 2, sq, sk, dh, dtype, seed=sq * 1000 + sk), causal)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(256, 300), (2048, 1999)])  # the cross attention's shapes
+def test_flash_attention_non_causal_at_a_ragged_sk_matches_plain(cuda, sq, sk, dtype):
+    """The encoder-decoder's cross attention: all 16 heads of 64 over a
+    source whose length is no multiple of the key tile, unmasked; the
+    forward against the plain version (a second launch bitwise the first)
+    and the backward against ``flash_attention_bwd_ref``."""
+    q, k, v = _attn_inputs(2, 16, 16, sq, sk, 64, dtype, seed=sk)
+    out = fmod.flash_attention(q, k, v, causal=False)
+    ref = kref.flash_attention_ref(q, k, v, causal=False)
+    tol = dict(atol=3e-2, rtol=3e-2) if dtype == torch.bfloat16 else dict(atol=2e-5, rtol=2e-3)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    assert torch.equal(out, fmod.flash_attention(q, k, v, causal=False))
+    _bwd_check(q, k, v, causal=False)
+
+
 def test_flash_attention_autograd_on_card_matches_cpu(cuda):
     q, k, v = _attn_inputs(1, 8, 2, 150, 150, 64, torch.float32, seed=3)
     do = torch.randn(q.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(4))
@@ -436,11 +453,15 @@ def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(cuda):
         fmod.flash_attention_bwd(q48, k48, v48, q48, lse, q48)
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b", "qwen3-moe-30b-a3b",
+                                  "seamless-m4t-large-v2"])
 def test_reduced_lm_loss_and_grads_on_card_match_cpu(cuda, name):
     """The training path on the card: the loss and every gradient leaf against
     the same model on the CPU (fp32, 1e-4 relative to the leaf's largest
-    entry); each backward kernel once a layer, the forward twice under remat."""
+    entry); each backward kernel once an attention call, the forward twice
+    under remat.  The encoder-decoder makes one call an encoder layer and two
+    a decoder layer (the causal self attention and the non-causal cross
+    attention)."""
     from repro_torch.train.trainer import TrainConfig, synthetic_batch, value_and_grad
     from repro_torch.train.tree import tree_paths
 
@@ -450,8 +471,9 @@ def test_reduced_lm_loss_and_grads_on_card_match_cpu(cuda, name):
     n_fwd, n_bwd = fmod.KERNEL.launches, fmod.BWD_KERNEL.launches
     loss, _, grads = value_and_grad(_to(params, "cuda"), cfg,
                                     {k: v.cuda() for k, v in batch.items()})
-    assert fmod.KERNEL.launches - n_fwd == 2 * cfg.num_layers
-    assert fmod.BWD_KERNEL.launches - n_bwd == 2 * cfg.num_layers  # dQ and dK/dV a layer
+    calls = cfg.enc_layers + 2 * cfg.num_layers if cfg.encdec else cfg.num_layers
+    assert fmod.KERNEL.launches - n_fwd == 2 * calls
+    assert fmod.BWD_KERNEL.launches - n_bwd == 2 * calls  # dQ and dK/dV a call
     loss_cpu, _, grads_cpu = value_and_grad(params, cfg, batch)
     assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
     for (key, a), (_, c) in zip(tree_paths(grads), tree_paths(grads_cpu)):
@@ -579,10 +601,41 @@ def test_reduced_recurrent_lm_on_card_matches_cpu(cuda, name):
     torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 12).tokens)
 
 
-def _serve_steps(params, cfg, tokens, prompt=36):
-    """Logits of a prefill into an fp32 cache and teacher-forced decode steps."""
-    logits, cache = lm_models.prefill(params, cfg, {"tokens": tokens[:, :prompt]},
-                                      s_max=tokens.shape[1], cache_dtype=torch.float32)
+def test_reduced_encdec_on_card_matches_cpu(cuda):
+    """The reduced seamless-m4t (2 encoder, 4 decoder layers; 37 source
+    frames, 40 tokens) on the card against the CPU (fp32 cache and
+    compute, 1e-4): forward, prefill and teacher-forced decode, ``serve``'s
+    tokens.  The forward launches ``flash_attention`` once an encoder layer
+    and twice a decoder layer (self and cross attention)."""
+    cfg = reduced_config(get_arch("seamless-m4t-large-v2"))
+    params = lm_models.init_model(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, "cuda")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    frames = torch.from_numpy(rng.normal(size=(2, 37, cfg.d_frontend)).astype(np.float32))
+    n0 = fmod.KERNEL.launches
+    full = lm_models.forward(on_card, cfg, {"frames": frames.cuda(), "tokens": tokens.cuda()})
+    assert fmod.KERNEL.launches == n0 + cfg.enc_layers + 2 * cfg.num_layers
+    torch.testing.assert_close(
+        full.cpu(), lm_models.forward(params, cfg, {"frames": frames, "tokens": tokens}),
+        atol=1e-4, rtol=1e-4)
+    card = _serve_steps(on_card, cfg, tokens.cuda(), frames=frames.cuda())
+    for i, (a, c) in enumerate(zip(card, _serve_steps(params, cfg, tokens, frames=frames))):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-4, rtol=1e-4, msg=f"step {i}")
+    res = serve(cfg, on_card, tokens[:, :8], 6, frames.cuda())
+    assert res.tokens.is_cuda and res.tokens.shape == (2, 7)
+    torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 6,
+                                                       frames).tokens)
+
+
+def _serve_steps(params, cfg, tokens, prompt=36, frames=None):
+    """Logits of a prefill into an fp32 cache and teacher-forced decode steps
+    (an encoder-decoder's prefill also takes its ``frames``)."""
+    batch = {"tokens": tokens[:, :prompt]}
+    if frames is not None:
+        batch["frames"] = frames
+    logits, cache = lm_models.prefill(params, cfg, batch, s_max=tokens.shape[1],
+                                      cache_dtype=torch.float32)
     steps = [logits]
     for i in range(prompt, tokens.shape[1]):
         logits, cache = lm_models.decode_step(params, cfg, tokens[:, i:i + 1], cache)

@@ -81,22 +81,26 @@ def test_unported_families_raise():
             tconfigs.get_arch(name)
     with pytest.raises(KeyError):
         tconfigs.get_arch("gpt-5")
-    assert len(tconfigs.NOT_PORTED) == 2 and not any(
+    assert len(tconfigs.NOT_PORTED) == 1 and not any(
         jconfigs.get_arch(n).is_moe or jconfigs.get_arch(n).block_pattern != "attn"
         for n in tconfigs.NOT_PORTED)
-    # the MoE and recurrent families build (tests/test_torch_moe.py and
-    # tests/test_torch_recurrent_lm.py hold them to the reference)
+    # the MoE, recurrent and encoder-decoder families build (tests/test_torch_moe.py,
+    # tests/test_torch_recurrent_lm.py and tests/test_torch_encdec.py hold them to the
+    # reference)
     moe = tconfigs.reduced_config(tconfigs.get_arch("qwen3-moe-30b-a3b"))
     assert "moe" in tmodels.init_model(torch.Generator().manual_seed(0), moe)["blocks"]
     for name, key in (("hymba-1.5b", "blocks"), ("xlstm-1.3b", "slstm_blocks")):
         cfg = tconfigs.reduced_config(tconfigs.get_arch(name))
         assert key in tmodels.init_model(torch.Generator().manual_seed(0), cfg)
     dense = tconfigs.reduced_config(tconfigs.get_arch("llama3.2-1b"))
-    for what, kw in (("10f", dict(num_patches=8)), ("10e", dict(encdec=True))):
-        with pytest.raises(NotImplementedError, match=what):
-            tmodels.init_model(torch.Generator().manual_seed(0), dataclasses.replace(dense, **kw))
-        with pytest.raises(NotImplementedError, match=what):
-            tmodels.init_cache(dataclasses.replace(moe, **kw), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="10f"):
+        tmodels.init_model(torch.Generator().manual_seed(0),
+                           dataclasses.replace(dense, num_patches=8))
+    with pytest.raises(NotImplementedError, match="10f"):
+        tmodels.init_cache(dataclasses.replace(moe, num_patches=8), 1, 8, device="cpu")
+    encdec = dataclasses.replace(dense, encdec=True, enc_layers=2, d_frontend=24)
+    assert {"enc_blocks", "dec_blocks"} <= set(
+        tmodels.init_model(torch.Generator().manual_seed(0), encdec))
 
 
 def test_llama_full_width_is_1_236b_parameters():
