@@ -286,6 +286,9 @@ TOL_KERNEL = 1e-5  # kernel vs plain version: fp32, different summation order
 TOL_ENGINE = 2e-4  # engine vs full recompute: the reference's tests/test_backends.py TOL
 TOL_ATTN = (2e-5, 2e-3)  # flash vs plain (atol, rtol): the reference's tests/test_kernels.py
 TOL_ATTN_BF16 = (3e-2, 3e-2)  # the same in bf16
+#: bf16 flash vs plain, per block of 128 query rows: the kernel's max |Δ| over
+#: SDPA's on the same inputs (a late row's |o| is far below TOL_ATTN_BF16's atol)
+TOL_ATTN_BF16_VS_LIBRARY = 2.0
 TOL_SUMS = 1e-4  # edge-softmax sums: the reference's tests/test_kernels.py
 TOL_TEACHER = 2e-2  # teacher-forced logits: the reference's tests/test_archs_smoke.py
 TOL_ODEC = 1e-5  # ODEC vs the committed engine: the reference's tests/test_baselines.py
@@ -312,6 +315,11 @@ RING_PROMPT, RING_STEPS = 1100, 8
 #: consistency phase's source is 300 frames (a ragged Sk for the cross attention over a
 #: 256-token prompt), and its kernel row's cross shape Sq 2048 over Sk 1,999
 ENCDEC_ARCH, ENCDEC_CONSIST_FRAMES, ENCDEC_CROSS_SK = "seamless-m4t-large-v2", 300, 1999
+#: the vlm at full width and depth (40 layers, 12.78B parameter elements, 51.1 GB in
+#: fp32): its 256 patches stand before the prompt, so the prefill attends over 2,304
+#: positions at head dim 160; its consistency phase's prompt is 300 tokens (256 + 300
+#: positions: the last key tile at dh 160 is ragged)
+VLM_ARCH, VLM_CONSIST_PROMPT = "pixtral-12b", 300
 TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
 TOL_TRAIN_GRAD = 1e-3  # lm_train_consistency: each leaf's max |Δ| / its max |entry|
 #: the same for the embedding under compute_dtype bf16: the gradient of its gathered rows
@@ -1799,7 +1807,8 @@ def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
     cache must be a ring of that many K/V slots (hymba past its window).
     ``check=False`` only measures (a difference the model has by design).
     ``frames``: an encoder-decoder's source length (normal draws after the
-    tokens), the same source in every call."""
+    tokens), the same source in every call.  A vlm gets its ``num_patches``
+    patches the same way, and its cache holds them before the prompt."""
     import torch
 
     from repro_torch.models import decode_step, forward, prefill
@@ -1811,13 +1820,17 @@ def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
     if cfg.encdec:
         src["frames"] = torch.from_numpy(
             rng.normal(size=(b, frames, cfg.d_frontend)).astype(np.float32)).cuda()
+    if cfg.num_patches:
+        src["patches"] = torch.from_numpy(
+            rng.normal(size=(b, cfg.num_patches, cfg.d_frontend)).astype(np.float32)).cuda()
+    n_patch = cfg.num_patches
     full = forward(params, cfg, {"tokens": tokens, **src})
     # the same forward over the prompt alone: how far the model itself moves
     # when only the shapes of its products change (no cache, no decode)
     prefix_err = float((forward(params, cfg, {"tokens": tokens[:, :s], **src})
                         - full[:, :s]).abs().max())
-    logits, cache = prefill(params, cfg, {"tokens": tokens[:, :s], **src}, s_max=s + steps,
-                            cache_dtype=torch.float32)
+    logits, cache = prefill(params, cfg, {"tokens": tokens[:, :s], **src},
+                            s_max=n_patch + s + steps, cache_dtype=torch.float32)
     slots = cache.k.shape[3] if hasattr(cache, "k") else None
     errs = [float((logits[:, 0] - full[:, s - 1]).abs().max())]
     for i in range(steps):
@@ -1829,6 +1842,8 @@ def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
            "forward_prefix_max_abs_err": prefix_err, "checked": check}
     if cfg.encdec:
         row["frames"] = frames
+    if n_patch:
+        row.update(patches=n_patch, cache_index=cache.index)
     emit(row)
     if not check:
         return row
@@ -1837,6 +1852,8 @@ def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
                              f"{TOL_TEACHER}")
     if ring_slots and slots != ring_slots:
         raise AssertionError(f"{phase}: the cache has {slots} slots, not a ring of {ring_slots}")
+    if n_patch and cache.index != n_patch + s + steps:
+        raise AssertionError(f"{phase}: cache index {cache.index}, not {n_patch + s + steps}")
     return row
 
 
@@ -2060,6 +2077,119 @@ def phase_lm_encdec_serve(seed: int, kernels: dict):
         raise AssertionError(f"{phase}: flash_attention launched {prefill_launches} times "
                              f"(serve: {launches}), calls {by_kind}, expected {expected}: "
                              "one an encoder layer, two a decoder layer")
+    return row, cfg, params
+
+
+def phase_lm_vlm_serve(seed: int, kernels: dict):
+    """The serving path on the vlm at full width and depth: ``serve`` on
+    tokens and the config's patches (normal draws of the same generator
+    after the tokens, as ``repro.launch.serve`` draws them), counts set to
+    0 just before it and read just after; then a prefill alone, counted
+    the same way, with each ``flash_attention`` call's ``causal``, Sq, Sk
+    and head dim read (one a layer, causal over patches + prompt); a
+    profiled prefill and decode.  Returns the row, the config and the
+    weights."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_model, prefill
+    from repro_torch.train.tree import tree_leaves
+
+    phase = "lm_vlm_serve"
+    cfg = get_arch(VLM_ARCH)
+    n_pos = cfg.num_patches + LM_PROMPT  # the prefill's positions
+    s_max = n_pos + LM_GEN
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    patches = rng.normal(size=(LM_BATCH, cfg.num_patches, cfg.d_frontend)).astype(np.float32)
+    serve(cfg, params, tokens[:, :64], 2, patches=patches)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    res = serve(cfg, params, tokens, LM_GEN, patches=patches)
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    out = res.tokens
+    if out.shape != (LM_BATCH, LM_GEN + 1) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{phase}: bad tokens {tuple(out.shape)}")
+
+    batch = {"tokens": torch.from_numpy(tokens).cuda(),
+             "patches": torch.from_numpy(patches).cuda()}
+    calls, orig_attn = [], kops.flash_attention
+
+    def reading_attn(q, k, v, causal=True, window=None, q_offset=0):
+        calls.append((bool(causal), q.shape[2], k.shape[2], q.shape[3]))
+        return orig_attn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    _zero_counts(kernels)
+    kops.flash_attention = reading_attn
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, batch, s_max=s_max)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+    finally:
+        kops.flash_attention = orig_attn
+    prefill_launches = _counts(kernels)
+    finite = bool(torch.isfinite(logits).all())
+    cache_index, cache_len = cache.index, cache.k.shape[3]
+    cache_bytes = {name: getattr(cache, name).numel() * getattr(cache, name).element_size()
+                   for name in ("k", "v")}
+    del cache
+    pre = _profiled(lambda: prefill(params, cfg, batch, s_max=s_max))
+    _, cache = prefill(params, cfg, batch, s_max=s_max)
+    first = out[:, :1]
+
+    def decode_steps():
+        nonlocal cache
+        tok = first
+        for _ in range(8):
+            step_logits, cache = decode_step(params, cfg, tok, cache)
+            tok = step_logits[:, -1].argmax(-1, keepdim=True)
+
+    dec = _profiled(decode_steps)
+    dec["steps"] = 8
+    del cache
+    row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "num_patches": cfg.num_patches, "d_frontend": cfg.d_frontend,
+           "params": cfg.param_count(),
+           "param_elements": sum(t.numel() for t in tree_leaves(params)),
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN, "prefill_positions": n_pos,
+           "s_max": s_max, "init_s": init_s, "init_peak_mem_bytes": init_peak,
+           "prefill_s": res.prefill_s,
+           "prefill_tokens_per_s": LM_BATCH * n_pos / res.prefill_s,
+           "decode_ms_per_token": res.decode_s / LM_GEN * 1e3,
+           "decode_tokens_per_s": LM_BATCH * LM_GEN / res.decode_s,
+           "peak_mem_bytes": peak, "cache_bytes": cache_bytes, "cache_index": cache_index,
+           "cache_len": cache_len, "launches": launches, "prefill_launches": prefill_launches,
+           "prefill_attention_calls": sorted(set(calls)),
+           "counted_prefill_s": counted_s, "prefill_logits_finite": finite,
+           "profiled_prefill": pre, "profiled_decode": dec, "sample": out[0, :8].tolist()}
+    emit(row)
+    if not finite:
+        raise AssertionError(f"{phase}: the prefill's logits are not finite")
+    if (prefill_launches["flash_attention"] != cfg.num_layers
+            or launches["flash_attention"] != cfg.num_layers or len(calls) != cfg.num_layers
+            or set(calls) != {(True, n_pos, n_pos, cfg.resolved_head_dim)}):
+        raise AssertionError(f"{phase}: flash_attention launched {prefill_launches} times "
+                             f"(serve: {launches}), calls {sorted(set(calls))}, expected "
+                             f"{cfg.num_layers}: one a layer, causal over {n_pos} positions "
+                             f"at dh {cfg.resolved_head_dim}")
+    if (cache_index, cache_len) != (n_pos, s_max):
+        raise AssertionError(f"{phase}: cache index {cache_index} of {cache_len}, expected "
+                             f"{n_pos} of {s_max}")
     return row, cfg, params
 
 
@@ -2363,25 +2493,34 @@ def _rel_err(card, cpu) -> float:
     return float((card.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
 
 
+def _block_err(x, ref, rows: int = 128):
+    """max |x − ref| of [B, H, S, dh] in each block of ``rows`` query rows."""
+    import torch.nn.functional as F
+
+    per_row = (x - ref).abs().amax(dim=(0, 1, 3))
+    return F.pad(per_row, (0, -per_row.numel() % rows)).view(-1, rows).amax(1)
+
+
 def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal: bool = True,
-                           sk: int = None) -> dict:
+                           sk: int = None, s: int = LM_PROMPT) -> dict:
     """The prefill shape of ``cfg`` (GQA; causal, or not with ``causal=False``,
-    as the encoder's self attention and the cross attention run; ``sk`` keys,
-    the prompt's length unless given) in fp32, the main path's dtype, or in
+    as the encoder's self attention and the cross attention run; ``s`` query
+    rows, the prompt's length unless given, and ``sk`` keys, ``s`` unless
+    given) in fp32, the main path's dtype, or in
     bf16; with a sliding ``window``, the pairs of the band.  The bound is the
     design's over the visible key–query pairs (Sq·Sk a head when not causal):
     fp32 runs three TF32 products per product (split TF32), bf16 one bf16
     product.  The library call is ``scaled_dot_product_attention``, causal or
     not, or with the band as a boolean mask.  A second launch must give the
-    first's bits."""
+    first's bits.  In bf16 each block of 128 query rows must also be within
+    ``TOL_ATTN_BF16_VS_LIBRARY`` times SDPA's max |Δ| in that block."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
 
-    b, hq, hkv, s, dh = (LM_BATCH, cfg.num_heads, cfg.num_kv_heads, LM_PROMPT,
-                         cfg.resolved_head_dim)
+    b, hq, hkv, dh = LM_BATCH, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     sk = s if sk is None else sk
     dt = getattr(torch, dtype)
     q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
@@ -2412,6 +2551,14 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
     within = (bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()) and lse_same_o
               and lse_ok and repeat)
     err, lib_err = float((out - ref).abs().max()), float((lib - ref).abs().max())
+    scaled = {}
+    if dtype != "float32":  # errors scaled per row and per block, where |o| is small
+        blocks = _block_err(out, ref) / _block_err(lib, ref).clamp_min(1e-30)
+        rms = ref.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+        scaled = {"block_err_over_library": float(blocks.max()),
+                  "row_rel_err": float(((out - ref).abs().amax(-1) / rms).max()),
+                  "library_row_rel_err": float(((lib - ref).abs().amax(-1) / rms).max())}
+        within = within and scaled["block_err_over_library"] <= TOL_ATTN_BF16_VS_LIBRARY
     del out, ref, lib, o_lse, lse, lse_ref
     ms = cuda_time_ms(lambda: flash_attention(q, k, v, **mask), 20)
     plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, **mask), 3, warmup=1)
@@ -2430,7 +2577,7 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
     row = {"name": "flash_attention",
            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "Sk": sk, "dh": dh, "causal": causal,
                      "window": window, "dtype": dtype, "visible_pairs_a_head": pairs},
-           "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err,
+           "max_abs_err": err, "within_tol": within, "library_max_abs_err": lib_err, **scaled,
            "lse_same_o_bits": lse_same_o, "lse_max_abs_err": lse_err, "repeat_bitwise": repeat,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
            "library_ms": lib_ms, "flops": flops,
@@ -2734,10 +2881,18 @@ def main(argv=None) -> int:
         phase_lm_consistency(dataclasses.replace(encdec_cfg, compute_dtype=compute),
                              encdec_params, args.seed, phase=phase, frames=ENCDEC_CONSIST_FRAMES)
     del encdec_params
+    vlm, vlm_cfg, vlm_params = phase_lm_vlm_serve(args.seed, kernels)
+    # 256 patches + 300 tokens: the last key tile at dh 160 is ragged; bf16 compute is
+    # held at the same tolerance (its forward over the prompt alone is measured too)
+    for compute, phase in (("float32", "lm_vlm_consistency"),
+                           ("bfloat16", "lm_vlm_consistency_bf16")):
+        phase_lm_consistency(dataclasses.replace(vlm_cfg, compute_dtype=compute), vlm_params,
+                             args.seed, phase=phase, prompt=VLM_CONSIST_PROMPT)
+    del vlm_params
     _free_cuda()
     # every path's launches: the engine phases, the serving phases, the op, the LM
     path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe,
-                                                             hymba, xlstm, encdec]
+                                                             hymba, xlstm, encdec, vlm]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -2785,6 +2940,12 @@ def main(argv=None) -> int:
         {**kernel_flash_attention(encdec_cfg, gen, causal=False, sk=ENCDEC_CROSS_SK),
          "variant": "encdec_cross"},
         {**kernel_flash_attention(encdec_cfg, gen), "variant": "encdec_decoder"},
+        # the vlm: pixtral's prefill over 256 patches + 2,048 tokens at head dim 160, in
+        # the path's fp32 and in bf16
+        {**kernel_flash_attention(vlm_cfg, gen, s=vlm_cfg.num_patches + LM_PROMPT),
+         "variant": "vlm_prefill"},
+        {**kernel_flash_attention(vlm_cfg, gen, "bfloat16", s=vlm_cfg.num_patches + LM_PROMPT),
+         "variant": "vlm_prefill_bf16"},
         kernel_flash_attention_bwd(cfg, gen),
         kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
         kernel_edge_softmax(wl.base, gen),
@@ -2814,9 +2975,10 @@ def main(argv=None) -> int:
                 entry[extra] = res[extra]
         if name in ("segment_spmm", "flash_attention"):  # of which the MoE serve path's
             entry["launches_lm_moe_serve"] = moe["launches"][name]
-        if name == "flash_attention":  # and hymba's, and the encoder-decoder's
+        if name == "flash_attention":  # and hymba's, the encoder-decoder's and the vlm's
             entry["launches_lm_hymba_serve"] = hymba["launches"][name]
             entry["launches_lm_encdec_serve"] = encdec["launches"][name]
+            entry["launches_lm_vlm_serve"] = vlm["launches"][name]
             entry["launches_lm_encdec_serve_non_causal"] = encdec[
                 "prefill_attention_calls"]["non_causal"]
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it

@@ -1,11 +1,11 @@
 """Architecture registry of the port: the dense GQA transformers, the MoE
-family, the recurrent families (hymba, xlstm) and the encoder-decoder
-(seamless-m4t).
+family, the recurrent families (hymba, xlstm), the encoder-decoder
+(seamless-m4t) and the vlm (pixtral-12b: the dense decoder behind a stubbed
+patch frontend).
 
 The JAX package's registry (``repro.configs``) names ten architectures; the
-port serves the four dense ones, the two MoE ones, hymba-1.5b, xlstm-1.3b
-and seamless-m4t-large-v2.  Naming pixtral-12b raises
-``NotImplementedError`` with the ROADMAP.md item that ports its family."""
+port serves all ten.  :data:`NOT_PORTED` stays, empty: a name in it would
+raise ``NotImplementedError`` with the ROADMAP.md item that ports it."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,12 +23,11 @@ _ARCH_MODULES = {
     "hymba-1.5b": "hymba_1_5b",
     "xlstm-1.3b": "xlstm_1_3b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "pixtral-12b": "pixtral_12b",
 }
 
 #: architectures of the JAX package not ported yet → where ROADMAP.md queues them
-NOT_PORTED = {
-    "pixtral-12b": "vlm: ROADMAP.md Queue 1 item 10f (the patch frontend)",
-}
+NOT_PORTED: dict = {}
 
 ARCH_NAMES = list(_ARCH_MODULES)
 
@@ -66,6 +65,8 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
         kw.update(slstm_every=4, d_ff=0)
     if cfg.encdec:
         kw.update(enc_layers=2, d_frontend=24)
+    if cfg.num_patches:
+        kw.update(num_patches=8, d_frontend=24)
     return dataclasses.replace(cfg, **kw)
 
 

@@ -6,7 +6,7 @@
 //   j > i + q_offset − window (window > 0).  A row that sees no key gives 0.
 //
 // q [B, Hq, Sq, dh], k and v [B, Hkv, Sk, dh], o like q; all contiguous and
-// 16-byte aligned, fp32 or bf16 (o in q's type); dh ∈ {16, 32, 64, 128}.  The
+// 16-byte aligned, fp32 or bf16 (o in q's type); dh ∈ {16, 32, 64, 128, 160}.  The
 // softmax state (m, l, acc) is fp32.  When `lse` is not null the kernel also
 // writes each row's log-sum-exp, lse [B, Hq, Sq] fp32 = ln Σ_j exp(q·k_j ·
 // scale) over the visible keys, for the backward (flash_attention_bwd.cu): m
@@ -32,7 +32,9 @@
 // (plain TF32 keeps ~3 digits, too few for the fp32 tolerance of 2e-5 + 2e-3·|o|).
 // That is 3 × 1.375e11 operations: 0.833 ms at 495 TFLOP/s dense TF32.  bf16
 // inputs take one bf16 product: 0.139 ms at 989 TFLOP/s.  The fp32 CUDA cores
-// (67 TFLOP/s) could not go below 2.05 ms.
+// (67 TFLOP/s) could not go below 2.05 ms.  At pixtral-12b's prefill (B 8, Hq
+// 32, Hkv 8, S 2,304, dh 160, causal): 4.35e11 operations, 2.637 ms in split
+// TF32 and 0.440 ms in bf16, against 0.94 GB (0.28 ms).
 //
 // What the design does about it: one block of two warpgroups per (b·Hq, 128-row
 // query tile), each warpgroup owning 64 rows.  Thread 0 keeps the K/V tiles of
@@ -52,7 +54,22 @@
 // other, so the split (CUDA cores, shared memory) hides behind the products.
 // fp32 at dh 128 (whose Q fragments would take 128 registers a thread) and bf16
 // read Q from shared memory and use one buffer; fp32 at dh 128 also takes
-// 32-key tiles and one raw stage to fit in 227 KB.  P never leaves the
+// 32-key tiles and one raw stage to fit in 227 KB.  dh 160 (pixtral-12b, whose
+// prefill runs it causal over 2,304 rows in fp32): with 128 query rows, Q's hi
+// and lo alone take 2 × 128 × 160 × 4 = 163,840 B, and with dh 128's 32-key
+// tiles and one raw stage the block would need 286,728 B.  Two ways fit: 128
+// rows with 16-key tiles (225,288 B, but S in m64n16 products, 60 of them a
+// tile, and a barrier every 16 keys), or one warpgroup of 64 rows a block; fp32
+// at dh 160 takes the second: Q 81,920 + K and Vᵀ hi and lo 81,920 + one raw
+// K/V stage 40,960 + 8 = 204,808 B, one block an SM, a grid of Sq / 64 rows
+// (so the split of a tile does not overlap the other warpgroup's products).
+// bf16 at dh 160 keeps the two-warpgroup shape: Q 40,960 + K and Vᵀ 40,960 +
+// two raw stages 81,920 + 16 = 163,856 B.  O += P·V is one m64n160 wgmma a k
+// step (80 fp32 accumulators a thread); ptxas -v gives 240 registers a thread
+// in fp32 and 197 in bf16 at dh 160, no spills.  The split's bank spreading
+// gives each group of 8 threads 8 distinct chunks; in bf16 at dh 160 a raw row
+// is 20 chunks, so some groups' shared reads of a K tile meet 2-way conflicts
+// (the fp32 row, 40 chunks, has none).  P never leaves the
 // registers: the S accumulator gives a thread keys 2t, 2t+1 of each 8-key group
 // where the TF32 A fragment wants keys t, t+4, so the V split stores each 8-key
 // group in the order 0 2 4 6 1 3 5 7 and the product is unchanged.  (bf16 needs
@@ -77,9 +94,7 @@ using hopper::Mma;
 using hopper::Op;
 using hopper::Src;
 
-constexpr int kBQ = 128;      // query rows per block
-constexpr int kWG = 64;       // query rows per warpgroup
-constexpr int kThreads = 256;  // two warpgroups
+constexpr int kWG = 64;  // query rows per warpgroup
 
 template <typename T, int DH>
 struct Cfg {
@@ -90,14 +105,20 @@ struct Cfg {
   static constexpr int kEPC = 16 / kE;                    // elements per 16-byte chunk
   static constexpr int kCPR = DH / kEPC;                  // chunks per row of q or k
   static constexpr int kKStep = 32 / kE;                  // k of one wgmma
+  // A block is two warpgroups of 64 query rows, except fp32 at dh 160: Q's hi
+  // and lo for 128 rows would take 160 KB there, so its block is one
+  // warpgroup of 64 rows (a grid twice as tall).
+  static constexpr int kWGs = (kSplit && DH > 128) ? 1 : 2;
+  static constexpr int kBQ = kWGs * kWG;        // query rows per block
+  static constexpr int kThreads = kWGs * 128;
   // fp32 up to dh 64 keeps Q's hi and lo A fragments in registers and splits
-  // tile t + 1 into a second operand buffer while tile t computes.  fp32 at
-  // dh 128 (whose fragments would take 128 registers a thread) and bf16 read Q
-  // from shared memory and use one operand buffer; fp32 at dh 128 also shrinks
-  // the tiles to 32 keys and one raw stage to fit in 227 KB.
+  // tile t + 1 into a second operand buffer while tile t computes.  fp32 from
+  // dh 128 (whose fragments would take 128 registers a thread or more) and
+  // bf16 read Q from shared memory and use one operand buffer; fp32 from dh
+  // 128 also shrinks the tiles to 32 keys and one raw stage to fit in 227 KB.
   static constexpr bool kQRegs = kSplit && DH <= 64;
-  static constexpr int kBK = (kSplit && DH == 128) ? 32 : 64;
-  static constexpr int kStages = (kSplit && DH == 128) ? 1 : 2;
+  static constexpr int kBK = (kSplit && DH >= 128) ? 32 : 64;
+  static constexpr int kStages = (kSplit && DH >= 128) ? 1 : 2;
   static constexpr int kBufs = kQRegs ? 2 : 1;  // two: tile t + 1 is split while t computes
   static constexpr int kQBytes = kBQ * DH * kE;    // one part of the Q operand
   static constexpr int kKBytes = kBK * DH * kE;    // one part of the K (or Vᵀ) operand
@@ -108,6 +129,7 @@ struct Cfg {
   static constexpr int kSmem =
       kQRegion + kBufs * kBufBytes + kStages * 2 * kRawBytes + 8 * kStages;
   static_assert(!kQRegs || kParts * kQBytes <= kBufBytes, "Q must fit in an operand buffer");
+  static_assert(kSmem <= 232448, "a block may have at most 227 KB of shared memory");
 };
 
 // One 16-byte chunk of raw values → the operand part(s) at byte `off`.
@@ -137,11 +159,11 @@ template <typename T, int DH, int R, bool kGlobal>
 __device__ __forceinline__ void split_rows(const T* raw, unsigned char* hi, unsigned char* lo,
                                            int nvalid) {
   using C = Cfg<T, DH>;
-  constexpr int CPR = C::kCPR, N = R * CPR;
+  constexpr int CPR = C::kCPR, N = R * CPR, NT = C::kThreads;
 #pragma unroll
-  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
-    const int q = it * kThreads + static_cast<int>(threadIdx.x);
-    if (N % kThreads != 0 && q >= N) break;
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int q = it * NT + static_cast<int>(threadIdx.x);
+    if (N % NT != 0 && q >= N) break;
     const int i = q & 7, j = q >> 3;
     const int r = (j % (R / 8)) * 8 + i, c = (j / (R / 8) + i) % CPR;
     const uint4* src = reinterpret_cast<const uint4*>(raw + r * DH + c * C::kEPC);
@@ -171,13 +193,13 @@ template <typename T, int DH>
 __device__ __forceinline__ void split_vt(const T* raw, unsigned char* hi, unsigned char* lo,
                                          int nvalid) {
   using C = Cfg<T, DH>;
-  constexpr int NKC = C::kBK / C::kEPC, N = DH * NKC;  // key chunks, units
+  constexpr int NKC = C::kBK / C::kEPC, N = DH * NKC, NT = C::kThreads;  // key chunks, units
   using Bits = typename std::conditional<C::kSplit, uint32_t, uint16_t>::type;
   const Bits* bits = reinterpret_cast<const Bits*>(raw);
 #pragma unroll
-  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
-    const int q = it * kThreads + static_cast<int>(threadIdx.x);
-    if (N % kThreads != 0 && q >= N) break;
+  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+    const int q = it * NT + static_cast<int>(threadIdx.x);
+    if (N % NT != 0 && q >= N) break;
     const int d = q % DH, kc = q / DH;
     union {
       uint4 u;
@@ -203,14 +225,14 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // kLse: also write each row's log-sum-exp (an instantiation of its own, so
 // that the serving path without it is the kernel it was)
 template <typename T, int DH, bool kLse>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<T, DH>::kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int hq, int g,
                        long long sq, long long sk, float scale_log2, int causal,
                        long long window, long long q_offset) {
   using C = Cfg<T, DH>;
-  constexpr int BK = C::kBK, NS = BK / 2, NO = DH / 2;
+  constexpr int BK = C::kBK, NS = BK / 2, NO = DH / 2, kBQ = C::kBQ;
   constexpr int QK_STEPS = DH / C::kKStep, PV_STEPS = BK / C::kKStep;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* bufs = smem + C::kQRegion;  // [buffer][K parts, Vᵀ parts]
@@ -485,11 +507,13 @@ int launch_kernel(const void* q, const void* k, const void* v, void* o, float* l
                   float scale, int causal, long long window, long long q_offset,
                   cudaStream_t stream) {
   constexpr int smem = Cfg<T, DH>::kSmem;
+  constexpr int kBQ = Cfg<T, DH>::kBQ;
+  if ((sq + kBQ - 1) / kBQ > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid.y
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DH, kLse>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(b * hq), static_cast<unsigned>((sq + kBQ - 1) / kBQ));
-  flash_attention_kernel<T, DH, kLse><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<T, DH, kLse><<<grid, Cfg<T, DH>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, static_cast<int>(hq), static_cast<int>(hq / hkv), sq, sk,
       scale * 1.4426950408889634f, causal, window, q_offset);
@@ -524,6 +548,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, lo
                            causal, window, q_offset, st);
     case 128:
       return launch<T, 128>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, sk, scale,
+                            causal, window, q_offset, st);
+    case 160:
+      return launch<T, 160>(q, k, v, o, static_cast<float*>(lse), b, hq, hkv, sq, sk, scale,
                             causal, window, q_offset, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -13,7 +13,9 @@
 //
 // q, o, dO, dq [B, Hq, Sq, dh]; k, v, dk, dv [B, Hkv, Sk, dh]; lse and D [B, Hq, Sq]
 // fp32; all contiguous and 16-byte aligned; fp32 or bf16 (gradients in the input
-// type), fp32 accumulation; dh ∈ {16, 32, 64, 128}.
+// type), fp32 accumulation; dh ∈ {16, 32, 64, 128}.  The forward also takes
+// dh 160 (pixtral-12b); this backward does not yet: the wrapper raises there
+// (ROADMAP.md item 10f′).
 //
 // Replaces: no TPU kernel.  The Pallas `flash_attention` (src/repro/kernels/
 // flash_attention.py) has no VJP, and the JAX package's training differentiates

@@ -20,8 +20,8 @@ its note on what bounds it:
 
 :func:`flash_attention` dispatches on the device of q: CPU tensors go to the
 plain version, CUDA tensors to the kernel (fp32 or bf16, contiguous,
-16-byte aligned, dh in :data:`HEAD_DIMS`), anything else raises.  It never
-falls back from the card to the plain version.
+16-byte aligned, dh in :data:`HEAD_DIMS`: 16, 32, 64, 128 and 160), anything
+else raises.  It never falls back from the card to the plain version.
 
 Training.  When grad is enabled and an input requires it,
 :func:`flash_attention` goes through :class:`_FlashAttention`: its forward
@@ -32,8 +32,10 @@ log-sum-exp ``lse = ln Σ_j exp(q·k_j · scale)`` over the visible keys, fp32
 ``repro_torch/csrc/flash_attention_bwd.cu``: the dQ kernel (which also
 writes D = rowsum(dO ∘ O)) and then the dK/dV kernel, each output element
 with one owner (no atomics), their products on the tensor cores as the
-forward's (split TF32 for fp32, bf16 for bf16).  Their plain versions are
-:func:`repro_torch.kernels.ref.flash_attention_lse_ref` and
+forward's (split TF32 for fp32, bf16 for bf16), at dh in
+:data:`BWD_HEAD_DIMS` (16, 32, 64, 128): at dh 160 (pixtral-12b) the
+backward raises on a CUDA tensor (ROADMAP.md item 10f′).  Their plain
+versions are :func:`repro_torch.kernels.ref.flash_attention_lse_ref` and
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.  Without grad the
 path is the serving one: the same launch, no ``lse``, the same bits.
 """
@@ -61,10 +63,10 @@ BWD_ENTRIES = ("dq", "dkdv")
 BWD_KERNEL = CudaKernel("flash_attention_bwd", {
     f"flash_attention_bwd_{entry}_{t}": BWD_ARGTYPES
     for entry in BWD_ENTRIES for t in ("f32", "bf16")})
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 160)  # the forward kernel's
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # the backward kernels'; dh 160: ROADMAP.md item 10f′
 _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _BWD_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_BQ = 128  # query rows per block; the grid's second dimension holds Sq / 128 ≤ 65535
 #: the fewest query rows (dQ) or keys (dK/dV) a block of the backward kernels owns
 #: (64; 128 in fp32 up to dh 64): the grid's second dimension holds S / 64 ≤ 65535
 _BWD_TILE = 64
@@ -126,6 +128,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     the two backward kernels (the dQ kernel, then the dK/dV kernel, on the
     current stream), anything else raises."""
     _check_shapes(q, k, v, window)
+    if q.device.type == "cuda" and q.shape[3] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {q.shape[3]} not in {BWD_HEAD_DIMS} "
+                         "(the backward at dh 160 is ROADMAP.md item 10f′)")
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != tuple(q.shape[:3]):
         raise ValueError(f"o and do must be shaped like q {tuple(q.shape)} and lse "
@@ -210,5 +215,3 @@ def _check_cuda(q, k, v) -> None:
         raise ValueError("q, k, v must start on 16-byte boundaries (the kernel's bulk copies)")
     if q.shape[3] not in HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[3]} not in {HEAD_DIMS}")
-    if -(-q.shape[2] // _BQ) > 65535:
-        raise ValueError(f"Sq = {q.shape[2]} exceeds {65535 * _BQ}")

@@ -1,5 +1,5 @@
 """Serving entry point: batched prefill + greedy decode loop for any ported
-LM (dense, MoE, hymba, xLSTM, the encoder-decoder).
+LM (dense, MoE, hymba, xLSTM, the encoder-decoder, the vlm).
 
     python -m repro_torch.launch.serve --arch llama3.2-1b        # full width, on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
@@ -8,10 +8,13 @@ LM (dense, MoE, hymba, xLSTM, the encoder-decoder).
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
+        --reduced --device cpu
 
 Weights are random, from a seeded ``torch.Generator``; prompt tokens from
 ``numpy.random.default_rng(0)``, then, for the encoder-decoder, as many
-source frames as the prompt has tokens from the same generator (as
+source frames as the prompt has tokens, and for the vlm its
+``num_patches`` patches, normal draws of the same generator (as
 ``repro.launch.serve`` draws them).  Only ``--reduced`` cuts the config.
 """
 from __future__ import annotations
@@ -39,14 +42,15 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(cfg: ArchConfig, params, tokens, gen: int, frames=None) -> ServeResult:
+def serve(cfg: ArchConfig, params, tokens, gen: int, frames=None, patches=None) -> ServeResult:
     """Prefill ``tokens`` [B, S] into a bf16 cache of ``S + gen`` positions
     (hymba: a ring of ``window`` slots when that is fewer; xLSTM: its
     recurrent states; the encoder-decoder: also the cross memory of
-    ``frames`` [B, S_src, d_frontend], which it requires), then ``gen``
-    greedy decode steps.  Runs where ``params`` lie; the loop keeps the
-    tokens on that device (argmax there, no read-back per step).  The
-    prefill's time includes the encoder's."""
+    ``frames`` [B, S_src, d_frontend], which it requires; the vlm: ``P + S +
+    gen`` positions behind its ``patches`` [B, P, d_frontend], which it
+    requires), then ``gen`` greedy decode steps.  Runs where ``params`` lie;
+    the loop keeps the tokens on that device (argmax there, no read-back per
+    step).  The prefill's time includes the encoder's and the patches'."""
     set_fp32_precision()
     dev = params["embed"].device
     batch = {"tokens": torch.as_tensor(tokens).to(dev)}
@@ -54,9 +58,15 @@ def serve(cfg: ArchConfig, params, tokens, gen: int, frames=None) -> ServeResult
         if frames is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: serve needs its frames")
         batch["frames"] = torch.as_tensor(frames).to(dev)
+    if cfg.num_patches:
+        if patches is None:
+            raise ValueError(f"{cfg.name} is a vlm: serve needs its patches")
+        batch["patches"] = torch.as_tensor(patches).to(dev)
+    n_patch = batch["patches"].shape[1] if cfg.num_patches else 0
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, batch, s_max=batch["tokens"].shape[1] + gen)
+    logits, cache = prefill(params, cfg, batch,
+                            s_max=n_patch + batch["tokens"].shape[1] + gen)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     tok = logits[:, -1].argmax(-1, keepdim=True)
@@ -89,7 +99,9 @@ def main(argv=None) -> None:
     tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     frames = (rng.normal(size=(args.batch, args.prompt_len, cfg.d_frontend)).astype(np.float32)
               if cfg.encdec else None)
-    res = serve(cfg, params, tokens, args.gen, frames)
+    patches = (rng.normal(size=(args.batch, cfg.num_patches, cfg.d_frontend)).astype(np.float32)
+               if cfg.num_patches else None)
+    res = serve(cfg, params, tokens, args.gen, frames, patches)
     print(f"arch={cfg.name} device={dev} prefill={res.prefill_s * 1e3:.1f}ms "
           f"decode={res.decode_s / max(args.gen, 1) * 1e3:.2f}ms/tok "
           f"throughput={args.batch * args.gen / res.decode_s:.1f}tok/s")

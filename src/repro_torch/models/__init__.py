@@ -4,11 +4,12 @@ xLSTM and encoder-decoder families.
 
 ``batch`` is a dict with ``"tokens"`` ``[B, S]`` (int tensor on the
 parameters' device), as in the reference; an encoder-decoder config
-(``cfg.encdec``) also takes ``"frames"`` ``[B, S_src, d_frontend]``.  The
-decode cache is an :class:`LMCache` (K/V; hymba's also its SSD states and
-convolution carries), for xLSTM an :class:`XLSTMCache`, for the
-encoder-decoder an :class:`EncDecCache`.  A vlm config raises
-``NotImplementedError`` naming its ROADMAP.md item."""
+(``cfg.encdec``) also takes ``"frames"`` ``[B, S_src, d_frontend]``, a vlm
+(``cfg.num_patches``) ``"patches"`` ``[B, P, d_frontend]``, which stand
+before the tokens (the logits cover the text only; a prefill's cache holds
+P + S positions).  The decode cache is an :class:`LMCache` (K/V; hymba's
+also its SSD states and convolution carries), for xLSTM an
+:class:`XLSTMCache`, for the encoder-decoder an :class:`EncDecCache`."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -32,7 +33,8 @@ def init_model(gen: torch.Generator, cfg: ArchConfig):
 
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any]):
     """``(loss, metrics)`` of a batch with ``tokens`` and ``labels`` (and
-    ``frames``): ``{"ce", "aux"}``, for the encoder-decoder ``{"ce"}``."""
+    ``frames`` or ``patches``): ``{"ce", "aux"}``, for the encoder-decoder
+    ``{"ce"}``."""
     if cfg.encdec:
         return _encdec.encdec_loss(params, cfg, batch)
     return _lm.lm_loss(params, cfg, batch)
@@ -43,7 +45,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, Any]) -> torch.Tensor:
     (``repro_torch.models.lm.forward_with_aux`` gives both)."""
     if cfg.encdec:
         return _encdec.forward(params, cfg, batch["frames"], batch["tokens"])
-    return _lm.forward(params, cfg, batch["tokens"])
+    return _lm.forward(params, cfg, batch["tokens"], batch.get("patches"))
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], s_max: int, cache_dtype=None):
@@ -51,7 +53,8 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], s_max: int, cache_dt
     if cfg.encdec:
         return _encdec.prefill(params, cfg, batch["frames"], batch["tokens"], s_max,
                                cache_dtype=cache_dtype)
-    return _lm.prefill(params, cfg, batch["tokens"], s_max, cache_dtype=cache_dtype)
+    return _lm.prefill(params, cfg, batch["tokens"], s_max, cache_dtype=cache_dtype,
+                       patches=batch.get("patches"))
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache):

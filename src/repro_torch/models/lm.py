@@ -1,15 +1,17 @@
 """Decoder-only LM: the dense GQA family (qwen2.5 / granite / llama3.2 /
 minicpm), the MoE family (qwen3-moe, moonshot), hymba (parallel attention
-and SSD heads) and xLSTM (sLSTM-led groups of mLSTM blocks).
+and SSD heads), xLSTM (sLSTM-led groups of mLSTM blocks) and the vlm
+(pixtral: the dense decoder behind a stubbed patch frontend).
 
-The counterpart of ``repro.models.lm`` for these four families.  Parameters
+The counterpart of ``repro.models.lm`` for these five families.  Parameters
 are a plain dict of tensors with the reference's tree and layouts: stacked
 ``[L, …]`` layer weights under ``blocks`` (``ln1``, ``ln2``,
 ``attn.{wq,wk,wv,wo[,bq,bk,bv][,q_norm,k_norm]}``, and either
 ``mlp.{wg,wi,wo}`` or, for MoE, ``moe.{router,wi,wg,wo[,shared_*]}``
 (:mod:`repro_torch.nn.moe`); hymba adds ``ssd.{w_in,conv_w,w_bc,w_dt,a_log,
 dt_bias,d_skip,w_out,out_norm}``), ``embed`` ``[V, D]``, ``final_norm`` and,
-when the embeddings are not tied, ``lm_head`` ``[D, V]``.  xLSTM has no
+when the embeddings are not tied, ``lm_head`` ``[D, V]``; a vlm adds
+``patch_proj`` ``[d_frontend, D]``.  xLSTM has no
 ``blocks``: ``slstm_blocks`` ``[G, …]`` and ``mlstm_blocks`` ``[G, P−1, …]``
 for G groups of P layers.  Python loops over the layers stand where the
 reference has ``lax.scan``.
@@ -48,8 +50,15 @@ refuses its configs.  That module builds its layers from seven helpers of
 this one (``_attn_kwargs``, ``_embed``, ``_ffn``, ``_init_mlp``,
 ``_layer``, ``_logits``, ``_remat_runner``): a change to one of them must
 keep both families, and ``tests/test_torch_encdec.py`` holds the
-encoder-decoder against the reference through them.  The vlm patch
-frontend is not ported yet (ROADMAP.md Queue 1 item 10f).
+encoder-decoder against the reference through them.
+
+The vlm: ``patches`` ``[B, P, d_frontend]`` (the stubbed vision frontend's
+precomputed patch embeddings) go through ``patch_proj`` in the compute dtype
+and stand before the token embeddings, so the layers run over P + S
+positions.  :func:`forward` drops the P patch positions after the final
+norm (its logits and the loss cover the text only); :func:`prefill` fills
+the cache over all P + S positions and sets ``index = P + S``, so decode's
+RoPE position (``cache.index``) continues after the text.
 """
 from __future__ import annotations
 
@@ -91,14 +100,10 @@ Params = Dict[str, object]
 
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise for a config this module does not serve: an encoder-decoder
-    (:mod:`repro_torch.models.encdec` serves it) or a vlm (not ported yet,
-    naming its ROADMAP item)."""
+    (:mod:`repro_torch.models.encdec` serves it)."""
     if cfg.encdec:
         raise NotImplementedError(f"{cfg.name}: an encoder-decoder config; use "
                                   "repro_torch.models.encdec (or repro_torch.models)")
-    if cfg.num_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet (ROADMAP.md Queue 1 item 10f (vlm patches))")
 
 
 # ====================================================================== #
@@ -181,6 +186,8 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = stacked_dense(gen, 1, (d, cfg.vocab_size), dtype)[0]
+    if cfg.num_patches:
+        params["patch_proj"] = stacked_dense(gen, 1, (cfg.d_frontend, d), dtype)[0]
     if cfg.block_pattern == "xlstm":
         groups, per = _xlstm_groups(cfg)
         params["slstm_blocks"] = _init_slstm_blocks(gen, groups, d, dtype)
@@ -434,8 +441,16 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, de
 # ====================================================================== #
 # embedding / logits
 # ====================================================================== #
-def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(DTYPES[cfg.compute_dtype])
+def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+           patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The token embeddings in the compute dtype, after ``patches @
+    patch_proj`` (both operands in the compute dtype) when ``patches`` are
+    given."""
+    cdt = DTYPES[cfg.compute_dtype]
+    x = params["embed"][tokens].to(cdt)
+    if patches is not None:
+        x = torch.cat([patches.to(cdt) @ params["patch_proj"].to(cdt), x], dim=1)
+    return x
 
 
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -446,14 +461,18 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ====================================================================== #
 # full forward, prefill, decode
 # ====================================================================== #
-def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
+def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                     patches: Optional[torch.Tensor] = None):
     """Full forward (no cache): ``(logits [B, S, V], aux)``, the reference's
     ``forward``; aux is the MoE aux loss averaged over the layers, 0 for the
-    other families.  With ``cfg.remat``, grad enabled and a parameter that
-    requires it, each layer (xLSTM: each mLSTM block) runs under
-    ``checkpoint`` (recomputed in the backward)."""
+    other families.  ``patches`` [B, P, d_frontend] (a vlm) run before the
+    tokens and their P positions are dropped after the final norm.  With
+    ``cfg.remat``, grad enabled and a parameter that requires it, each layer
+    (xLSTM: each mLSTM block) runs under ``checkpoint`` (recomputed in the
+    backward)."""
     _check_ported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, patches)
+    n_patch = 0 if patches is None else patches.shape[1]
     run = _remat_runner(cfg, params)
     auxs = []
     if cfg.block_pattern == "xlstm":
@@ -468,15 +487,16 @@ def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor):
         for l, w in enumerate(_windows(cfg)):
             x, aux = run(body, cfg, _layer(params["blocks"], l), x, w)
             auxs.append(aux)
-    logits = _logits(params, cfg, rms_norm(x, params["final_norm"]))
+    logits = _logits(params, cfg, rms_norm(x, params["final_norm"])[:, n_patch:])
     aux = (torch.stack(auxs).mean() if cfg.is_moe else
            torch.zeros((), dtype=torch.float32, device=logits.device))
     return logits, aux
 
 
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """The logits [B, S, V] of :func:`forward_with_aux`."""
-    return forward_with_aux(params, cfg, tokens)[0]
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The logits [B, S, V] of :func:`forward_with_aux` (the text positions)."""
+    return forward_with_aux(params, cfg, tokens, patches)[0]
 
 
 def _remat_runner(cfg: ArchConfig, params: Params):
@@ -502,8 +522,9 @@ def _attn_layer(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]):
 
 def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     """Next-token cross entropy + 0.01 · the MoE aux loss: ``(loss, {"ce",
-    "aux"})``.  batch: ``tokens`` and ``labels`` [B, S]."""
-    logits, aux = forward_with_aux(params, cfg, batch["tokens"])
+    "aux"})``.  batch: ``tokens`` and ``labels`` [B, S], and ``patches`` for
+    a vlm."""
+    logits, aux = forward_with_aux(params, cfg, batch["tokens"], batch.get("patches"))
     ce = softmax_xent(logits, batch["labels"])
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -518,10 +539,12 @@ def ring_slots(s: int, slots: int) -> np.ndarray:
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, patches: Optional[torch.Tensor] = None):
     """Fill a decode cache from a prompt; returns (last-token logits
-    [B, 1, V], cache).  Tokens occupy positions [0, S); cache.index = S."""
-    x = _embed(params, cfg, tokens)
+    [B, 1, V], cache).  Tokens occupy positions [0, S); cache.index = S.  A
+    vlm's ``patches`` [B, P, d_frontend] occupy [0, P) and the tokens [P, P +
+    S); cache.index = P + S, and ``s_max`` counts the patches too."""
+    x = _embed(params, cfg, tokens, patches)
     b, s, _ = x.shape
     cache = init_cache(cfg, b, s_max, cache_dtype, device=x.device)
     if cfg.block_pattern == "xlstm":

@@ -11,9 +11,12 @@ encoder's self attention and MLP, the decoder's self and cross attention and
 MLP; no optional leaf), ``slstm_blocks``/``mlstm_blocks`` (xLSTM, no
 ``blocks``), ``blocks/ssd`` (hymba: attention, SSD heads and a dense MLP),
 else the dense or MoE transformer, whose feed-forward half is
-either ``blocks/mlp`` or ``blocks/moe``, exactly one of them, whole.  Any
-missing or extra leaf raises; so does an optional group that is only partly
-there (the attention biases, the QK norms, the MoE shared expert)."""
+either ``blocks/mlp`` or ``blocks/moe``, exactly one of them, whole.  The
+dense family may have ``patch_proj`` (a vlm's patch frontend), a 2-D
+``[d_frontend, D]`` leaf with D the embedding's width.  Any missing or extra
+leaf raises; so does an optional group that is only partly there (the
+attention biases, the QK norms, the MoE shared expert), and a ``patch_proj``
+of another shape."""
 from __future__ import annotations
 
 from typing import Dict, FrozenSet, Mapping, Tuple
@@ -46,6 +49,7 @@ _ENCDEC = frozenset(
     + [f"dec_blocks/mlp/{k}" for k in ("wg", "wi", "wo")])
 #: optional leaves, each group present in full or not at all
 _HEAD = frozenset({"lm_head"})  # untied embeddings
+_PATCH = frozenset({"patch_proj"})  # a vlm's patch frontend (num_patches)
 _ATTN_GROUPS = (
     frozenset({"blocks/attn/bq", "blocks/attn/bk", "blocks/attn/bv"}),  # qkv_bias
     frozenset({"blocks/attn/q_norm", "blocks/attn/k_norm"}),  # qk_norm
@@ -74,7 +78,7 @@ def _leaf_sets(names) -> Tuple[FrozenSet[str], Tuple[FrozenSet[str], ...]]:
         return _TOP | _ATTN | _SSD | _MLP, (_HEAD,)
     if any(n.startswith("blocks/moe/") for n in names):
         return _TOP | _ATTN | _MOE, (_HEAD, *_ATTN_GROUPS, _SHARED)
-    return _TOP | _ATTN | _MLP, (_HEAD, *_ATTN_GROUPS)
+    return _TOP | _ATTN | _MLP, (_HEAD, *_ATTN_GROUPS, _PATCH)
 
 
 def lm_params_from_numpy(tree: Mapping, device="cuda") -> dict:
@@ -88,6 +92,10 @@ def lm_params_from_numpy(tree: Mapping, device="cuda") -> dict:
         if names & group:
             missing |= group - names
     extra = names - required - frozenset().union(*groups)
+    proj = flat.get("patch_proj")
+    if proj is not None and "embed" in flat and (
+            np.ndim(proj) != 2 or np.shape(proj)[1] != np.shape(flat["embed"])[1]):
+        extra.add(f"patch_proj of shape {np.shape(proj)}")
     if missing or extra:
         raise ValueError(f"LM parameter tree does not fit the port: missing {sorted(missing)}, "
                          f"extra {sorted(extra)}")

@@ -42,8 +42,9 @@ def synthetic_batch(cfg: ArchConfig, tcfg: TrainConfig, step: int,
     """Deterministic-in-step synthetic LM data (replayable on rollback), the
     reference's tokens from the same numpy generator: next token = (token ·
     31 + position) mod min(vocab, 97); labels are the tokens shifted by one.
-    An encoder-decoder config also gets ``frames`` [B, S, d_frontend], normal
-    draws of the same generator after the tokens, as the reference's."""
+    An encoder-decoder config also gets ``frames`` [B, S, d_frontend], a vlm
+    ``patches`` [B, num_patches, d_frontend], normal draws of the same
+    generator after the tokens, as the reference's."""
     rng = np.random.default_rng(tcfg.seed + step)
     vocab_eff = min(cfg.vocab_size, 97)
     b, s = tcfg.batch, tcfg.seq_len
@@ -58,6 +59,9 @@ def synthetic_batch(cfg: ArchConfig, tcfg: TrainConfig, step: int,
     if cfg.encdec:
         frames = rng.normal(size=(b, s, cfg.d_frontend)).astype(np.float32)
         batch["frames"] = torch.from_numpy(frames).to(dev)
+    if cfg.num_patches:
+        patches = rng.normal(size=(b, cfg.num_patches, cfg.d_frontend)).astype(np.float32)
+        batch["patches"] = torch.from_numpy(patches).to(dev)
     return batch
 
 

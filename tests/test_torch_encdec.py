@@ -91,10 +91,13 @@ def _close(port, ref, tol, msg=""):
 # configs and the zoo's dispatch
 # ---------------------------------------------------------------------- #
 def test_config_resolves_and_only_pixtral_is_not_ported():
+    """Named when pixtral-12b was the one architecture left; the vlm is
+    ported now (tests/test_torch_vlm.py) and ``NOT_PORTED`` is empty."""
     port, ref = tconfigs.get_arch(ARCH), jconfigs.get_arch(ARCH)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.param_count() == ref.param_count() == 2_034_659_328
-    assert set(tconfigs.NOT_PORTED) == {"pixtral-12b"}
+    assert tconfigs.NOT_PORTED == {}
+    assert tconfigs.get_arch("pixtral-12b").family == "vlm"
     red = tconfigs.reduced_config(port)
     assert (red.enc_layers, red.d_frontend) == (2, 24)
     with pytest.raises(ValueError, match="built by prefill"):

@@ -15,7 +15,7 @@ flash_attention, its lse and its backward vs their plain versions 2e-5/2e-3
 in fp32 and 3e-2 in bf16 (the reference's tests/test_kernels.py);
 edge_softmax_normalize exactly (one IEEE division per element on both sides); engine on the card vs the same engine
 on the CPU 1e-5 per batch (different matmul kernels); the reduced LMs (the
-encoder-decoder too) on the card vs the CPU 1e-4 (fp32 cache and compute;
+encoder-decoder and the vlm too) on the card vs the CPU 1e-4 (fp32 cache and compute;
 the reduced xlstm 3e-4), the MoE combine bitwise the CPU's; the invariants
 inside the port are bitwise.
 """
@@ -316,7 +316,9 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, causal, 
                                                  q_offset=q_offset))  # bitwise repeat
 
 
-_EDGES = (63, 64, 65, 127, 128, 129)  # around the 64-key tiles and 128-row query tiles
+#: around the 64-key tiles and the 128-row query tiles (fp32 from dh 128: 32-key tiles;
+#: fp32 at dh 160: 64-row query tiles)
+_EDGES = (63, 64, 65, 127, 128, 129)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -378,7 +380,7 @@ def _bwd_check(q, k, v, causal=True, window=None, q_offset=0, seed=1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
+@pytest.mark.parametrize("dh", fmod.BWD_HEAD_DIMS)
 @pytest.mark.parametrize(
     "b,hq,hkv,sq,sk,causal,window,q_offset",
     [
@@ -401,7 +403,7 @@ _BWD_STEP_EDGES = (15, 16, 17, 31, 32, 33)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
+@pytest.mark.parametrize("dh", fmod.BWD_HEAD_DIMS)
 @pytest.mark.parametrize("sq,sk,causal",
                          [(n, n, True) for n in _EDGES]
                          + [(a, b_, False) for a, b_ in zip(_EDGES, reversed(_EDGES))]
@@ -451,6 +453,22 @@ def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         q48, k48, v48 = _attn_inputs(1, 4, 2, 64, 64, 48, torch.float32)
         fmod.flash_attention_bwd(q48, k48, v48, q48, lse, q48)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_at_dh_160_raises_on_the_card(cuda, dtype):
+    """The forward takes dh 160 (pixtral-12b); its backward does not yet
+    (ROADMAP.md item 10f′), and says so rather than running a plain version."""
+    q, k, v = _attn_inputs(1, 4, 2, 64, 64, 160, dtype)
+    o, lse = fmod.flash_attention_lse(q, k, v)
+    n0 = dict(fmod.BWD_KERNEL.entry_launches)
+    with pytest.raises(ValueError, match="10f′"):
+        fmod.flash_attention_bwd(q, k, v, o, lse, o)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fmod.flash_attention(*leaves)
+    with pytest.raises(ValueError, match="10f′"):
+        out.sum().backward()
+    assert dict(fmod.BWD_KERNEL.entry_launches) == n0
 
 
 @pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b", "qwen3-moe-30b-a3b",
@@ -628,13 +646,44 @@ def test_reduced_encdec_on_card_matches_cpu(cuda):
                                                        frames).tokens)
 
 
-def _serve_steps(params, cfg, tokens, prompt=36, frames=None):
+def test_reduced_vlm_on_card_matches_cpu(cuda):
+    """The reduced pixtral (4 layers, 8 patches of width 24 before 40
+    tokens) on the card against the CPU (fp32 cache and compute, 1e-4):
+    forward, prefill and teacher-forced decode, ``serve``'s tokens.  The
+    forward launches ``flash_attention`` once a layer over P + S rows."""
+    cfg = reduced_config(get_arch("pixtral-12b"))
+    params = lm_models.init_model(torch.Generator().manual_seed(0), cfg)
+    on_card = _to(params, "cuda")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    patches = torch.from_numpy(
+        rng.normal(size=(2, cfg.num_patches, cfg.d_frontend)).astype(np.float32))
+    n0 = fmod.KERNEL.launches
+    full = lm_models.forward(on_card, cfg, {"patches": patches.cuda(), "tokens": tokens.cuda()})
+    assert fmod.KERNEL.launches == n0 + cfg.num_layers and full.shape == (2, 40, cfg.vocab_size)
+    torch.testing.assert_close(
+        full.cpu(), lm_models.forward(params, cfg, {"patches": patches, "tokens": tokens}),
+        atol=1e-4, rtol=1e-4)
+    card = _serve_steps(on_card, cfg, tokens.cuda(), patches=patches.cuda())
+    for i, (a, c) in enumerate(zip(card, _serve_steps(params, cfg, tokens, patches=patches))):
+        torch.testing.assert_close(a.cpu(), c, atol=1e-4, rtol=1e-4, msg=f"step {i}")
+    res = serve(cfg, on_card, tokens[:, :8], 6, patches=patches.cuda())
+    assert res.tokens.is_cuda and res.tokens.shape == (2, 7)
+    torch.testing.assert_close(res.tokens.cpu(), serve(cfg, params, tokens[:, :8], 6,
+                                                       patches=patches).tokens)
+
+
+def _serve_steps(params, cfg, tokens, prompt=36, frames=None, patches=None):
     """Logits of a prefill into an fp32 cache and teacher-forced decode steps
-    (an encoder-decoder's prefill also takes its ``frames``)."""
+    (an encoder-decoder's prefill also takes its ``frames``, a vlm's its
+    ``patches``, which the cache holds too)."""
     batch = {"tokens": tokens[:, :prompt]}
     if frames is not None:
         batch["frames"] = frames
-    logits, cache = lm_models.prefill(params, cfg, batch, s_max=tokens.shape[1],
+    if patches is not None:
+        batch["patches"] = patches
+    n_patch = 0 if patches is None else patches.shape[1]
+    logits, cache = lm_models.prefill(params, cfg, batch, s_max=n_patch + tokens.shape[1],
                                       cache_dtype=torch.float32)
     steps = [logits]
     for i in range(prompt, tokens.shape[1]):

@@ -323,6 +323,7 @@ def _qkv(seed, b, hq, hkv, sq, sk, dh):
         (1, 2, 2, 128, 32, 64, 64, False, None),
         (2, 4, 1, 256, 64, 128, 64, True, 64),
         (1, 8, 4, 512, 128, 256, 256, True, None),
+        (2, 8, 2, 200, 160, 512, 100, True, None),  # pixtral's dh 160, ragged S, GQA g = 4
     ],
 )
 def test_flash_attention_matches_reference(b, hq, hkv, s, dh, bq, bk, causal, window, dtype,
