@@ -129,6 +129,34 @@ Phases, one JSON line each:
              over a source of 300 frames (the cross attention Sq 256 over a
              ragged Sk, non-causal), within 2e-2 in fp32 compute and in the
              config's bf16 compute;
+5m. lm_vlm_serve — the serving path on the vlm, pixtral-12b, at full width
+             and depth (40 layers, d_model 5120, 32/8 heads of 160, d_ff
+             14,336, vocab 131,072, 256 patches of 1,024 before the prompt,
+             the stubbed vision frontend; fp32 params, bf16 compute and
+             cache): batch 8, prompt 2048, 32 greedy steps through ``serve``,
+             counts zeroed before and read after; a counted prefill (one
+             causal ``flash_attention`` a layer over 2,304 positions at dh
+             160); a profiled prefill and decode;
+5n. lm_vlm_consistency — the same weights, teacher-forced as in phase 5 over
+             256 patches + 300 tokens, within 2e-2 in fp32 and bf16 compute;
+5o. lm_vlm_train — the vlm's training path through the launch layer
+             (``launch/steps.py``, ``dist/``): pixtral-12b at full width cut
+             in depth to 4 of its 40 layers (2.44B parameters; the serve
+             phase's weights freed first), ``torch.distributed`` at world
+             size 1 (NCCL on an in-process ``HashStore``), the card's
+             ``("data", "model")`` mesh of 1 × 1, ``shardings_for_cell``,
+             params and AdamW state as DTensors, 3 steps of
+             ``make_train_step`` inside ``activation_sharding`` on 2 × (256
+             patches + 2,048 tokens) of the trainer's synthetic data; counts
+             zeroed before and read after: the forward ``flash_attention`` at
+             least twice a layer a step (remat) and each backward entry once
+             a layer a step, every call at dh 160; every loss finite; seconds
+             a step, tokens/s, peak memory, model FLOPs a step beside the
+             fp32 peak; one profiled step; then the same weights from the
+             seed, the first batch's loss and gradients under the mesh and
+             with no mesh (loss within 1e-6 relative, each gradient leaf
+             within 1e-5 of its largest entry), and whether the loss, the
+             gradients and one AdamW step's weights are bitwise equal;
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
@@ -140,7 +168,9 @@ Phases, one JSON line each:
              ``flash_attention_bwd_ref`` at atol 2e-5 + rtol 2e-3 and in bf16
              (a variant row) at 3e-2, each with a second launch bitwise the
              first, timed beside the backward of
-             ``scaled_dot_product_attention`` in the same dtype;
+             ``scaled_dot_product_attention`` in the same dtype, and so at
+             pixtral's training shape (B 2, Hq 32, Hkv 8, S 2,304, dh 160) in
+             fp32 and bf16 (variant rows);
              row_linear ≤ 1e-5 at M = n, where the wrapper takes the tiled
              kernel, and bitwise the general kernel there, at gat's per-edge
              M = E and at the incremental step's row cap; rows of
@@ -320,6 +350,13 @@ ENCDEC_ARCH, ENCDEC_CONSIST_FRAMES, ENCDEC_CROSS_SK = "seamless-m4t-large-v2", 3
 #: positions at head dim 160; its consistency phase's prompt is 300 tokens (256 + 300
 #: positions: the last key tile at dh 160 is ragged)
 VLM_ARCH, VLM_CONSIST_PROMPT = "pixtral-12b", 300
+#: lm_vlm_train: the vlm at full width cut in depth 40 → 4 layers (2.44B parameters: 39 GB
+#: of fp32 params, gradients and AdamW's two moments; all 40 would be 204 GB), 3 steps
+#: of 2 × (256 patches + 2,048 tokens) through make_train_step on the card's 1 × 1 mesh
+VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 4, 3, 2
+TOL_MESH_LOSS = 1e-6  # lm_vlm_train: the mesh's loss against the plain path's, relative
+TOL_MESH_GRAD = 1e-5  # lm_vlm_train: each gradient leaf's max |Δ| / its max |entry|
+DIST_BACKEND = "nccl"  # lm_vlm_train's process group (world size 1)
 TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
 TOL_TRAIN_GRAD = 1e-3  # lm_train_consistency: each leaf's max |Δ| / its max |entry|
 #: the same for the embedding under compute_dtype bf16: the gradient of its gathered rows
@@ -2488,6 +2525,188 @@ def phase_lm_train_consistency(seed: int, kernels: dict) -> dict:
     return row
 
 
+def phase_lm_vlm_train(seed: int, kernels: dict) -> dict:
+    """The vlm's training path at full width through the launch layer:
+    ``torch.distributed`` at world size 1 (NCCL, an in-process ``HashStore``:
+    no port), the card's ``("data", "model")`` mesh of 1 × 1,
+    ``shardings_for_cell`` for a train shape, params and AdamW state placed
+    as DTensors, and ``VLM_TRAIN_STEPS`` steps of ``make_train_step`` inside
+    ``activation_sharding``, counts set to 0 just before them and read just
+    after (each ``flash_attention`` and backward call's head dim read too);
+    then one profiled step.  Then the same weights, made again from the
+    seed: the loss and every gradient of the first step's batch under the
+    mesh and with no mesh (the mesh params' local tensors, no context),
+    held at ``TOL_MESH_LOSS`` and ``TOL_MESH_GRAD``, and one AdamW step each
+    way, whose updated weights are compared bit for bit (printed, not
+    held)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import activation_sharding, distribute_tree
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch.steps import make_train_step, shardings_for_cell
+    from repro_torch.models import init_model
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainer import TrainConfig, synthetic_batch, value_and_grad
+    from repro_torch.train.tree import tree_leaves, tree_map, tree_paths
+
+    phase = "lm_vlm_train"
+    full = get_arch(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_TRAIN_LAYERS)
+    L, B, S, n_pos = cfg.num_layers, VLM_TRAIN_BATCH, TRAIN_SEQ, cfg.num_patches + TRAIN_SEQ
+    tcfg = TrainConfig(steps=VLM_TRAIN_STEPS, batch=B, seq_len=S, seed=seed)
+    step = make_train_step(cfg, OptConfig(peak_lr=3e-3, warmup_steps=10,
+                                          stable_steps=VLM_TRAIN_STEPS, decay_steps=10))
+    _free_cuda()
+    dist.init_process_group(DIST_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        sh = shardings_for_cell(cfg, ShapeConfig(phase, S, B, "train"), mesh)
+
+        def weights():  # from the seed, on the mesh
+            return distribute_tree(init_model(torch.Generator(device="cuda").manual_seed(seed),
+                                              cfg), sh["params_sharding"])
+
+        def fresh_opt(params):
+            return distribute_tree(adamw_init(params), sh["opt_sharding"])
+
+        def batch_at(i):
+            return synthetic_batch(cfg, tcfg, i, device="cuda")
+
+        def placed(tree) -> bool:
+            return all(isinstance(p, DTensor) and tuple(p.placements) == s.placements
+                       for (_, p), (_, s) in zip(tree_paths(tree),
+                                                 tree_paths(sh["params_sharding"])))
+
+        t0 = time.perf_counter()
+        params = weights()
+        n_elems = sum(p.numel() for p in tree_leaves(params))
+        opt_state = fresh_opt(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batches = [distribute_tree(batch_at(i), sh["batch_sharding"])
+                   for i in range(VLM_TRAIN_STEPS)]
+        placed_before = placed(params)
+        fwd_dh, bwd_dh = [], []
+        orig_fwd, orig_bwd = fmod._forward, fmod.flash_attention_bwd
+
+        def reading_fwd(q, *a, **kw):
+            fwd_dh.append(q.shape[3])
+            return orig_fwd(q, *a, **kw)
+
+        def reading_bwd(q, *a, **kw):
+            bwd_dh.append(q.shape[3])
+            return orig_bwd(q, *a, **kw)
+
+        losses, step_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        fmod._forward, fmod.flash_attention_bwd = reading_fwd, reading_bwd
+        try:
+            with activation_sharding(mesh, sh["shcfg"]):
+                for i in range(VLM_TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    params, opt_state, metrics = step(params, opt_state, batches[i])
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    losses.append(float(metrics["loss"].full_tensor()))
+        finally:
+            fmod._forward, fmod.flash_attention_bwd = orig_fwd, orig_bwd
+        launches, entries = _counts(kernels), _entries(kernels["flash_attention_bwd"])
+        peak = torch.cuda.max_memory_allocated()
+        placed_after = placed(params)
+        with activation_sharding(mesh, sh["shcfg"]):
+            prof = _profiled(lambda: step(params, opt_state, batches[0]))
+        del params, opt_state
+        _free_cuda()
+
+        # mesh against plain: the same weights and the first step's batch
+        params = weights()
+        plain = tree_map(lambda p: p.to_local(), params)  # on 1 × 1 the whole tensors
+        batch = batch_at(0)
+        with activation_sharding(mesh, sh["shcfg"]):
+            loss_m, _, grads_m = value_and_grad(params, cfg, batches[0])
+        loss_p, _, grads_p = value_and_grad(plain, cfg, batch)
+        loss_m = loss_m.full_tensor()
+        grad_err, grads_bitwise = {}, True
+        for (path, gm), (_, gp) in zip(tree_paths(grads_m), tree_paths(grads_p)):
+            gm = gm.full_tensor()
+            grad_err[path] = float((gm - gp).abs().max() / gp.abs().max().clamp_min(1e-30))
+            grads_bitwise = grads_bitwise and bool(torch.equal(gm, gp))
+        del grads_m, grads_p, gm, gp
+        _free_cuda()
+        with activation_sharding(mesh, sh["shcfg"]):
+            new_m, _, _ = step(params, fresh_opt(params), batches[0])
+        host = [p.to_local().cpu() for p in tree_leaves(new_m)]
+        del new_m
+        _free_cuda()
+        new_p, _, _ = step(plain, adamw_init(plain), batch)
+        updated_bitwise = all(bool(torch.equal(h.cuda(), p))
+                              for h, p in zip(host, tree_leaves(new_p)))
+        del new_p, host, params, plain, batches, batch
+        _free_cuda()
+    finally:
+        dist.destroy_process_group()
+
+    tokens = B * n_pos  # positions a step: the patches and the text
+    steady_s = sum(step_s[1:]) / len(step_s[1:])  # the first step pays the lazy set-up
+    dh = cfg.resolved_head_dim
+    attn_fwd = 4 * dh * B * cfg.num_heads * (n_pos * (n_pos + 1) // 2) * L
+    model_flops = 6 * cfg.param_count() * tokens + 3 * attn_fwd  # forward + 2 × backward
+    loss_rel = float((loss_m - loss_p).abs() / loss_p.abs())
+    worst = max(grad_err, key=grad_err.get)
+    row = {"phase": phase, "arch": cfg.name, "layers": L, "layers_full": full.num_layers,
+           "depth_cut": f"{full.num_layers} → {L} layers: {n_elems / 1e9:.2f}B parameters, "
+                        f"{16 * n_elems / 1e9:.1f} GB of fp32 params, gradients and two AdamW "
+                        f"moments; all {full.num_layers} would be "
+                        f"{16 * full.param_count() / 1e9:.0f} GB",
+           "param_elements": n_elems,
+           "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": dh, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "num_patches": cfg.num_patches, "d_frontend": cfg.d_frontend,
+           "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "mesh": {"shape": [1, 1], "axes": ["data", "model"], "backend": DIST_BACKEND},
+           "params_placed_before": placed_before, "params_placed_after": placed_after,
+           "steps": VLM_TRAIN_STEPS, "batch": B, "seq_len": S, "positions": n_pos,
+           "positions_per_step": tokens, "init_s": init_s, "losses": losses, "step_s": step_s,
+           "steady_step_s": steady_s, "tokens_per_s": tokens / steady_s,
+           "text_tokens_per_s": B * S / steady_s, "peak_mem_bytes": peak,
+           "model_flops_per_step": model_flops,
+           "model_flops_share_of_fp32_peak": model_flops / steady_s / FP32_FLOPS,
+           "launches": launches, "bwd_launches_by_entry": entries,
+           "fwd_head_dims": sorted(set(fwd_dh)), "bwd_head_dims": sorted(set(bwd_dh)),
+           "mesh_vs_plain": {"loss_mesh": float(loss_m), "loss_plain": float(loss_p),
+                             "loss_rel_err": loss_rel, "max_grad_err": grad_err[worst],
+                             "worst_leaf": worst, "loss_bitwise": bool(torch.equal(loss_m, loss_p)),
+                             "grads_bitwise": grads_bitwise,
+                             "updated_weights_bitwise": updated_bitwise},
+           "profiled_step": prof}
+    emit(row)
+    if len(losses) != VLM_TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    if not (placed_before and placed_after):
+        raise AssertionError(f"{phase}: params not in their mesh placements")
+    if launches["flash_attention"] < 2 * L * VLM_TRAIN_STEPS:
+        raise AssertionError(f"{phase}: flash_attention launched {launches['flash_attention']} "
+                             f"times, expected at least {2 * L * VLM_TRAIN_STEPS}")
+    if any(n != L * VLM_TRAIN_STEPS for n in entries.values()):
+        raise AssertionError(f"{phase}: backward entries launched {entries}, expected "
+                             f"{L * VLM_TRAIN_STEPS} each")
+    if set(fwd_dh) != {dh} or set(bwd_dh) != {dh} or len(bwd_dh) != L * VLM_TRAIN_STEPS:
+        raise AssertionError(f"{phase}: head dims forward {sorted(set(fwd_dh))}, backward "
+                             f"{sorted(set(bwd_dh))} ({len(bwd_dh)} calls), expected {dh}")
+    if not loss_rel <= TOL_MESH_LOSS or not grad_err[worst] <= TOL_MESH_GRAD:
+        raise AssertionError(f"{phase}: mesh vs plain: loss {loss_rel}, gradient "
+                             f"{grad_err[worst]} at {worst}")
+    return row
+
+
 def _rel_err(card, cpu) -> float:
     """max |card − cpu| over max |cpu|."""
     return float((card.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
@@ -2587,10 +2806,12 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
     return row
 
 
-def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32") -> dict:
-    """The backward kernels at the training shape of ``cfg`` (causal, GQA)
-    in fp32, the training step's dtype (fp32 params keep the residual
-    stream fp32), or in bf16, which no main path runs: against
+def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32", b: int = TRAIN_BATCH,
+                               s: int = TRAIN_SEQ) -> dict:
+    """The backward kernels at the training shape of ``cfg`` (causal, GQA;
+    ``b`` rows of ``s`` positions) in fp32, the training step's dtype (fp32
+    params keep the residual stream fp32), or in bf16, which no main path
+    runs: against
     ``flash_attention_bwd_ref`` on the kernel's o and lse, a second launch
     bitwise the first, timed (both entries a call) beside the plain version
     and the backward of ``scaled_dot_product_attention`` in the same dtype
@@ -2603,8 +2824,7 @@ def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32") -> dict:
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_lse
 
-    b, hq, hkv, s, dh = (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ,
-                         cfg.resolved_head_dim)
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, dtype)
     q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
     k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
@@ -2889,10 +3109,12 @@ def main(argv=None) -> int:
         phase_lm_consistency(dataclasses.replace(vlm_cfg, compute_dtype=compute), vlm_params,
                              args.seed, phase=phase, prompt=VLM_CONSIST_PROMPT)
     del vlm_params
+    vlm_train = phase_lm_vlm_train(args.seed, kernels)
     _free_cuda()
     # every path's launches: the engine phases, the serving phases, the op, the LM
     path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe,
-                                                             hymba, xlstm, encdec, vlm]
+                                                             hymba, xlstm, encdec, vlm,
+                                                             vlm_train]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -2948,6 +3170,11 @@ def main(argv=None) -> int:
          "variant": "vlm_prefill_bf16"},
         kernel_flash_attention_bwd(cfg, gen),
         kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
+        # the vlm's training shape: 256 patches + 2,048 tokens at head dim 160
+        *({**kernel_flash_attention_bwd(vlm_cfg, gen, dt, b=VLM_TRAIN_BATCH,
+                                         s=vlm_cfg.num_patches + TRAIN_SEQ),
+           "variant": "vlm_train" + ("" if dt == "float32" else "_bf16")}
+          for dt in ("float32", "bfloat16")),
         kernel_edge_softmax(wl.base, gen),
         *kernel_row_linear(wl.base.n, wl.base.num_edges, caps["r"], gen),
         *kernel_row_sum_chunked(zipf, zipf_keys, WIDTH + 1, gen),
@@ -2979,16 +3206,19 @@ def main(argv=None) -> int:
             entry["launches_lm_hymba_serve"] = hymba["launches"][name]
             entry["launches_lm_encdec_serve"] = encdec["launches"][name]
             entry["launches_lm_vlm_serve"] = vlm["launches"][name]
+            entry["launches_lm_vlm_train"] = vlm_train["launches"][name]
             entry["launches_lm_encdec_serve_non_causal"] = encdec[
                 "prefill_attention_calls"]["non_causal"]
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
             entry["launches_by_entry"] = train["bwd_launches_by_entry"]
             entry["launches_by_path"] = {row["phase"]: row["launches"][name]
-                                         for row in (train, train_check)}
+                                         for row in (train, train_check, vlm_train)}
+            entry["launches_by_entry_lm_vlm_train"] = vlm_train["bwd_launches_by_entry"]
         others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "bound_share", "library_ms",
                                      "general_ms", "within_tol", "host_us_per_call",
-                                     "repeat_bitwise", "chunked_order_bitwise")
+                                     "repeat_bitwise", "bitwise_repeat",
+                                     "chunked_order_bitwise")
                    if k in r}
                   for r in results if r["name"] == name and "variant" in r]
         if others:

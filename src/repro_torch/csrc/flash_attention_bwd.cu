@@ -13,9 +13,7 @@
 //
 // q, o, dO, dq [B, Hq, Sq, dh]; k, v, dk, dv [B, Hkv, Sk, dh]; lse and D [B, Hq, Sq]
 // fp32; all contiguous and 16-byte aligned; fp32 or bf16 (gradients in the input
-// type), fp32 accumulation; dh ∈ {16, 32, 64, 128}.  The forward also takes
-// dh 160 (pixtral-12b); this backward does not yet: the wrapper raises there
-// (ROADMAP.md item 10f′).
+// type), fp32 accumulation; dh ∈ {16, 32, 64, 128, 160} (160: pixtral-12b).
 //
 // Replaces: no TPU kernel.  The Pallas `flash_attention` (src/repro/kernels/
 // flash_attention.py) has no VJP, and the JAX package's training differentiates
@@ -122,11 +120,16 @@ struct Cfg {
   // small enough to run several to an SM and whose two-warpgroup kernels took
   // more registers (fewer warps an SM, and spills at dh 128), take one.  The
   // loop tile (keys a step of the dQ kernel, query rows a step of the dK/dV
-  // kernel) is as large as fits in 227 KB.
+  // kernel) is as large as fits in 227 KB: at fp32 dh 160 the 64-row block
+  // operands (Q and dO, or K and V, hi and lo) take 160 KB and leave room for
+  // 8-row tiles only.  bf16 at dh 160 takes 32-row tiles for its registers: the
+  // dK and dV sums of 64 × 160 are 160 a thread, and a 64-row tile's Pᵀ and dSᵀ
+  // with their fragments would add 96.
   static constexpr int kWG = (kSplit && DH <= 64) ? 2 : 1;
   static constexpr int kThreads = 128 * kWG;
   static constexpr int kRows = kWgRows * kWG;
-  static constexpr int kTile = !kSplit || DH <= 32 ? 64 : DH == 64 ? 32 : 16;
+  static constexpr int kTile =
+      DH == 160 ? (kSplit ? 8 : 32) : !kSplit || DH <= 32 ? 64 : DH == 64 ? 32 : 16;
   static constexpr int kBlockPart = kRows * DH * kE;  // one part of a block operand
   static constexpr int kTilePart = kTile * DH * kE;   // one part of a loop-tile operand
   // operands of a loop tile: dQ: K, V (+ Kᵀ in fp32); dK/dV: Q, dO (+ Qᵀ, dOᵀ in fp32)
@@ -284,8 +287,9 @@ __device__ __forceinline__ void product_ss(float* d, const unsigned char* a, int
 // acc += A · B over K = KD: A from the fragments of to_frags<T, KD>, B [KD × DH].
 // fp32: B is the transposed operand of put_cols (DH rows, KD along K); bf16: B
 // is the K-major operand of put_rows (KD rows, DH along K) read MN-major.  The
-// product runs in a fresh wgmma accumulator, NC ≤ 64 columns at a time, which
-// the CUDA cores then add to acc: no tensor-core chain outlives one tile.  (The
+// product runs in a fresh wgmma accumulator, NC ≤ 64 columns at a time (32 at
+// dh 160, which 64 does not divide), which the CUDA cores then add to acc: no
+// tensor-core chain outlives one tile.  (The
 // tensor cores' fp32 sums truncate; one chain over all of a 2048-row group,
 // ~3000 steps, put dk and dv ~5e-4 off, past the fp32 tolerance.)
 template <typename T, int DH, int KD>
@@ -293,7 +297,7 @@ __device__ __forceinline__ void accumulate_rs(float* acc, const uint32_t* a_hi,
                                               const uint32_t* a_lo, const unsigned char* b,
                                               int b_part) {
   using C = Cfg<T, DH>;
-  constexpr int STEPS = KD / C::kKStep, NC = DH < 64 ? DH : 64;
+  constexpr int STEPS = KD / C::kKStep, NC = DH < 64 ? DH : DH % 64 == 0 ? 64 : 32;
 #pragma unroll
   for (int c = 0; c < DH / NC; ++c) {
     float part[NC / 2];
@@ -756,6 +760,7 @@ int dq_dispatch(const void* q, const void* k, const void* v, const void* o, cons
     case 32: return launch_dq<T, 32>(q, k, v, o, lse, dout, dq, delta, a, st);
     case 64: return launch_dq<T, 64>(q, k, v, o, lse, dout, dq, delta, a, st);
     case 128: return launch_dq<T, 128>(q, k, v, o, lse, dout, dq, delta, a, st);
+    case 160: return launch_dq<T, 160>(q, k, v, o, lse, dout, dq, delta, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -770,6 +775,7 @@ int dkdv_dispatch(const void* q, const void* k, const void* v, const void* lse,
     case 32: return launch_dkdv<T, 32>(q, k, v, lse, dout, delta, dk, dv, a, st);
     case 64: return launch_dkdv<T, 64>(q, k, v, lse, dout, delta, dk, dv, a, st);
     case 128: return launch_dkdv<T, 128>(q, k, v, lse, dout, delta, dk, dv, a, st);
+    case 160: return launch_dkdv<T, 160>(q, k, v, lse, dout, delta, dk, dv, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

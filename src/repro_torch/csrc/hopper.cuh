@@ -388,6 +388,36 @@ template <> struct Mma<Op::kBf16, Src::kRST, 64> {
   }
 };
 
+// Forms added for the backward at dh 160 (flash_attention_bwd.cu), whose loop
+// tiles are 8 rows in fp32 and 32 in bf16: S and dP of one tile are N = 8 or
+// 32 products from shared memory.
+template <> struct Mma<Op::kTf32, Src::kSS, 8> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "%4, %5, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct Mma<Op::kBf16, Src::kSS, 32> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 // Forms added for the forward at dh 160 (pixtral-12b): O += P·V with N = dh,
 // 80 fp32 accumulators a thread.
 template <> struct Mma<Op::kTf32, Src::kRS, 160> {

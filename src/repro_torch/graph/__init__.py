@@ -1,5 +1,6 @@
-"""Streaming-graph substrate of the port: static CSR snapshots, synthetic
-generators and update-stream workloads (numpy copies of ``repro.graph``)."""
+"""Streaming-graph substrate of the port: static CSR snapshots, the
+PMA-backed dynamic CSR, synthetic generators and update-stream workloads
+(numpy copies of ``repro.graph``)."""
 
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.generators import (
@@ -8,6 +9,7 @@ from repro_torch.graph.generators import (
     make_graph,
     random_features,
 )
+from repro_torch.graph.pma import PMAGraph
 from repro_torch.graph.streaming import (
     ADVERSARIAL_REGIMES,
     StreamWorkload,
@@ -18,6 +20,7 @@ from repro_torch.graph.streaming import (
 
 __all__ = [
     "CSRGraph",
+    "PMAGraph",
     "UpdateBatch",
     "StreamWorkload",
     "make_stream",

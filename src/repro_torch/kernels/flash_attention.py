@@ -33,8 +33,7 @@ log-sum-exp ``lse = ln Σ_j exp(q·k_j · scale)`` over the visible keys, fp32
 writes D = rowsum(dO ∘ O)) and then the dK/dV kernel, each output element
 with one owner (no atomics), their products on the tensor cores as the
 forward's (split TF32 for fp32, bf16 for bf16), at dh in
-:data:`BWD_HEAD_DIMS` (16, 32, 64, 128): at dh 160 (pixtral-12b) the
-backward raises on a CUDA tensor (ROADMAP.md item 10f′).  Their plain
+:data:`BWD_HEAD_DIMS` (the forward's: 16, 32, 64, 128 and 160).  Their plain
 versions are :func:`repro_torch.kernels.ref.flash_attention_lse_ref` and
 :func:`repro_torch.kernels.ref.flash_attention_bwd_ref`.  Without grad the
 path is the serving one: the same launch, no ``lse``, the same bits.
@@ -64,7 +63,7 @@ BWD_KERNEL = CudaKernel("flash_attention_bwd", {
     f"flash_attention_bwd_{entry}_{t}": BWD_ARGTYPES
     for entry in BWD_ENTRIES for t in ("f32", "bf16")})
 HEAD_DIMS = (16, 32, 64, 128, 160)  # the forward kernel's
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # the backward kernels'; dh 160: ROADMAP.md item 10f′
+BWD_HEAD_DIMS = HEAD_DIMS  # the backward kernels'
 _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _BWD_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: the fewest query rows (dQ) or keys (dK/dV) a block of the backward kernels owns
@@ -129,8 +128,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     current stream), anything else raises."""
     _check_shapes(q, k, v, window)
     if q.device.type == "cuda" and q.shape[3] not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {q.shape[3]} not in {BWD_HEAD_DIMS} "
-                         "(the backward at dh 160 is ROADMAP.md item 10f′)")
+        raise ValueError(f"flash_attention_bwd: head dim {q.shape[3]} not in {BWD_HEAD_DIMS}")
     if tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape) \
             or tuple(lse.shape) != tuple(q.shape[:3]):
         raise ValueError(f"o and do must be shaped like q {tuple(q.shape)} and lse "

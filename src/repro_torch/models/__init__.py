@@ -26,9 +26,16 @@ from repro_torch.models.lm import LMCache, XLSTMCache
 def init_model(gen: torch.Generator, cfg: ArchConfig):
     """Random parameters on ``gen``'s device (the reference's
     ``init_model(key, cfg)`` without the logical-axes tree)."""
+    return init_model_with_axes(gen, cfg)[0]
+
+
+def init_model_with_axes(gen: torch.Generator, cfg: ArchConfig):
+    """``(params, axes)``, the reference's ``init_model(key, cfg)``: the
+    parameters and the tree of their logical axes
+    (:mod:`repro_torch.nn.param`), from the same calls."""
     if cfg.encdec:
-        return _encdec.init_encdec(gen, cfg)
-    return _lm.init_lm(gen, cfg)
+        return _encdec.init_encdec_with_axes(gen, cfg)
+    return _lm.init_lm_with_axes(gen, cfg)
 
 
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, Any]):
@@ -74,5 +81,6 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=None, device="cuda
     return _lm.init_cache(cfg, batch, s_max, dtype or torch.bfloat16, device=device)
 
 
-__all__ = ["LMCache", "XLSTMCache", "EncDecCache", "init_model", "loss_fn", "forward",
+__all__ = ["LMCache", "XLSTMCache", "EncDecCache", "init_model", "init_model_with_axes",
+           "loss_fn", "forward",
            "prefill", "decode_step", "init_cache"]

@@ -51,6 +51,7 @@ from repro_torch.models.lm import (
     _logits,
     _remat_runner,
 )
+from repro_torch.nn import param as pm
 from repro_torch.nn.attention import (
     KVCache,
     attention_apply,
@@ -60,7 +61,7 @@ from repro_torch.nn.attention import (
     init_attention,
     init_cross_attention,
 )
-from repro_torch.nn.layers import rms_norm, softmax_xent, stacked_dense
+from repro_torch.nn.layers import rms_norm, softmax_xent
 
 Params = Dict[str, object]
 
@@ -80,31 +81,38 @@ def init_encdec(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random parameters drawn from ``gen`` on its device, with the
     reference's scales (``0.02 · normal`` for the embedding, ``normal ·
     fan_in^-1/2`` for dense weights, ones for the norms)."""
-    dtype, dev = DTYPES[cfg.param_dtype], gen.device
+    return init_encdec_with_axes(gen, cfg)[0]
+
+
+def init_encdec_with_axes(gen: torch.Generator, cfg: ArchConfig):
+    """``(params, axes)``: :func:`init_encdec`'s parameters and the tree of
+    their logical axes, the reference's ``init_encdec``."""
+    dtype = DTYPES[cfg.param_dtype]
     d, hd = cfg.d_model, cfg.resolved_head_dim
     le, ld = cfg.enc_layers, cfg.num_layers
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
+    def norms(layers):
+        return pm.stacked_ones(layers, (d,), (None,), dtype, gen=gen)
 
-    return {
-        "embed": torch.randn(cfg.vocab_size, d, generator=gen, dtype=dtype, device=dev) * 0.02,
-        "lm_head": stacked_dense(gen, 1, (d, cfg.vocab_size), dtype)[0],
-        "frame_proj": stacked_dense(gen, 1, (cfg.d_frontend, d), dtype)[0],
-        "final_norm": ones(d),
-        "enc_final_norm": ones(d),
+    tree = {
+        "embed": pm.normal(gen, (cfg.vocab_size, d), 0.02, ("vocab", "embed"), dtype),
+        "lm_head": pm.dense(gen, (d, cfg.vocab_size), ("embed", "vocab"), dtype),
+        "frame_proj": pm.dense(gen, (cfg.d_frontend, d), (None, "embed"), dtype),
+        "final_norm": pm.ones((d,), (None,), dtype, gen=gen),
+        "enc_final_norm": pm.ones((d,), (None,), dtype, gen=gen),
         "enc_blocks": {
-            "ln1": ones(le, d), "ln2": ones(le, d),
+            "ln1": norms(le), "ln2": norms(le),
             "attn": init_attention(gen, le, d, cfg.num_heads, cfg.num_kv_heads, hd, dtype=dtype),
             "mlp": _init_mlp(gen, le, d, cfg.d_ff, dtype),
         },
         "dec_blocks": {
-            "ln1": ones(ld, d), "ln_x": ones(ld, d), "ln2": ones(ld, d),
+            "ln1": norms(ld), "ln_x": norms(ld), "ln2": norms(ld),
             "attn": init_attention(gen, ld, d, cfg.num_heads, cfg.num_kv_heads, hd, dtype=dtype),
             "xattn": init_cross_attention(gen, ld, d, d, cfg.num_heads, hd, dtype=dtype),
             "mlp": _init_mlp(gen, ld, d, cfg.d_ff, dtype),
         },
     }
+    return pm.unzip(tree)
 
 
 def _cross(cfg: ArchConfig, p, x: torch.Tensor, mem_kv) -> torch.Tensor:

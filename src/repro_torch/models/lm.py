@@ -52,6 +52,15 @@ this one (``_attn_kwargs``, ``_embed``, ``_ffn``, ``_init_mlp``,
 keep both families, and ``tests/test_torch_encdec.py`` holds the
 encoder-decoder against the reference through them.
 
+Under a mesh (:mod:`repro_torch.dist`): with DTensor parameters and batch
+inside ``activation_sharding``, the same functions run sharded; the
+reference's ``ashard`` annotations stand in :mod:`repro_torch.nn.layers`,
+:mod:`repro_torch.nn.attention` and :mod:`repro_torch.nn.moe`, the embedding
+lookup reads local rows (:func:`repro_torch.nn.layers.embed_lookup`), the
+loss reads whole vocab rows, and :func:`prefill` places its cache by
+``cache_specs``.  The dense family and the vlm run so; the MoE, hymba,
+xLSTM and encoder-decoder families under a mesh are ROADMAP.md item 10g′.
+
 The vlm: ``patches`` ``[B, P, d_frontend]`` (the stubbed vision frontend's
 precomputed patch embeddings) go through ``patch_proj`` in the compute dtype
 and stand before the token embeddings, so the layers run over P + S
@@ -70,6 +79,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.ctx import ashard, place_cache, replicate_like
+from repro_torch.nn import param as pm
 from repro_torch.nn.attention import (
     KVCache,
     attention_apply,
@@ -77,7 +88,7 @@ from repro_torch.nn.attention import (
     init_attention,
     ring_decode_attention,
 )
-from repro_torch.nn.layers import rms_norm, softmax_xent, stacked_dense, swiglu
+from repro_torch.nn.layers import embed_lookup, rms_norm, softmax_xent, swiglu
 from repro_torch.nn.moe import init_moe, moe_apply
 from repro_torch.nn.ssm import (
     MLSTMState,
@@ -109,57 +120,59 @@ def _check_ported(cfg: ArchConfig) -> None:
 # ====================================================================== #
 # init
 # ====================================================================== #
-def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=dtype, device=gen.device).mul_(std)
-
-
 def _init_mlp(gen: torch.Generator, L: int, d: int, f: int, dtype):
-    return {"wg": stacked_dense(gen, L, (d, f), dtype), "wi": stacked_dense(gen, L, (d, f), dtype),
-            "wo": stacked_dense(gen, L, (f, d), dtype)}
+    return {"wg": pm.stacked_dense(gen, L, (d, f), ("embed", "mlp"), dtype),
+            "wi": pm.stacked_dense(gen, L, (d, f), ("embed", "mlp"), dtype),
+            "wo": pm.stacked_dense(gen, L, (f, d), ("mlp", "embed"), dtype)}
 
 
 def _init_ssd_branch(gen: torch.Generator, L: int, d: int, cfg: ArchConfig, dtype):
     """Mamba-2/SSD branch (hymba)."""
-    di, h, n, dev = cfg.ssm_expand * d, cfg.ssm_heads, cfg.ssm_state, gen.device
+    di, h, n = cfg.ssm_expand * d, cfg.ssm_heads, cfg.ssm_state
+    f32 = torch.float32
     return {
-        "w_in": stacked_dense(gen, L, (d, 2 * di), dtype),
-        "conv_w": _normal(gen, (L, cfg.conv_width, di), 0.2, dtype),
-        "w_bc": stacked_dense(gen, L, (di, 2 * h * n), dtype),
-        "w_dt": stacked_dense(gen, L, (di, h), dtype),
-        "a_log": torch.zeros(L, h, dtype=torch.float32, device=dev),
-        "dt_bias": torch.zeros(L, h, dtype=torch.float32, device=dev),
-        "d_skip": torch.ones(L, h, dtype=torch.float32, device=dev),
-        "w_out": stacked_dense(gen, L, (di, d), dtype),
-        "out_norm": torch.ones(L, di, dtype=dtype, device=dev),
+        "w_in": pm.stacked_dense(gen, L, (d, 2 * di), ("embed", "mlp"), dtype),
+        "conv_w": pm.normal(gen, (L, cfg.conv_width, di), 0.2, ("layers", None, "mlp"), dtype),
+        "w_bc": pm.stacked_dense(gen, L, (di, 2 * h * n), ("mlp", "heads"), dtype),
+        "w_dt": pm.stacked_dense(gen, L, (di, h), ("mlp", None), dtype),
+        "a_log": pm.stacked_zeros(L, (h,), (None,), f32, gen=gen),
+        "dt_bias": pm.stacked_zeros(L, (h,), (None,), f32, gen=gen),
+        "d_skip": pm.stacked_ones(L, (h,), (None,), f32, gen=gen),
+        "w_out": pm.stacked_dense(gen, L, (di, d), ("mlp", "embed"), dtype),
+        "out_norm": pm.stacked_ones(L, (di,), (None,), dtype, gen=gen),
     }
 
 
 def _init_mlstm_blocks(gen: torch.Generator, groups: int, per: int, d: int, heads: int,
                        conv_width: int, dtype):
-    dev = gen.device
+    lead = ("layers", "stack")
 
-    def sd(*shape):
-        return _normal(gen, (groups, per, *shape), shape[0] ** -0.5, dtype)
+    def sd(shape, axes):
+        return pm.normal(gen, (groups, per, *shape), shape[0] ** -0.5, (*lead, *axes), dtype)
+
+    def const(fill, n, dt=dtype):
+        return (pm.ones if fill else pm.zeros)((groups, per, n), (*lead, None), dt, gen=gen)
 
     return {
-        "ln": torch.ones(groups, per, d, dtype=dtype, device=dev),
-        "w_up": sd(d, 2 * d),
-        "conv_w": _normal(gen, (groups, per, conv_width, d), 0.2, dtype),
-        "wq": sd(d, d), "wk": sd(d, d), "wv": sd(d, d),
-        "w_gates": sd(d, 2 * heads),
-        "b_gates": torch.zeros(groups, per, 2 * heads, dtype=torch.float32, device=dev),
-        "w_down": sd(d, d),
-        "out_norm": torch.ones(groups, per, d, dtype=dtype, device=dev),
+        "ln": const(1, d),
+        "w_up": sd((d, 2 * d), ("embed", "mlp")),
+        "conv_w": pm.normal(gen, (groups, per, conv_width, d), 0.2, (*lead, None, "mlp"), dtype),
+        "wq": sd((d, d), ("embed", "heads")), "wk": sd((d, d), ("embed", "heads")),
+        "wv": sd((d, d), ("embed", "heads")),
+        "w_gates": sd((d, 2 * heads), ("embed", None)),
+        "b_gates": const(0, 2 * heads, torch.float32),
+        "w_down": sd((d, d), ("heads", "embed")),
+        "out_norm": const(1, d),
     }
 
 
 def _init_slstm_blocks(gen: torch.Generator, groups: int, d: int, dtype):
     return {
-        "ln": torch.ones(groups, d, dtype=dtype, device=gen.device),
-        "wz": stacked_dense(gen, groups, (d, d), dtype),
-        "wif": stacked_dense(gen, groups, (d, 2 * d), dtype),
-        "wo_gate": stacked_dense(gen, groups, (d, d), dtype),
-        "w_down": stacked_dense(gen, groups, (d, d), dtype),
+        "ln": pm.stacked_ones(groups, (d,), (None,), dtype, gen=gen),
+        "wz": pm.stacked_dense(gen, groups, (d, d), ("embed", "heads"), dtype),
+        "wif": pm.stacked_dense(gen, groups, (d, 2 * d), ("embed", "heads"), dtype),
+        "wo_gate": pm.stacked_dense(gen, groups, (d, d), ("embed", "heads"), dtype),
+        "w_down": pm.stacked_dense(gen, groups, (d, d), ("heads", "embed"), dtype),
     }
 
 
@@ -177,40 +190,46 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     ``normal · fan_in^-1/2`` for dense weights, ``0.2 · normal`` for the
     convolutions, ones for norms and ``d_skip``, zeros for biases,
     ``a_log`` and ``dt_bias``."""
+    return init_lm_with_axes(gen, cfg)[0]
+
+
+def init_lm_with_axes(gen: torch.Generator, cfg: ArchConfig):
+    """``(params, axes)``: :func:`init_lm`'s parameters and the tree of their
+    logical axes (:mod:`repro_torch.nn.param`), the reference's
+    ``init_lm``."""
     _check_ported(cfg)
-    dtype, dev = DTYPES[cfg.param_dtype], gen.device
+    dtype = DTYPES[cfg.param_dtype]
     d, L = cfg.d_model, cfg.num_layers
-    params: Params = {
-        "embed": torch.randn(cfg.vocab_size, d, generator=gen, dtype=dtype, device=dev) * 0.02,
-        "final_norm": torch.ones(d, dtype=dtype, device=dev),
+    tree = {
+        "embed": pm.normal(gen, (cfg.vocab_size, d), 0.02, ("vocab", "embed"), dtype),
+        "final_norm": pm.ones((d,), (None,), dtype, gen=gen),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = stacked_dense(gen, 1, (d, cfg.vocab_size), dtype)[0]
+        tree["lm_head"] = pm.dense(gen, (d, cfg.vocab_size), ("embed", "vocab"), dtype)
     if cfg.num_patches:
-        params["patch_proj"] = stacked_dense(gen, 1, (cfg.d_frontend, d), dtype)[0]
+        tree["patch_proj"] = pm.dense(gen, (cfg.d_frontend, d), (None, "embed"), dtype)
     if cfg.block_pattern == "xlstm":
         groups, per = _xlstm_groups(cfg)
-        params["slstm_blocks"] = _init_slstm_blocks(gen, groups, d, dtype)
-        params["mlstm_blocks"] = _init_mlstm_blocks(gen, groups, per - 1, d, cfg.num_heads,
-                                                    cfg.conv_width, dtype)
-        return params
+        tree["slstm_blocks"] = _init_slstm_blocks(gen, groups, d, dtype)
+        tree["mlstm_blocks"] = _init_mlstm_blocks(gen, groups, per - 1, d, cfg.num_heads,
+                                                  cfg.conv_width, dtype)
+        return pm.unzip(tree)
     hymba = cfg.block_pattern == "hymba"
-    params["blocks"] = {
-        "ln1": torch.ones(L, d, dtype=dtype, device=dev),
-        "ln2": torch.ones(L, d, dtype=dtype, device=dev),
+    blocks = tree["blocks"] = {
+        "ln1": pm.stacked_ones(L, (d,), (None,), dtype, gen=gen),
+        "ln2": pm.stacked_ones(L, (d,), (None,), dtype, gen=gen),
         "attn": init_attention(gen, L, d, cfg.num_heads, cfg.num_kv_heads,
                                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias and not hymba,
                                qk_norm=cfg.qk_norm and not hymba, dtype=dtype),
     }
     if hymba:
-        params["blocks"]["ssd"] = _init_ssd_branch(gen, L, d, cfg, dtype)
+        blocks["ssd"] = _init_ssd_branch(gen, L, d, cfg, dtype)
     if cfg.is_moe:
-        params["blocks"]["moe"] = init_moe(gen, L, d, cfg.moe_d_ff, cfg.num_experts, dtype,
-                                           num_shared=cfg.num_shared_experts,
-                                           shared_d_ff=cfg.moe_d_ff)
+        blocks["moe"] = init_moe(gen, L, d, cfg.moe_d_ff, cfg.num_experts, dtype,
+                                 num_shared=cfg.num_shared_experts, shared_d_ff=cfg.moe_d_ff)
     else:
-        params["blocks"]["mlp"] = _init_mlp(gen, L, d, cfg.d_ff, dtype)
-    return params
+        blocks["mlp"] = _init_mlp(gen, L, d, cfg.d_ff, dtype)
+    return pm.unzip(tree)
 
 
 def window_schedule(cfg: ArchConfig) -> np.ndarray:
@@ -445,11 +464,17 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The token embeddings in the compute dtype, after ``patches @
     patch_proj`` (both operands in the compute dtype) when ``patches`` are
-    given."""
+    given.  Under a mesh both come out batch over "dp", the sequence whole
+    (:func:`~repro_torch.nn.layers.embed_lookup`): the reference leaves
+    their layout to GSPMD, and DTensor would carry the tokens' split of the
+    sequence (``auto_spec`` puts "tp" there) into the residual stream, whose
+    backward then flattens (batch, sequence) with the sequence split, which
+    PyTorch 2.11 refuses."""
     cdt = DTYPES[cfg.compute_dtype]
-    x = params["embed"][tokens].to(cdt)
+    x = embed_lookup(params["embed"], tokens).to(cdt)
     if patches is not None:
-        x = torch.cat([patches.to(cdt) @ params["patch_proj"].to(cdt), x], dim=1)
+        proj = ashard(patches.to(cdt) @ params["patch_proj"].to(cdt), "dp")
+        x = torch.cat([proj, x], dim=1)
     return x
 
 
@@ -489,7 +514,7 @@ def forward_with_aux(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             auxs.append(aux)
     logits = _logits(params, cfg, rms_norm(x, params["final_norm"])[:, n_patch:])
     aux = (torch.stack(auxs).mean() if cfg.is_moe else
-           torch.zeros((), dtype=torch.float32, device=logits.device))
+           replicate_like(torch.zeros((), dtype=torch.float32, device=logits.device), logits))
     return logits, aux
 
 
@@ -525,7 +550,9 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     "aux"})``.  batch: ``tokens`` and ``labels`` [B, S], and ``patches`` for
     a vlm."""
     logits, aux = forward_with_aux(params, cfg, batch["tokens"], batch.get("patches"))
-    ce = softmax_xent(logits, batch["labels"])
+    # under a mesh: whole vocab rows (DTensor's gather of a vocab-split row
+    # gives a masked partial that its reduction mishandles)
+    ce = softmax_xent(ashard(logits, "dp"), ashard(batch["labels"], "dp"))
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -546,7 +573,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
     S); cache.index = P + S, and ``s_max`` counts the patches too."""
     x = _embed(params, cfg, tokens, patches)
     b, s, _ = x.shape
-    cache = init_cache(cfg, b, s_max, cache_dtype, device=x.device)
+    cache = place_cache(init_cache(cfg, b, s_max, cache_dtype, device=x.device), b)
     if cfg.block_pattern == "xlstm":
         groups, per = _xlstm_groups(cfg)
         for g in range(groups):

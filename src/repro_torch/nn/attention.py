@@ -19,9 +19,14 @@ encoder output once into K/V of ``n_heads`` heads (no RoPE), and
 unmasked: ``flash_attention`` non-causal with Sq ≠ Sk in a prefill or a full
 forward, the plain grouped path at decode.
 
-The reference's ``ashard`` sharding annotations are the identity outside a
-mesh and are left out; they come with the sharded LM (ROADMAP.md Queue 1
-item 10g).
+The reference's ``ashard`` annotations stand at its points: q, k and v
+after the head split and after RoPE (batch over "dp", heads over "tp"),
+and the prefill's output.  They are the identity outside an
+``activation_sharding`` context.  Inside one the tensors are DTensors, and
+:func:`attention_core` runs the attention on each rank's local batch rows
+and heads through ``local_map``: the kernel (and its autograd backward)
+sees plain local tensors, as the reference's ``shard_map``-free Pallas call
+sees each device's shard.
 """
 from __future__ import annotations
 
@@ -30,8 +35,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.ctx import ashard
 from repro_torch.kernels import ops as kops
-from repro_torch.nn.layers import apply_rope, rms_norm, rope_freqs, stacked_dense
+from repro_torch.nn import param as pm
+from repro_torch.nn.layers import apply_rope, rms_norm, rope_freqs
 
 
 class KVCache(NamedTuple):
@@ -41,28 +48,33 @@ class KVCache(NamedTuple):
 
 def init_attention(gen: torch.Generator, layers: int, d_model: int, n_heads: int, n_kv: int,
                    head_dim: int, qkv_bias: bool = False, qk_norm: bool = False,
-                   dtype=torch.float32) -> Dict[str, torch.Tensor]:
-    """Stacked ``[layers, …]`` projections, drawn from ``gen`` on its device."""
-    dev = gen.device
+                   dtype=torch.float32) -> Dict[str, pm.Param]:
+    """Stacked ``[layers, …]`` projections with their logical axes, drawn from
+    ``gen`` on its device."""
     p = {
-        "wq": stacked_dense(gen, layers, (d_model, n_heads * head_dim), dtype),
-        "wk": stacked_dense(gen, layers, (d_model, n_kv * head_dim), dtype),
-        "wv": stacked_dense(gen, layers, (d_model, n_kv * head_dim), dtype),
-        "wo": stacked_dense(gen, layers, (n_heads * head_dim, d_model), dtype),
+        "wq": pm.stacked_dense(gen, layers, (d_model, n_heads * head_dim), ("embed", "heads"),
+                               dtype),
+        "wk": pm.stacked_dense(gen, layers, (d_model, n_kv * head_dim), ("embed", "heads"), dtype),
+        "wv": pm.stacked_dense(gen, layers, (d_model, n_kv * head_dim), ("embed", "heads"), dtype),
+        "wo": pm.stacked_dense(gen, layers, (n_heads * head_dim, d_model), ("heads", "embed"),
+                               dtype),
     }
     if qkv_bias:
-        p["bq"] = torch.zeros(layers, n_heads * head_dim, dtype=dtype, device=dev)
-        p["bk"] = torch.zeros(layers, n_kv * head_dim, dtype=dtype, device=dev)
-        p["bv"] = torch.zeros(layers, n_kv * head_dim, dtype=dtype, device=dev)
+        p["bq"] = pm.stacked_zeros(layers, (n_heads * head_dim,), ("heads",), dtype, gen=gen)
+        p["bk"] = pm.stacked_zeros(layers, (n_kv * head_dim,), ("heads",), dtype, gen=gen)
+        p["bv"] = pm.stacked_zeros(layers, (n_kv * head_dim,), ("heads",), dtype, gen=gen)
     if qk_norm:
-        p["q_norm"] = torch.ones(layers, head_dim, dtype=dtype, device=dev)
-        p["k_norm"] = torch.ones(layers, head_dim, dtype=dtype, device=dev)
+        p["q_norm"] = pm.stacked_ones(layers, (head_dim,), (None,), dtype, gen=gen)
+        p["k_norm"] = pm.stacked_ones(layers, (head_dim,), (None,), dtype, gen=gen)
     return p
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                    window: Optional[int], q_offset: int) -> torch.Tensor:
-    """q [B, Hq, Sq, Dh] over k, v [B, Hkv, Sk, Dh] → [B, Hq, Sq, Dh] in q's dtype."""
+    """q [B, Hq, Sq, Dh] over k, v [B, Hkv, Sk, Dh] → [B, Hq, Sq, Dh] in q's dtype.
+    DTensors go through :func:`_local_attention`."""
+    if _is_dtensor(q):
+        return _local_attention(q, k, v, causal, window, q_offset)
     if q.shape[2] > 1:
         return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=causal, window=window, q_offset=q_offset)
@@ -86,6 +98,32 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _local_attention(q, k, v, causal: bool, window: Optional[int], q_offset: int):
+    """:func:`attention_core` of DTensors: each rank attends with its local
+    batch rows and heads (sequence and head dims whole).  q's heads follow
+    k's split: where Hkv does not divide over "tp" but Hq does, q is
+    gathered to k's placements, so that local q head j reads local KV head
+    j // g as the kernel does."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(k.placements)
+    if tuple(v.placements) != pl or any(isinstance(x, Shard) and x.dim > 1 for x in pl):
+        raise ValueError(f"attention needs k and v split over batch and heads only, got "
+                         f"{pl} and {tuple(v.placements)}")
+    if tuple(q.placements) != pl:
+        q = q.redistribute(q.device_mesh, pl)
+    run = local_map(lambda a, b, c: attention_core(a, b, c, causal, window, q_offset),
+                    out_placements=(pl,), in_placements=(pl, pl, pl), device_mesh=q.device_mesh)
+    return run(q, k, v)
+
+
 def _qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
          rope_theta: float, start: int):
     """Projections, heads split to [B, H, S, Dh], QK-norm and RoPE at
@@ -94,13 +132,13 @@ def _qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv: int, h
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
-    k = k.reshape(b, s, n_kv, head_dim).transpose(1, 2)
-    v = v.reshape(b, s, n_kv, head_dim).transpose(1, 2)
+    q = ashard(q.reshape(b, s, n_heads, head_dim).transpose(1, 2), "dp", "tp")
+    k = ashard(k.reshape(b, s, n_kv, head_dim).transpose(1, 2), "dp", "tp")
+    v = ashard(v.reshape(b, s, n_kv, head_dim).transpose(1, 2), "dp", "tp")
     if "q_norm" in p:
         q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
     angles = rope_freqs(head_dim, rope_theta, start + torch.arange(s, device=x.device))
-    return apply_rope(q, angles), apply_rope(k, angles), v
+    return ashard(apply_rope(q, angles), "dp", "tp"), ashard(apply_rope(k, angles), "dp", "tp"), v
 
 
 def _merge_heads(out: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -143,19 +181,21 @@ def attention_prefill_kv(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads
     """Prefill that also returns the (rope-applied) full-length K/V so the
     caller can fill its cache."""
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, 0)
-    return _merge_heads(attention_core(q, k, v, causal, window, 0), p), k, v
+    out = ashard(attention_core(q, k, v, causal, window, 0), "dp", "tp")
+    return _merge_heads(out, p), k, v
 
 
 def init_cross_attention(gen: torch.Generator, layers: int, d_model: int, d_enc: int,
                          n_heads: int, head_dim: int, dtype=torch.float32
-                         ) -> Dict[str, torch.Tensor]:
+                         ) -> Dict[str, pm.Param]:
     """Stacked ``[layers, …]`` cross-attention projections: q from the
     decoder's width, k and v from the encoder's, all ``n_heads`` heads."""
+    hd = n_heads * head_dim
     return {
-        "wq": stacked_dense(gen, layers, (d_model, n_heads * head_dim), dtype),
-        "wk": stacked_dense(gen, layers, (d_enc, n_heads * head_dim), dtype),
-        "wv": stacked_dense(gen, layers, (d_enc, n_heads * head_dim), dtype),
-        "wo": stacked_dense(gen, layers, (n_heads * head_dim, d_model), dtype),
+        "wq": pm.stacked_dense(gen, layers, (d_model, hd), ("embed", "heads"), dtype),
+        "wk": pm.stacked_dense(gen, layers, (d_enc, hd), ("embed", "heads"), dtype),
+        "wv": pm.stacked_dense(gen, layers, (d_enc, hd), ("embed", "heads"), dtype),
+        "wo": pm.stacked_dense(gen, layers, (hd, d_model), ("heads", "embed"), dtype),
     }
 
 
@@ -165,7 +205,7 @@ def cross_attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """x [B, Sq, D] over precomputed memory K/V ([B, H, Sk, dh] each),
     unmasked and without RoPE → [B, Sq, D]."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim).transpose(1, 2)
+    q = ashard((x @ p["wq"]).reshape(b, s, n_heads, head_dim).transpose(1, 2), "dp", "tp")
     k, v = memory_kv
     return _merge_heads(attention_core(q, k, v, False, None, 0), p)
 
@@ -177,7 +217,7 @@ def cross_memory(p: Dict[str, torch.Tensor], enc: torch.Tensor, n_heads: int, he
     b, sk, _ = enc.shape
     k = (enc @ p["wk"]).reshape(b, sk, n_heads, head_dim).transpose(1, 2)
     v = (enc @ p["wv"]).reshape(b, sk, n_heads, head_dim).transpose(1, 2)
-    return k, v
+    return ashard(k, "dp", "tp"), ashard(v, "dp", "tp")
 
 
 def ring_decode_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, ck: torch.Tensor,

@@ -11,6 +11,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.ctx import activation_placements, ashard, replicate_like
+
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
@@ -28,7 +30,9 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    g = ashard(x @ w_gate, "dp", None, "tp")
+    u = ashard(x @ w_up, "dp", None, "tp")
+    return (F.silu(g) * u) @ w_down
 
 
 def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor) -> torch.Tensor:
@@ -46,19 +50,30 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
         cos, sin = torch.cos(angles)[None, None], torch.sin(angles)[None, None]
     else:
         cos, sin = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
+    cos, sin = replicate_like(cos, x), replicate_like(sin, x)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    """``table[ids]``.  Under a mesh (``table`` a DTensor) the rows are read
+    locally: the ids are placed batch over "dp" (the rest whole), the table
+    is gathered whole, and each rank indexes its own rows inside
+    ``local_map``; the table's gradient comes back as a partial sum over
+    the ranks that split the ids, which the gather's backward reduces and
+    scatters to the table's placements.  (DTensor's own strategy for the
+    index's backward, ``index_put``, fails in PyTorch 2.11.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
 
-
-def stacked_dense(gen: torch.Generator, layers: int, shape, dtype=torch.float32) -> torch.Tensor:
-    """``[layers, *shape]`` weights ``normal · fan_in^-1/2`` (fan_in = shape[0]),
-    the reference's ``param.stacked_dense`` init, drawn from ``gen`` on its
-    device."""
-    std = 1.0 / (shape[0] ** 0.5)
-    return torch.randn((layers, *shape), generator=gen, dtype=dtype, device=gen.device) * std
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    id_pl = activation_placements(ids.shape, "dp") or whole
+    grad_pl = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in id_pl)
+    run = local_map(lambda t, i: t[i], out_placements=(id_pl,), in_placements=(whole, id_pl),
+                    in_grad_placements=(grad_pl, id_pl), device_mesh=mesh)
+    return run(table.redistribute(mesh, whole), ids.redistribute(mesh, id_pl))
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

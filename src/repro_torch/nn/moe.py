@@ -23,8 +23,11 @@ Differences of form, none of result:
   kernel sums fp32: where the experts' output is not fp32 (bf16 params) it
   is cast to fp32 for the sum and back after, where the reference sums in
   that dtype (a deliberate divergence, no config of the repo reaches it);
-- the reference's sharding annotations (``ashard``) are not here (ROADMAP.md
-  item 10g).
+- the reference's sharding annotations (``ashard``) of the dispatched
+  tokens and the experts' outputs stand at its points, with the axes in the
+  port's layout (experts over "tp", batch rows over "dp").  They are the
+  identity outside a mesh; the MoE family under a mesh is ROADMAP.md item
+  10g′.
 """
 from __future__ import annotations
 
@@ -33,33 +36,37 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.ctx import ashard
 from repro_torch.kernels.segment_spmm import segment_spmm
-from repro_torch.nn.layers import stacked_dense, swiglu
+from repro_torch.nn import param as pm
+from repro_torch.nn.layers import swiglu
 
 
 def init_moe(gen: torch.Generator, layers: int, d_model: int, d_ff: int, num_experts: int,
              dtype=torch.float32, num_shared: int = 0, shared_d_ff: int = 0
-             ) -> Dict[str, torch.Tensor]:
-    """The reference's ``init_moe`` on ``gen``'s device: the router ``[L, D, E]``
-    (always fp32), ``wi``/``wg`` ``[L, E, D, F]`` with std ``D^-1/2``, ``wo``
-    ``[L, E, F, D]`` with std ``F^-1/2`` and, with ``num_shared``, the dense
-    ``shared_{wi,wg,wo}``.  Scaled in place: the expert stacks are the
-    largest tensors of a model."""
-    dev = gen.device
-
-    def normal(shape, std):
-        return torch.randn(shape, generator=gen, dtype=dtype, device=dev).mul_(std)
-
+             ) -> Dict[str, pm.Param]:
+    """The reference's ``init_moe`` on ``gen``'s device, with its logical
+    axes: the router ``[L, D, E]`` (always fp32), ``wi``/``wg`` ``[L, E, D, F]``
+    with std ``D^-1/2``, ``wo`` ``[L, E, F, D]`` with std ``F^-1/2`` and, with
+    ``num_shared``, the dense ``shared_{wi,wg,wo}``."""
+    experts = ("layers", "experts")
     p = {
-        "router": stacked_dense(gen, layers, (d_model, num_experts), torch.float32),
-        "wi": normal((layers, num_experts, d_model, d_ff), d_model ** -0.5),
-        "wg": normal((layers, num_experts, d_model, d_ff), d_model ** -0.5),
-        "wo": normal((layers, num_experts, d_ff, d_model), d_ff ** -0.5),
+        "router": pm.stacked_dense(gen, layers, (d_model, num_experts), ("embed", None),
+                                   torch.float32),
+        "wi": pm.normal(gen, (layers, num_experts, d_model, d_ff), d_model ** -0.5,
+                        (*experts, "embed", "mlp"), dtype),
+        "wg": pm.normal(gen, (layers, num_experts, d_model, d_ff), d_model ** -0.5,
+                        (*experts, "embed", "mlp"), dtype),
+        "wo": pm.normal(gen, (layers, num_experts, d_ff, d_model), d_ff ** -0.5,
+                        (*experts, "mlp", "embed"), dtype),
     }
     if num_shared:
-        p["shared_wi"] = stacked_dense(gen, layers, (d_model, shared_d_ff), dtype)
-        p["shared_wg"] = stacked_dense(gen, layers, (d_model, shared_d_ff), dtype)
-        p["shared_wo"] = stacked_dense(gen, layers, (shared_d_ff, d_model), dtype)
+        p["shared_wi"] = pm.stacked_dense(gen, layers, (d_model, shared_d_ff), ("embed", "mlp"),
+                                          dtype)
+        p["shared_wg"] = pm.stacked_dense(gen, layers, (d_model, shared_d_ff), ("embed", "mlp"),
+                                          dtype)
+        p["shared_wo"] = pm.stacked_dense(gen, layers, (shared_d_ff, d_model), ("mlp", "embed"),
+                                          dtype)
     return p
 
 
@@ -147,9 +154,9 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, top_k: int,
 
     # group-local gather [E, B, C, D], empty slots masked to 0
     xs = x[torch.arange(b, device=x.device)[None, :, None], r.sel_idx]
-    xs = (xs * r.valid[..., None].to(xs.dtype)).to(dt).reshape(e, b * c, d)
+    xs = ashard((xs * r.valid[..., None].to(xs.dtype)).to(dt).reshape(e, b * c, d), "tp", "dp")
     h = F.silu(xs @ p["wg"]) * (xs @ p["wi"])  # [E, B·C, F]
-    y = (h @ p["wo"]) * r.sel_score.reshape(e, b * c, 1).to(dt)  # [E, B·C, D]
+    y = ashard((h @ p["wo"]) * r.sel_score.reshape(e, b * c, 1).to(dt), "tp", "dp")  # [E, B·C, D]
 
     # combine: record (e, b, c) adds to token b·S + sel_idx; a token's records
     # come in (expert, slot) order, the reference's segment_sum order

@@ -398,8 +398,9 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, b, hq, hkv, sq, sk, causa
 
 
 #: the backward's loop steps: 64 keys or query rows, 32 in fp32 at dh 64, 16 in
-#: fp32 at dh 128 (its blocks: 128 query rows or keys, 64 in fp32 at dh 128)
-_BWD_STEP_EDGES = (15, 16, 17, 31, 32, 33)
+#: fp32 at dh 128, 8 in fp32 and 32 in bf16 at dh 160 (its blocks: 128 query
+#: rows or keys, 64 in fp32 from dh 128 and in bf16)
+_BWD_STEP_EDGES = (7, 8, 9, 15, 16, 17, 31, 32, 33)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -455,22 +456,6 @@ def test_flash_attention_bwd_rejects_what_the_kernels_do_not_take(cuda):
         fmod.flash_attention_bwd(q48, k48, v48, q48, lse, q48)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_at_dh_160_raises_on_the_card(cuda, dtype):
-    """The forward takes dh 160 (pixtral-12b); its backward does not yet
-    (ROADMAP.md item 10f′), and says so rather than running a plain version."""
-    q, k, v = _attn_inputs(1, 4, 2, 64, 64, 160, dtype)
-    o, lse = fmod.flash_attention_lse(q, k, v)
-    n0 = dict(fmod.BWD_KERNEL.entry_launches)
-    with pytest.raises(ValueError, match="10f′"):
-        fmod.flash_attention_bwd(q, k, v, o, lse, o)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = fmod.flash_attention(*leaves)
-    with pytest.raises(ValueError, match="10f′"):
-        out.sum().backward()
-    assert dict(fmod.BWD_KERNEL.entry_launches) == n0
-
-
 @pytest.mark.parametrize("name", ["llama3.2-1b", "qwen2.5-3b", "qwen3-moe-30b-a3b",
                                   "seamless-m4t-large-v2"])
 def test_reduced_lm_loss_and_grads_on_card_match_cpu(cuda, name):
@@ -496,6 +481,55 @@ def test_reduced_lm_loss_and_grads_on_card_match_cpu(cuda, name):
     assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
     for (key, a), (_, c) in zip(tree_paths(grads), tree_paths(grads_cpu)):
         assert float((a.cpu() - c).abs().max()) <= 1e-4 * float(c.abs().max()), key
+
+
+def test_reduced_vlm_train_step_on_a_one_card_mesh_matches_plain(cuda):
+    """The launch layer on the card: the reduced pixtral (remat, patches in
+    the batch) on the card's ``("data", "model")`` mesh of 1 × 1 (NCCL at
+    world size 1 on an in-process store), placed by ``shardings_for_cell``:
+    its loss and every gradient leaf inside ``activation_sharding`` against
+    the same weights with no mesh (loss 1e-6 relative, each leaf 1e-5 of its
+    largest entry), every attention call through the kernels, and a train
+    step whose params keep their placements."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import activation_sharding, distribute_tree
+    from repro_torch.launch.steps import make_train_step, shardings_for_cell
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainer import TrainConfig, synthetic_batch, value_and_grad
+    from repro_torch.train.tree import tree_map, tree_paths
+
+    cfg = dataclasses.replace(reduced_config(get_arch("pixtral-12b")), remat=True)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        sh = shardings_for_cell(cfg, ShapeConfig("tiny", 40, 2, "train"), mesh)
+        plain = _to(lm_models.init_model(torch.Generator().manual_seed(0), cfg), "cuda")
+        params = distribute_tree(plain, sh["params_sharding"])
+        batch = synthetic_batch(cfg, TrainConfig(batch=2, seq_len=40), 0, device="cuda")
+        dbatch = distribute_tree(batch, sh["batch_sharding"])
+        n_fwd, n_bwd = fmod.KERNEL.launches, fmod.BWD_KERNEL.launches
+        with activation_sharding(mesh, sh["shcfg"]):
+            loss, _, grads = value_and_grad(params, cfg, dbatch)
+        assert fmod.KERNEL.launches - n_fwd == 2 * cfg.num_layers  # remat: twice a layer
+        assert fmod.BWD_KERNEL.launches - n_bwd == 2 * cfg.num_layers  # dQ and dK/dV
+        loss_p, _, grads_p = value_and_grad(plain, cfg, batch)
+        assert abs(float(loss.full_tensor()) - float(loss_p)) <= 1e-6 * abs(float(loss_p))
+        for (key, a), (_, c) in zip(tree_paths(grads), tree_paths(grads_p)):
+            assert float((a.full_tensor() - c).abs().max()) <= 1e-5 * float(c.abs().max()), key
+        step = make_train_step(cfg, OptConfig(warmup_steps=1, stable_steps=10, decay_steps=1))
+        opt = distribute_tree(adamw_init(plain), sh["opt_sharding"])
+        with activation_sharding(mesh, sh["shcfg"]):
+            new, _, metrics = step(params, opt, dbatch)
+        assert np.isfinite(float(metrics["loss"].full_tensor()))
+        placements = tree_map(lambda p: isinstance(p, DTensor) and tuple(p.placements), new)
+        want = tree_map(lambda s: s.placements, sh["params_sharding"])
+        assert placements == want
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("h", [1, 2, 3, 4, 8])  # vector widths and the generic loop

@@ -391,6 +391,8 @@ BWD_CASES = [  # b, hq, hkv, sq, sk, dh, causal, window, q_offset
     (2, 4, 1, 130, 130, 16, True, 48, 0),  # window
     (1, 4, 4, 5, 150, 64, True, None, 145),  # the last rows of a cache
     (1, 4, 1, 70, 70, 16, True, 16, -20),  # rows that see no key: zero gradients
+    (1, 4, 1, 40, 40, 160, True, None, 0),  # pixtral's dh 160, GQA g = 4, causal
+    (1, 2, 2, 33, 21, 160, False, None, 0),  # dh 160, not causal, Sq ≠ Sk
 ]
 
 
