@@ -157,6 +157,30 @@ Phases, one JSON line each:
              with no mesh (loss within 1e-6 relative, each gradient leaf
              within 1e-5 of its largest entry), and whether the loss, the
              gradients and one AdamW step's weights are bitwise equal;
+5p–5s. lm_moe_mesh, lm_encdec_mesh, lm_hymba_mesh, lm_xlstm_mesh — the other
+             four families through the launch layer (``MESH_PHASES``), each
+             at full width, cut in depth (qwen3-moe-30b-a3b 48 → 2 layers,
+             1.87B elements, 30 GB of fp32 params, gradients and moments;
+             seamless 24 + 24 → 2 + 2; hymba 32 → 2, layer 0 global and
+             layer 1 windowed at 1024; xlstm 48 → 8, one group of an sLSTM
+             and 7 mLSTM blocks), fp32 params, bf16 compute, remat, on the
+             card's 1 × 1 NCCL mesh: 2 AdamW steps of ``make_train_step`` on
+             2 × 2048 tokens of the trainer's data (seamless also 2048
+             frames) with no mesh, the loss, every gradient leaf and the
+             params after each step copied to the host and the device state
+             freed (MoE: the first batch's gradients once more from the same
+             state, which must be the step's bits); the same steps on the
+             mesh, held bitwise to the host copies; a prefill of the 2048
+             tokens and 4 decode steps (hymba's 1024-slot ring wraps) through
+             ``make_prefill_step`` and ``make_serve_step``, plain and on the
+             mesh, every logit bitwise.  Counts are zeroed before each run
+             and read after; each ``flash_attention`` forward and backward
+             call's kind is read (causal, windowed, non-causal, cross: the
+             training runs must make exactly 2 forwards and 1 backward a
+             layer a step of each), and each MoE combine's direction (the
+             forward twice a layer a step, the dispatch gather's backward
+             once); seconds a step (the host copies excluded), peak memory,
+             prefill seconds and decode ms a step;
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
@@ -285,7 +309,14 @@ bound counts the band's 1,573,376 key–query pairs a head, not causal's
 at seamless's encoder shape (B 8, 16/16 heads, S 2048, dh 64: 4,194,304
 pairs a head; SDPA with ``is_causal=False``), at a cross shape over a
 ragged source (Sq 2048 over Sk 1,999), and causal at its decoder's shape
-(the same heads, group 1), each with a second launch bitwise the first.  Then a ``{"kernels":
+(the same heads, group 1), each with a second launch bitwise the first;
+``flash_attention_bwd`` at the mesh phases' training shapes (B 2, S 2048,
+fp32): hymba's windowed layer (Hq 25 over Hkv 5, window 1024), the encoder's
+non-causal self attention (16/16 heads) and a cross attention over a ragged
+source (Sk 1,999), each beside SDPA's backward (the band as a boolean
+mask); and ``segment_spmm`` at the MoE dispatch backward's shape (the first
+layer's records' gradients of ``lm_moe_mesh``, 4,096 token rows of 2048),
+bitwise ``row_sum_chunked_plain``, beside ``index_add_``.  Then a ``{"kernels":
 [...]}`` line (launches summed over every path that launched each kernel),
 the ``nvidia-smi`` name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -295,6 +326,8 @@ JAX package ``repro``.  Full ``nvcc`` logs go to ``build/repro_torch/logs/``.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -354,6 +387,19 @@ VLM_ARCH, VLM_CONSIST_PROMPT = "pixtral-12b", 300
 #: of fp32 params, gradients and AdamW's two moments; all 40 would be 204 GB), 3 steps
 #: of 2 × (256 patches + 2,048 tokens) through make_train_step on the card's 1 × 1 mesh
 VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 4, 3, 2
+#: the mesh phases (10g′, and training at full width: 10c′, 10d″, 10e′): each family at its
+#: full widths, cut in depth, fp32 params, the config's compute dtype, remat; MESH_STEPS AdamW
+#: steps of MESH_BATCH × MESH_SEQ tokens of the trainer's data, plain and then on the card's
+#: 1 × 1 NCCL mesh, held bitwise; then a prefill of MESH_SEQ tokens and MESH_DECODE decode
+#: steps, plain and on the mesh, held bitwise.  phase → (arch, depth cut)
+MESH_PHASES = {
+    "lm_moe_mesh": ("qwen3-moe-30b-a3b", {"num_layers": 2}),  # 48 → 2: 1.87B elements
+    "lm_encdec_mesh": ("seamless-m4t-large-v2", {"num_layers": 2, "enc_layers": 2}),  # 24 + 24
+    # 32 → 2: layer 0 global, layer 1 windowed at 1024 over 2048 tokens; decode wraps the ring
+    "lm_hymba_mesh": ("hymba-1.5b", {"num_layers": 2, "full_attn_layers": (0,)}),
+    "lm_xlstm_mesh": ("xlstm-1.3b", {"num_layers": 8}),  # 48 → 8: one group, 1 sLSTM + 7 mLSTM
+}
+MESH_STEPS, MESH_BATCH, MESH_SEQ, MESH_DECODE = 2, 2, 2048, 4
 TOL_MESH_LOSS = 1e-6  # lm_vlm_train: the mesh's loss against the plain path's, relative
 TOL_MESH_GRAD = 1e-5  # lm_vlm_train: each gradient leaf's max |Δ| / its max |entry|
 DIST_BACKEND = "nccl"  # lm_vlm_train's process group (world size 1)
@@ -2707,6 +2753,324 @@ def phase_lm_vlm_train(seed: int, kernels: dict) -> dict:
     return row
 
 
+def _local(t):
+    """A DTensor's local tensor (on the 1 × 1 mesh the whole one), else ``t``."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+@contextlib.contextmanager
+def _attention_kinds():
+    """While open, counts each ``flash_attention`` forward and each backward call
+    by kind: ``causal``, ``windowed``, ``non_causal`` (the encoder's self
+    attention) or ``cross`` (a call from the encoder-decoder's cross attention).
+    A backward call is matched to its forward by the address of the output it
+    differentiates (alive from the forward, or its recomputation, to the
+    backward)."""
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.models import encdec
+
+    kinds = {"forward": collections.Counter(), "backward": collections.Counter()}
+    by_output, in_cross = {}, [0]
+    orig_fwd, orig_bwd, orig_cross = (fmod._forward, fmod.flash_attention_bwd,
+                                      encdec.cross_attention_apply)
+
+    def reading_fwd(q, k, v, causal, window, q_offset, with_lse):
+        o, lse = orig_fwd(q, k, v, causal, window, q_offset, with_lse)
+        kind = ("cross" if in_cross[0] else "windowed" if window is not None
+                else "causal" if causal else "non_causal")
+        kinds["forward"][kind] += 1
+        by_output[o.data_ptr()] = kind
+        return o, lse
+
+    def reading_bwd(q, k, v, o, *args, **kw):
+        kinds["backward"][by_output.get(o.data_ptr(), "unmatched")] += 1
+        return orig_bwd(q, k, v, o, *args, **kw)
+
+    def reading_cross(*args, **kw):
+        in_cross[0] += 1
+        try:
+            return orig_cross(*args, **kw)
+        finally:
+            in_cross[0] -= 1
+
+    fmod._forward, fmod.flash_attention_bwd = reading_fwd, reading_bwd
+    encdec.cross_attention_apply = reading_cross
+    try:
+        yield kinds
+    finally:
+        fmod._forward, fmod.flash_attention_bwd = orig_fwd, orig_bwd
+        encdec.cross_attention_apply = orig_cross
+
+
+def _expected_attention(cfg, steps: int) -> dict:
+    """``flash_attention`` forward and backward calls by kind in ``steps``
+    remat training steps of ``cfg`` (the forward twice a layer, the backward
+    once)."""
+    if cfg.encdec:
+        per = {"non_causal": cfg.enc_layers, "causal": cfg.num_layers, "cross": cfg.num_layers}
+    elif cfg.block_pattern == "xlstm":
+        per = {}
+    else:
+        windows = [cfg.window and l not in cfg.full_attn_layers for l in range(cfg.num_layers)]
+        per = {"windowed": sum(windows), "causal": cfg.num_layers - sum(windows)}
+    per = {k: n for k, n in per.items() if n}
+    return {"forward": {k: 2 * n * steps for k, n in per.items()},
+            "backward": {k: n * steps for k, n in per.items()}}
+
+
+def phase_lm_family_mesh(phase: str, seed: int, kernels: dict):
+    """One family at full width through the launch layer on the card's
+    ``("data", "model")`` mesh of 1 × 1 (``torch.distributed`` at world size 1,
+    NCCL on an in-process ``HashStore``), against the same steps with no mesh
+    (``MESH_PHASES``: the config, cut in depth, fp32 params, its compute
+    dtype, remat).
+
+    1. ``MESH_STEPS`` AdamW steps through ``make_train_step`` on plain tensors
+       from the seed's weights and the trainer's synthetic batches: the loss,
+       every gradient leaf AdamW was handed and the params after each step
+       copied to the host (outside the step's time); the device state freed.
+       For MoE, first the first batch's gradients once more from the same
+       state (``value_and_grad``): they must be the step's bits.
+    2. The same steps on the mesh (params and AdamW state placed by
+       ``shardings_for_cell``, the batches by its batch shardings, inside
+       ``activation_sharding``): loss, gradients and params after each step
+       held bitwise to the host copies.
+    3. A prefill of the first batch's ``MESH_SEQ`` tokens (an encoder-decoder
+       also its frames) through ``make_prefill_step`` and ``MESH_DECODE``
+       steps through ``make_serve_step``, the plain run's greedy tokens fed
+       to both; plain, then on the mesh (TP-only params, the cache placed by
+       ``cache_specs``): every logit bitwise.
+
+    Counts are set to 0 before each of the four runs and read after; each
+    ``flash_attention`` call's kind is read in the training runs, and each
+    MoE combine's direction (the forward, or the dispatch gather's backward).
+    Returns the row and, for MoE, the first dispatch backward's ``(records'
+    gradient, key, rows)`` for the kernel row."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import activation_sharding, distribute_tree
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import init_model
+    from repro_torch.nn import moe as moe_mod
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainer import TrainConfig, synthetic_batch, value_and_grad
+    from repro_torch.train.tree import tree_leaves
+
+    arch, cut = MESH_PHASES[phase]
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, remat=True, **cut)
+    L, moe = cfg.num_layers, cfg.is_moe
+    tcfg = TrainConfig(steps=MESH_STEPS, batch=MESH_BATCH, seq_len=MESH_SEQ, seed=seed)
+    step = steps_mod.make_train_step(cfg, OptConfig(peak_lr=3e-3, warmup_steps=10,
+                                                    stable_steps=MESH_STEPS, decay_steps=10))
+    batches = [synthetic_batch(cfg, tcfg, i, device="cuda") for i in range(MESH_STEPS)]
+
+    def weights():
+        return init_model(torch.Generator(device="cuda").manual_seed(seed), cfg)
+
+    # the gradients make_train_step hands AdamW: copied to the host in the plain
+    # run, held bitwise to those copies in the mesh run; their time is kept out of
+    # the step's
+    grads_host, grads_same, held_s, mode = [], [], [0.0], ["plain"]
+    orig_update = steps_mod.adamw_update
+
+    def reading_update(grads, state, params, opt_cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = [_local(g) for g in tree_leaves(grads)]
+        if mode[0] == "plain":
+            grads_host.append([g.cpu() for g in leaves])
+        else:
+            want = grads_host[len(grads_same)]
+            grads_same.append(all(bool(torch.equal(g, w.cuda())) for g, w in zip(leaves, want)))
+        torch.cuda.synchronize()
+        held_s[0] += time.perf_counter() - t0
+        return orig_update(grads, state, params, opt_cfg)
+
+    # MoE: each combine's direction, and the first dispatch backward's inputs
+    combines, dispatch_in = collections.Counter(), {}
+    orig_combine = moe_mod.combine
+
+    def reading_combine(y, key, num_rows):
+        way = "forward" if torch.is_grad_enabled() else "dispatch_backward"
+        combines[way] += 1
+        if way == "dispatch_backward" and not dispatch_in:
+            dispatch_in.update(y=y.clone(), key=key.clone(), num_rows=num_rows)
+        return orig_combine(y, key, num_rows)
+
+    def train(state, batch_list, after_step):
+        """Steps from ``state`` = [params, opt] (emptied: no step's params stay
+        alive past the next one; MoE's update holds both states at once)."""
+        losses, step_s = [], []
+        for i, batch in enumerate(batch_list):
+            torch.cuda.synchronize()
+            t0, h0 = time.perf_counter(), held_s[0]
+            state[:] = step(*state, batch)
+            metrics = state.pop()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0 - (held_s[0] - h0))
+            losses.append(_local(metrics["loss"]).cpu())
+            after_step(i, state[0])
+        state.clear()
+        return losses, step_s
+
+    row = {"phase": phase, "arch": arch, "layers": L, "layers_full": full.num_layers,
+           "enc_layers": cfg.enc_layers if cfg.encdec else None,
+           "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "remat": cfg.remat, "steps": MESH_STEPS, "batch": MESH_BATCH, "seq_len": MESH_SEQ,
+           "decode_steps": MESH_DECODE,
+           "mesh": {"shape": [1, 1], "axes": ["data", "model"], "backend": DIST_BACKEND}}
+    _free_cuda()
+    dist.init_process_group(DIST_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
+    steps_mod.adamw_update = reading_update
+    moe_mod.combine = reading_combine
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        sh = steps_mod.shardings_for_cell(
+            cfg, ShapeConfig(phase, MESH_SEQ, MESH_BATCH, "train"), mesh)
+
+        # 1. plain
+        params_host = []
+        params = weights()
+        n_elems = sum(p.numel() for p in tree_leaves(params))
+        row["param_elements"] = n_elems
+        row["state_bytes_fp32"] = 16 * n_elems  # params, gradients, two AdamW moments
+        if moe:  # the first step's gradients once more, from the same state
+            rerun = [g.cpu() for g in tree_leaves(value_and_grad(params, cfg, batches[0])[2])]
+            _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        combines.clear()
+        state = [params, adamw_init(params)]
+        del params
+        with _attention_kinds() as kinds_plain:
+            losses_p, step_s_p = train(
+                state, batches, lambda i, p: params_host.append([t.cpu() for t in tree_leaves(p)]))
+        row["plain"] = {"losses": [float(x) for x in losses_p], "step_s": step_s_p,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                        "launches": _counts(kernels),
+                        "attention_calls": {k: dict(v) for k, v in kinds_plain.items()},
+                        "combines": dict(combines), "host_copy_s": held_s[0]}
+        if moe:
+            row["moe_grads_repeat_bitwise"] = all(
+                bool(torch.equal(a, b)) for a, b in zip(rerun, grads_host[0]))
+            del rerun
+        _free_cuda()
+
+        # 2. the mesh
+        mode[0] = "mesh"
+        held_s[0] = 0.0
+        params_same = []
+        params = distribute_tree(weights(), sh["params_sharding"])
+        state = [params, distribute_tree(adamw_init(params), sh["opt_sharding"])]
+        del params
+        dbatches = [distribute_tree(b, sh["batch_sharding"]) for b in batches]
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        combines.clear()
+        with _attention_kinds() as kinds_mesh, activation_sharding(mesh, sh["shcfg"]):
+            losses_m, step_s_m = train(state, dbatches, lambda i, p: params_same.append(
+                all(bool(torch.equal(_local(t), h.cuda()))
+                    for t, h in zip(tree_leaves(p), params_host[i]))))
+        launches = _counts(kernels)
+        entries = _entries(kernels["flash_attention_bwd"])
+        row["mesh_run"] = {"losses": [float(x) for x in losses_m], "step_s": step_s_m,
+                           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                           "launches": launches, "bwd_launches_by_entry": entries,
+                           "attention_calls": {k: dict(v) for k, v in kinds_mesh.items()},
+                           "combines": dict(combines), "compare_s": held_s[0]}
+        row["train_bitwise"] = {
+            "loss": all(bool(torch.equal(a, b)) for a, b in zip(losses_m, losses_p)),
+            "grads": len(grads_same) == MESH_STEPS and all(grads_same),
+            "params_after_each_step": len(params_same) == MESH_STEPS and all(params_same)}
+        del dbatches, grads_host[:], params_host[:]
+        _free_cuda()
+
+        # 3. a prefill and decode steps, plain and on the mesh
+        ssh = steps_mod.shardings_for_cell(
+            cfg, ShapeConfig(phase, MESH_SEQ + MESH_DECODE, MESH_BATCH, "decode"), mesh)
+        prefill = steps_mod.make_prefill_step(cfg, ssh["s_max"])
+        serve_step = steps_mod.make_serve_step(cfg)
+        prompt = {k: v for k, v in batches[0].items() if k != "labels"}
+        fed = []
+
+        def serve(params, place):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, place(prompt, {k: ssh["batch_sharding"][k]
+                                                           for k in prompt}))
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            outs, decode_s = [_local(logits).cpu()], []
+            for i in range(MESH_DECODE):
+                if len(fed) == i:  # the plain run's greedy token
+                    fed.append(outs[-1][:, -1:].argmax(-1).cuda())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = serve_step(params, cache, place(fed[i], ssh["token_sharding"]))
+                torch.cuda.synchronize()
+                decode_s.append(time.perf_counter() - t0)
+                outs.append(_local(logits).cpu())
+            return outs, {"prefill_s": prefill_s, "decode_ms": [1e3 * t for t in decode_s]}
+
+        _zero_counts(kernels)
+        plain_out, row["serve_plain"] = serve(weights(), lambda x, s: x)
+        row["serve_plain"]["launches"] = _counts(kernels)
+        _free_cuda()
+        _zero_counts(kernels)
+        with activation_sharding(mesh, ssh["shcfg"]):
+            mesh_out, row["serve_mesh"] = serve(
+                distribute_tree(weights(), ssh["params_sharding"]), distribute_tree)
+        row["serve_mesh"]["launches"] = serve_launches = _counts(kernels)
+        row["serve_bitwise"] = {
+            "prefill_logits": bool(torch.equal(mesh_out[0], plain_out[0])),
+            "decode_logits": all(bool(torch.equal(a, b))
+                                 for a, b in zip(mesh_out[1:], plain_out[1:]))}
+        del plain_out, mesh_out, batches, prompt, fed
+        _free_cuda()
+    finally:
+        steps_mod.adamw_update = orig_update
+        moe_mod.combine = orig_combine
+        dist.destroy_process_group()
+
+    row["launches"] = {name: row["plain"]["launches"][name] + launches[name]
+                       + row["serve_plain"]["launches"][name] + serve_launches[name]
+                       for name in kernels}
+    row["flags"] = {**{f"train_{k}_bitwise": v for k, v in row["train_bitwise"].items()},
+                    **{f"serve_{k}_bitwise": v for k, v in row["serve_bitwise"].items()}}
+    if moe:
+        row["flags"]["moe_grads_repeat_bitwise"] = row["moe_grads_repeat_bitwise"]
+    row["ok"] = all(row["flags"].values())
+    emit(row)
+    losses = row["plain"]["losses"] + row["mesh_run"]["losses"]
+    if len(losses) != 2 * MESH_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    if not row["ok"]:
+        raise AssertionError(f"{phase}: mesh ≢ plain: {row['flags']}")
+    want = _expected_attention(cfg, MESH_STEPS)
+    for run in ("plain", "mesh_run"):
+        got = row[run]["attention_calls"]
+        if got["forward"] != want["forward"] or got["backward"] != want["backward"]:
+            raise AssertionError(f"{phase}: {run} attention calls {got}, expected {want}")
+    n_bwd = sum(want["backward"].values())
+    if any(n != n_bwd for n in entries.values()):
+        raise AssertionError(f"{phase}: backward entries launched {entries}, expected {n_bwd}")
+    if moe:  # the combine twice a layer a step (remat), the dispatch backward once
+        want_c = {"forward": 2 * L * MESH_STEPS, "dispatch_backward": L * MESH_STEPS}
+        for run in ("plain", "mesh_run"):
+            if row[run]["combines"] != want_c:
+                raise AssertionError(f"{phase}: {run} combines {row[run]['combines']}, "
+                                     f"expected {want_c}")
+        if launches["segment_spmm"] < sum(want_c.values()):
+            raise AssertionError(f"{phase}: segment_spmm launched {launches['segment_spmm']}")
+    return row, (dispatch_in["y"], dispatch_in["key"], dispatch_in["num_rows"]) if moe else None
+
+
 def _rel_err(card, cpu) -> float:
     """max |card − cpu| over max |cpu|."""
     return float((card.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
@@ -2807,17 +3171,20 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
 
 
 def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32", b: int = TRAIN_BATCH,
-                               s: int = TRAIN_SEQ) -> dict:
-    """The backward kernels at the training shape of ``cfg`` (causal, GQA;
-    ``b`` rows of ``s`` positions) in fp32, the training step's dtype (fp32
-    params keep the residual stream fp32), or in bf16, which no main path
-    runs: against
+                               s: int = TRAIN_SEQ, causal: bool = True, window=None,
+                               sk: int = None) -> dict:
+    """The backward kernels at a training shape of ``cfg`` (GQA; ``b`` rows of
+    ``s`` query positions over ``sk`` keys, ``s`` unless given; causal, with a
+    sliding ``window``, or not causal, as the encoder's self attention and the
+    cross attention) in fp32, the training step's dtype (fp32 params keep the
+    residual stream fp32), or in bf16, which no main path runs: against
     ``flash_attention_bwd_ref`` on the kernel's o and lse, a second launch
     bitwise the first, timed (both entries a call) beside the plain version
     and the backward of ``scaled_dot_product_attention`` in the same dtype
-    (one forward kept, ``torch.autograd.grad`` timed).  The bound is that of
-    the five products, 2.5 × the forward's operations: in fp32 at 3 TF32
-    products a product (split TF32, as the forward), in bf16 at one."""
+    (one forward kept, ``torch.autograd.grad`` timed; the band as a boolean
+    mask).  The bound is that of the five products over the visible pairs,
+    2.5 × the forward's operations: in fp32 at 3 TF32 products a product
+    (split TF32, as the forward), in bf16 at one."""
     import torch
     import torch.nn.functional as F
 
@@ -2825,18 +3192,20 @@ def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32", b: int = TRAIN_
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_lse
 
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    sk = s if sk is None else sk
     dt = getattr(torch, dtype)
     q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
-    k = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
-    v = torch.randn(b, hkv, s, dh, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, hkv, sk, dh, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, hkv, sk, dh, device="cuda", generator=gen).to(dt)
     do = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
-    o, lse = flash_attention_lse(q, k, v, causal=True)
+    mask = dict(causal=causal, window=window)
+    o, lse = flash_attention_lse(q, k, v, **mask)
 
     def run():
-        return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        return flash_attention_bwd(q, k, v, o, lse, do, **mask)
 
     grads = run()
-    ref = kref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    ref = kref.flash_attention_bwd_ref(q, k, v, o, lse, do, **mask)
     atol, rtol = TOL_ATTN if dtype == "float32" else TOL_ATTN_BF16
     within = all(bool(((g.float() - r.float()).abs() <= atol + rtol * r.float().abs()).all())
                  for g, r in zip(grads, ref))
@@ -2845,27 +3214,40 @@ def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32", b: int = TRAIN_
     bitwise = all(bool(torch.equal(a, c)) for a, c in zip(grads, run()))
     del grads, ref
     ms = cuda_time_ms(run, 10)
-    plain_ms = cuda_time_ms(lambda: kref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True),
+    plain_ms = cuda_time_ms(lambda: kref.flash_attention_bwd_ref(q, k, v, o, lse, do, **mask),
                             2, warmup=1)
+    if window is None:
+        sdpa = dict(is_causal=causal)
+    else:
+        pos = torch.arange(s, device="cuda")
+        rel = pos[:, None] - pos[None, :]
+        sdpa = dict(attn_mask=(rel >= 0) & (rel < window))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **sdpa)
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)
     del out, leaves
-    flops = 10 * dh * b * hq * (s * (s + 1) // 2)  # S, dP, dV, dK, dQ over the visible pairs
+    if not causal:
+        pairs = s * sk  # every key of every row
+    else:
+        w = s if window is None else min(window, s)
+        pairs = w * (w + 1) // 2 + (s - w) * w  # visible key–query pairs a head
+    flops = 10 * dh * b * hq * pairs  # S, dP, dV, dK, dQ over the visible pairs
     # q o dO dq, k v dk dv in the dtype; lse in fp32
     nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     if dtype == "float32":
         bound_ms, by = _bound(nbytes, SPLIT_TF32 * flops, TF32_FLOPS)
     else:
         bound_ms, by = _bound(nbytes, flops, BF16_FLOPS)
+    library = ("backward of F.scaled_dot_product_attention(" +
+               ("attn_mask=band" if window is not None else f"is_causal={causal}") +
+               ", enable_gqa)")
     row = {"name": "flash_attention_bwd",
-           "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "dh": dh, "causal": True,
-                     "dtype": dtype},
+           "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "Sk": sk, "dh": dh, "causal": causal,
+                     "window": window, "dtype": dtype, "visible_pairs_a_head": pairs},
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "within_tol": within and bitwise, "bitwise_repeat": bitwise,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-           "bound_share": bound_ms / ms, "library_ms": lib_ms,
-           "library": "backward of F.scaled_dot_product_attention(is_causal, enable_gqa)",
+           "bound_share": bound_ms / ms, "library_ms": lib_ms, "library": library,
            "flops": flops, "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
     if dtype != "float32":
         row["variant"] = dtype  # a check beside the fp32 row, not a summary row
@@ -3111,10 +3493,19 @@ def main(argv=None) -> int:
     del vlm_params
     vlm_train = phase_lm_vlm_train(args.seed, kernels)
     _free_cuda()
+    # the MoE, encoder-decoder, hymba and xLSTM families through the launch layer on the
+    # 1 × 1 mesh, each trained at full width against the plain path (MoE's dispatch
+    # backward inputs kept for its kernel row)
+    mesh_rows, dispatch_in = {}, None
+    for phase in MESH_PHASES:
+        mesh_rows[phase], extra = phase_lm_family_mesh(phase, args.seed, kernels)
+        if extra is not None:
+            dispatch_in = extra
+    _free_cuda()
     # every path's launches: the engine phases, the serving phases, the op, the LM
     path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe,
                                                              hymba, xlstm, encdec, vlm,
-                                                             vlm_train]
+                                                             vlm_train, *mesh_rows.values()]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -3175,6 +3566,17 @@ def main(argv=None) -> int:
                                          s=vlm_cfg.num_patches + TRAIN_SEQ),
            "variant": "vlm_train" + ("" if dt == "float32" else "_bf16")}
           for dt in ("float32", "bfloat16")),
+        # the mesh phases' training shapes (B 2, S 2048): hymba's windowed layer (Hq 25 over
+        # Hkv 5, window 1024), the encoder's self attention and the cross attention, here
+        # over a ragged source (Sk 1,999)
+        {**kernel_flash_attention_bwd(hymba_cfg, gen, b=MESH_BATCH, s=MESH_SEQ,
+                                      window=hymba_cfg.window), "variant": "hymba_train"},
+        {**kernel_flash_attention_bwd(encdec_cfg, gen, b=MESH_BATCH, s=MESH_SEQ, causal=False),
+         "variant": "encdec_encoder_train"},
+        {**kernel_flash_attention_bwd(encdec_cfg, gen, b=MESH_BATCH, s=MESH_SEQ, causal=False,
+                                      sk=ENCDEC_CROSS_SK), "variant": "encdec_cross_train"},
+        # the MoE dispatch gather's backward: its records' gradients summed per token
+        {**kernel_moe_combine(*dispatch_in), "variant": "moe_dispatch_backward"},
         kernel_edge_softmax(wl.base, gen),
         *kernel_row_linear(wl.base.n, wl.base.num_edges, caps["r"], gen),
         *kernel_row_sum_chunked(zipf, zipf_keys, WIDTH + 1, gen),
@@ -3212,8 +3614,17 @@ def main(argv=None) -> int:
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
             entry["launches_by_entry"] = train["bwd_launches_by_entry"]
             entry["launches_by_path"] = {row["phase"]: row["launches"][name]
-                                         for row in (train, train_check, vlm_train)}
+                                         for row in (train, train_check, vlm_train,
+                                                     *mesh_rows.values())}
             entry["launches_by_entry_lm_vlm_train"] = vlm_train["bwd_launches_by_entry"]
+        if name in ("segment_spmm", "flash_attention", "flash_attention_bwd"):
+            for phase, row in mesh_rows.items():  # the mesh phases' four runs, and by kind
+                entry[f"launches_{phase}"] = row["launches"][name]
+                if name == "segment_spmm" and row["mesh_run"]["combines"]:
+                    entry[f"calls_{phase}_mesh_train"] = row["mesh_run"]["combines"]
+                if name != "segment_spmm" and row["mesh_run"]["attention_calls"]["forward"]:
+                    way = "forward" if name == "flash_attention" else "backward"
+                    entry[f"calls_{phase}_mesh_train"] = row["mesh_run"]["attention_calls"][way]
         others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "bound_share", "library_ms",
                                      "general_ms", "within_tol", "host_us_per_call",

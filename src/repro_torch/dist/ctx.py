@@ -19,7 +19,14 @@ caller forgot to place an input, and a silent unsharded run is what the
 context exists to rule out.
 
 The context is thread-local and eager: it applies to the ops run while it
-is open, so there is no trace cache to get wrong.
+is open, so there is no trace cache to get wrong.  A function that autograd
+may call on another thread (a checkpointed layer's recomputation) takes the
+context with it through :func:`in_current_context`.
+
+Where a function's rows are independent (the MoE dispatch group, a
+recurrence per batch row and head) :func:`local_apply` runs it on each
+rank's local shards through ``local_map``, as
+:func:`repro_torch.nn.attention.attention_core` runs the attention kernel.
 """
 from __future__ import annotations
 
@@ -72,6 +79,25 @@ def activation_sharding(mesh, shcfg: ShardingConfig):
         yield
     finally:
         _stack().pop()
+
+
+def in_current_context(fn):
+    """``fn`` bound to the context open now: it runs inside the same
+    ``activation_sharding`` wherever it is called, or as it is when none is
+    open.  A checkpointed layer needs this: on a card autograd runs its
+    backward, and so the recomputation, on a thread of its own, where the
+    caller's thread-local context is not seen."""
+    ctx = current_mesh_and_config()
+    if ctx is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        if current_mesh_and_config() is ctx:
+            return fn(*args, **kwargs)
+        with activation_sharding(*ctx):
+            return fn(*args, **kwargs)
+
+    return bound
 
 
 def _activation_spec(shape, logical_axes, mesh, shcfg: ShardingConfig) -> Spec:
@@ -154,3 +180,106 @@ def place_cache(cache, batch: int):
     mesh, shcfg = ctx
     specs = cache_specs(cache, mesh, shcfg, batch=batch)
     return distribute_tree(cache, tree_map(lambda s: NamedSharding(mesh, s), specs))
+
+
+def _is_record(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _flat(values, axes):
+    """(leaves, their axes): a NamedTuple value is its fields, with a
+    sequence of axes a field; anything else is one leaf."""
+    leaves, leaf_axes = [], []
+    for v, a in zip(values, axes):
+        if _is_record(v):
+            leaves.extend(v)
+            leaf_axes.extend(a)
+        else:
+            leaves.append(v)
+            leaf_axes.append(a)
+    return leaves, leaf_axes
+
+
+def _unflat(template, leaves):
+    """``template``'s structure (a tuple of values and NamedTuples) over ``leaves``."""
+    it = iter(leaves)
+    return tuple(type(t)(*(next(it) for _ in t)) if _is_record(t) else next(it)
+                 for t in template)
+
+
+def local_apply(fn, args: tuple, in_axes: tuple, out_axes: tuple):
+    """``fn(*args)`` on each rank's local shards, for a function whose rows
+    along some logical axes are independent (a recurrence per batch row and
+    head, the MoE's per-row dispatch).
+
+    ``in_axes`` gives each argument's logical axes ("dp", "tp" or None a
+    dim, as :func:`ashard` takes them; a NamedTuple argument takes a
+    sequence of axes, one a field), ``out_axes`` each output's.  With no
+    DTensor among the arguments this is ``fn(*args)``.  Otherwise a logical
+    axis splits the work only if every argument dim it names divides over
+    its mesh axes; each DTensor is redistributed to those placements (an
+    argument without the axis whole), ``fn`` runs on the local tensors
+    through ``local_map``, and the outputs come back as DTensors on the same
+    split.  A whole argument's gradient is ``Partial`` over the mesh dims
+    that split the work (each rank's rows add to it) and so is summed, as
+    :func:`repro_torch.nn.layers.embed_lookup`'s table's.  Non-tensor
+    arguments (None, ints) pass through."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    leaves, leaf_axes = _flat(args, in_axes)
+    dts = [x for x in leaves if isinstance(x, DTensor)]
+    if not dts:
+        return fn(*args)
+    ctx = current_mesh_and_config()
+    if ctx is None:
+        raise TypeError("local_apply of DTensors needs an activation_sharding context")
+    mesh, shcfg = ctx
+    sizes = mesh_axis_sizes(mesh)
+    lookup = {"dp": tuple(a for a in shcfg.dp_axes if a in sizes),
+              "tp": (shcfg.tp_axis,) if shcfg.tp_axis in sizes else ()}
+    active = {}
+    for name, axes in lookup.items():
+        dims = [x.shape[d] for x, ax in zip(leaves, leaf_axes) if isinstance(x, DTensor)
+                for d, a in enumerate(ax) if a == name]
+        active[name] = bool(axes and dims) and all(n % _prod_size(axes, sizes) == 0 for n in dims)
+    owner = {m: name for name, axes in lookup.items() if active[name] for m in axes}
+    names = tuple(mesh.mesh_dim_names)
+
+    def pl(ax):
+        return tuple(Shard(ax.index(owner[m])) if m in owner and owner[m] in ax else Replicate()
+                     for m in names)
+
+    def grad_pl(ax):
+        return tuple(Shard(ax.index(owner[m])) if m in owner and owner[m] in ax
+                     else Partial() if m in owner else Replicate() for m in names)
+
+    # local_map takes the leaves that are not None (a pytree's None has no leaf)
+    given = [i for i, x in enumerate(leaves) if x is not None]
+    in_pl = tuple(pl(leaf_axes[i]) if isinstance(leaves[i], DTensor) else None for i in given)
+    in_grad = tuple(grad_pl(leaf_axes[i]) if isinstance(leaves[i], DTensor) else None
+                    for i in given)
+    placed = [leaves[i].redistribute(mesh, p)
+              if p is not None and tuple(leaves[i].placements) != p else leaves[i]
+              for i, p in zip(given, in_pl)]
+    out_leaves_axes = []
+    for a in out_axes:
+        out_leaves_axes.extend(a if a and not isinstance(a[0], (str, type(None))) else [a])
+    template = []
+
+    def body(*local):
+        full = [None] * len(leaves)
+        for i, x in zip(given, local):
+            full[i] = x
+        out = fn(*_unflat(args, full))
+        single = not isinstance(out, tuple) or _is_record(out)
+        outs = (out,) if single else out
+        template.append((single, outs))
+        return tuple(_flat(outs, out_axes)[0])
+
+    run = local_map(body, out_placements=tuple(pl(a) for a in out_leaves_axes),
+                    in_placements=in_pl, in_grad_placements=in_grad, device_mesh=mesh)
+    flat_out = run(*placed)
+    single, outs = template[-1]
+    rebuilt = _unflat(outs, flat_out)
+    return rebuilt[0] if single else rebuilt

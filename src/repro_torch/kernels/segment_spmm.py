@@ -158,7 +158,10 @@ def segment_spmm(
     order: Optional[torch.Tensor] = None,
     num_rows: Optional[int] = None,
 ) -> torch.Tensor:
-    """``[E, D]`` float32 messages → ``[num_rows, D]`` row sums (see module doc)."""
+    """``[E, D]`` float32 messages → ``[num_rows, D]`` row sums (see module doc).
+    Plain local tensors only: a DTensor raises (under a mesh the callers run
+    this inside ``local_map``, on each rank's rows)."""
+    _refuse_dtensor(messages, row_ptr, order)
     dev = messages.device
     if dev.type == "cpu":
         _same_device(dev, row_ptr, order)
@@ -182,6 +185,14 @@ def _check_rows(row_ptr: torch.Tensor, num_rows: Optional[int]) -> None:
         raise ValueError(f"row_ptr must be 1-D with num_rows+1 entries, got {tuple(row_ptr.shape)}")
     if num_rows is not None and row_ptr.shape[0] != num_rows + 1:
         raise ValueError(f"row_ptr has {row_ptr.shape[0]} entries, expected {num_rows + 1}")
+
+
+def _refuse_dtensor(*tensors) -> None:
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError("segment_spmm takes plain local tensors, got a DTensor: call it inside "
+                        "local_map (repro_torch.dist.ctx.local_apply) on each rank's rows")
 
 
 def _same_device(dev: torch.device, *tensors) -> None:

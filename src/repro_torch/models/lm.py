@@ -58,8 +58,12 @@ reference's ``ashard`` annotations stand in :mod:`repro_torch.nn.layers`,
 :mod:`repro_torch.nn.attention` and :mod:`repro_torch.nn.moe`, the embedding
 lookup reads local rows (:func:`repro_torch.nn.layers.embed_lookup`), the
 loss reads whole vocab rows, and :func:`prefill` places its cache by
-``cache_specs``.  The dense family and the vlm run so; the MoE, hymba,
-xLSTM and encoder-decoder families under a mesh are ROADMAP.md item 10g′.
+``cache_specs``.  Every family runs so: the MoE routing and combine, the
+recurrences of :mod:`repro_torch.nn.ssm`, hymba's ring attention and the
+gates' ``logsigmoid`` run on each rank's local rows and heads through
+:func:`repro_torch.dist.ctx.local_apply`, and a checkpointed layer's
+recomputation runs in the forward's mesh context (on a card autograd
+recomputes on a thread of its own).
 
 The vlm: ``patches`` ``[B, P, d_frontend]`` (the stubbed vision frontend's
 precomputed patch embeddings) go through ``patch_proj`` in the compute dtype
@@ -79,7 +83,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.ctx import ashard, place_cache, replicate_like
+from repro_torch.dist.ctx import (
+    ashard,
+    in_current_context,
+    local_apply,
+    place_cache,
+    replicate_like,
+)
 from repro_torch.nn import param as pm
 from repro_torch.nn.attention import (
     KVCache,
@@ -319,19 +329,24 @@ def _hymba_rest(cfg: ArchConfig, p, x: torch.Tensor, h: torch.Tensor, attn_out: 
     return x, ssm_state, conv_carry
 
 
-def _ssm_zeros(cfg: ArchConfig, b: int, device) -> torch.Tensor:
-    di = cfg.ssm_expand * cfg.d_model
-    return torch.zeros(b, cfg.ssm_heads, cfg.ssm_state, di // cfg.ssm_heads,
-                       dtype=torch.float32, device=device)
-
-
 def _hymba_layer(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int]):
-    """One hymba layer of the full forward (no cache): ``(x, None)``."""
+    """One hymba layer of the full forward (no cache; the SSD state and the
+    convolution carry start at 0): ``(x, None)``."""
     h = rms_norm(x, p["ln1"])
     attn_out, _ = attention_apply(p["attn"], h, **_attn_kwargs(cfg), causal=True, window=window)
-    x, _, _ = _hymba_rest(cfg, p, x, h, attn_out, _ssm_zeros(cfg, x.shape[0], x.device), None,
-                          h.shape[1] == 1)
+    x, _, _ = _hymba_rest(cfg, p, x, h, attn_out, None, None, h.shape[1] == 1)
     return x, None
+
+
+#: a [B, H, …] tensor under a mesh: rows over "dp", heads over "tp"
+_HEADS = ("dp", "tp")
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid`` of [B, S, H, …] gates; under a mesh elementwise on the
+    local shards (DTensor has no sharding rule for its backward)."""
+    axes = ("dp", None, "tp")
+    return local_apply(F.logsigmoid, (x,), (axes,), (axes,))
 
 
 def _mlstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[MLSTMState],
@@ -350,7 +365,7 @@ def _mlstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[MLSTMState
     v = (xm @ p["wv"]).reshape(b, s, nh, dh)
     gates = (h @ p["w_gates"]).float() + p["b_gates"]
     lf_raw, li = gates.chunk(2, dim=-1)  # [B, S, H]: forget first, then input
-    lf = F.logsigmoid(lf_raw)
+    lf = _logsigmoid(lf_raw)
     if decoding:
         state, y = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0], lf[:, 0], li[:, 0])
         y = y[:, None]
@@ -375,7 +390,7 @@ def _slstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[SLSTMState
     h = rms_norm(x, p["ln"])
     z = torch.tanh(h @ p["wz"]).reshape(b, s, nh, dh)
     li, lf_raw = (h @ p["wif"]).float().reshape(b, s, nh, 2 * dh).chunk(2, dim=-1)
-    lf = F.logsigmoid(lf_raw)
+    lf = _logsigmoid(lf_raw)
     o = torch.sigmoid(h @ p["wo_gate"]).reshape(b, s, nh, dh)
     if decoding:
         state, y = slstm_step(state, z[:, 0].float(), lf[:, 0], li[:, 0], o[:, 0].float())
@@ -526,14 +541,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _remat_runner(cfg: ArchConfig, params: Params):
     """``run(body, *args)``: ``body(*args)``, under ``checkpoint`` (recomputed
-    in the backward) when ``cfg.remat``, grad is enabled and a parameter
-    requires it."""
+    in the backward, inside the mesh context of the forward) when
+    ``cfg.remat``, grad is enabled and a parameter requires it."""
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
 
     def run(body, *args):
-        if remat:
-            return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+        if remat:  # the recomputation runs in this mesh context too
+            return checkpoint(in_current_context(body), *args, use_reentrant=False,
+                              preserve_rng_state=False)
         return body(*args)
 
     return run
@@ -582,9 +598,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
                 dst[g] = src
             mlstm = _layer(params["mlstm_blocks"], g)
             for j in range(per - 1):
-                carry = torch.zeros(b, cfg.conv_width - 1, cfg.d_model, dtype=x.dtype,
-                                    device=x.device)
-                x, st, carry = _mlstm_block(cfg, _layer(mlstm, j), x, None, carry, False)
+                x, st, carry = _mlstm_block(cfg, _layer(mlstm, j), x, None, None, False)
                 for dst, src in zip((cache.m_c, cache.m_n, cache.m_m, cache.conv),
                                     (*st, carry)):
                     dst[g, j] = src
@@ -598,12 +612,10 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
             out, k, v = attention_prefill_kv(p["attn"], h, **_attn_kwargs(cfg), causal=True,
                                              window=w)
             if hymba:
-                carry = torch.zeros(b, cfg.conv_width - 1, cfg.ssm_expand * cfg.d_model,
-                                    dtype=x.dtype, device=x.device)
-                x, cache.ssm[l], cache.conv[l] = _hymba_rest(
-                    cfg, p, x, h, out, _ssm_zeros(cfg, b, x.device), carry, False)
-                cache.k[l] = k.index_select(2, slots)
-                cache.v[l] = v.index_select(2, slots)
+                x, cache.ssm[l], cache.conv[l] = _hymba_rest(cfg, p, x, h, out, None, None, False)
+                cache.k[l], cache.v[l] = local_apply(
+                    lambda a, c: (a.index_select(2, slots), c.index_select(2, slots)),
+                    (k, v), (_HEADS, _HEADS), (_HEADS, _HEADS))
             else:
                 x, _ = _ffn(cfg, p, x + out)
                 # in place into the preallocated cache; [S, s_max) stays 0, as the

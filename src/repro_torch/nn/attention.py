@@ -24,9 +24,13 @@ after the head split and after RoPE (batch over "dp", heads over "tp"),
 and the prefill's output.  They are the identity outside an
 ``activation_sharding`` context.  Inside one the tensors are DTensors, and
 :func:`attention_core` runs the attention on each rank's local batch rows
-and heads through ``local_map``: the kernel (and its autograd backward)
-sees plain local tensors, as the reference's ``shard_map``-free Pallas call
-sees each device's shard.
+and heads through ``local_map`` (:func:`repro_torch.dist.ctx.local_apply`):
+the kernel (and its autograd backward) sees plain local tensors, as the
+reference's ``shard_map``-free Pallas call sees each device's shard.
+:func:`ring_decode_attention` writes its ring slot into the placed cache
+and attends on the local rows and heads the same way; :func:`cross_memory`
+gives the memory's k and v batch over "dp" and heads over "tp", as
+``cache_specs`` places the cache that keeps them.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.ctx import ashard
+from repro_torch.dist.ctx import ashard, local_apply
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import param as pm
 from repro_torch.nn.layers import apply_rope, rms_norm, rope_freqs
@@ -71,10 +75,19 @@ def init_attention(gen: torch.Generator, layers: int, d_model: int, n_heads: int
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                    window: Optional[int], q_offset: int) -> torch.Tensor:
-    """q [B, Hq, Sq, Dh] over k, v [B, Hkv, Sk, Dh] → [B, Hq, Sq, Dh] in q's dtype.
-    DTensors go through :func:`_local_attention`."""
-    if _is_dtensor(q):
-        return _local_attention(q, k, v, causal, window, q_offset)
+    """q [B, Hq, Sq, Dh] over k, v [B, Hkv, Sk, Dh] → [B, Hq, Sq, Dh] in q's
+    dtype.  Under a mesh each rank attends with its local batch rows and
+    heads (:func:`repro_torch.dist.ctx.local_apply`; sequence and head dims
+    whole): the heads split only where Hq and Hkv both divide, so that local
+    q head j reads local KV head j // g as the kernel does."""
+    heads = ("dp", "tp")
+    return local_apply(lambda a, b, c: _attend(a, b, c, causal, window, q_offset), (q, k, v),
+                       (heads, heads, heads), (heads,))
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], q_offset: int) -> torch.Tensor:
+    """:func:`attention_core` on plain tensors."""
     if q.shape[2] > 1:
         return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=causal, window=window, q_offset=q_offset)
@@ -98,32 +111,6 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
-
-
-def _local_attention(q, k, v, causal: bool, window: Optional[int], q_offset: int):
-    """:func:`attention_core` of DTensors: each rank attends with its local
-    batch rows and heads (sequence and head dims whole).  q's heads follow
-    k's split: where Hkv does not divide over "tp" but Hq does, q is
-    gathered to k's placements, so that local q head j reads local KV head
-    j // g as the kernel does."""
-    from torch.distributed.tensor import Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    pl = tuple(k.placements)
-    if tuple(v.placements) != pl or any(isinstance(x, Shard) and x.dim > 1 for x in pl):
-        raise ValueError(f"attention needs k and v split over batch and heads only, got "
-                         f"{pl} and {tuple(v.placements)}")
-    if tuple(q.placements) != pl:
-        q = q.redistribute(q.device_mesh, pl)
-    run = local_map(lambda a, b, c: attention_core(a, b, c, causal, window, q_offset),
-                    out_placements=(pl,), in_placements=(pl, pl, pl), device_mesh=q.device_mesh)
-    return run(q, k, v)
-
-
 def _qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
          rope_theta: float, start: int):
     """Projections, heads split to [B, H, S, Dh], QK-norm and RoPE at
@@ -142,8 +129,13 @@ def _qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv: int, h
 
 
 def _merge_heads(out: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The heads' outputs [B, H, S, dh] merged to [B·S, H·dh] @ wo, then
+    [B, S, D].  A 2-D product: at S = 1 a DTensor's [B, 1, H·dh] view can
+    carry a stride that keeps ``matmul`` from folding it into one ``mm``
+    (it takes ``bmm``, which rounds otherwise), and a 1 × 1 mesh must give
+    the plain path's bits."""
     b, h, s, dh = out.shape
-    return out.transpose(1, 2).reshape(b, s, h * dh) @ p["wo"]
+    return (out.transpose(1, 2).reshape(b * s, h * dh) @ p["wo"]).reshape(b, s, -1)
 
 
 def attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -233,17 +225,25 @@ def ring_decode_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, ck: torch
     Unlike :func:`attention_core`'s decode, this is the reference's fp32
     path: q and the cache are read as fp32 (q is not rounded to the cache's
     dtype) and the probabilities are not rounded to v's dtype."""
-    b = x.shape[0]
-    w = ck.shape[2]
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, index)
-    slot = index % w
+    slot = index % ck.shape[2]
     ck[:, :, slot:slot + 1] = k
     cv[:, :, slot:slot + 1] = v
-    pos = index - torch.remainder(index - torch.arange(w, device=x.device), w)
-    g = n_heads // n_kv
-    qf = q.reshape(b, n_kv, g, 1, head_dim).float()
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, ck.float()) / math.sqrt(head_dim)
+    heads = ("dp", "tp")
+    out = local_apply(lambda a, b, c: _ring_attend(a, b, c, index), (q, ck, cv),
+                      (heads, heads, heads), (heads,))
+    return _merge_heads(out.to(x.dtype), p), ck, cv
+
+
+def _ring_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, index: int):
+    """q [B, Hq, 1, dh] over the ring ck, cv [B, Hkv, W, dh] at absolute
+    position ``index``, in fp32 (local to a batch row and a KV head's group
+    under a mesh)."""
+    b, hq, _, dh = q.shape
+    hkv, w = ck.shape[1], ck.shape[2]
+    pos = index - torch.remainder(index - torch.arange(w, device=q.device), w)
+    qf = q.reshape(b, hkv, hq // hkv, 1, dh).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qf, ck.float()) / math.sqrt(dh)
     probs = torch.softmax(logits.masked_fill(pos < 0, -1e30), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, cv.float())
-    out = out.reshape(b, n_heads, 1, head_dim).to(x.dtype)
-    return _merge_heads(out, p), ck, cv
+    return out.reshape(b, hq, 1, dh)

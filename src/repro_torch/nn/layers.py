@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.ctx import activation_placements, ashard, replicate_like
+from repro_torch.dist.ctx import ashard, local_apply, replicate_like
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -55,25 +55,14 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``.  Under a mesh (``table`` a DTensor) the rows are read
-    locally: the ids are placed batch over "dp" (the rest whole), the table
-    is gathered whole, and each rank indexes its own rows inside
-    ``local_map``; the table's gradient comes back as a partial sum over
-    the ranks that split the ids, which the gather's backward reduces and
-    scatters to the table's placements.  (DTensor's own strategy for the
-    index's backward, ``index_put``, fails in PyTorch 2.11.)"""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    if not isinstance(table, DTensor):
-        return table[ids]
-    mesh = table.device_mesh
-    whole = (Replicate(),) * mesh.ndim
-    id_pl = activation_placements(ids.shape, "dp") or whole
-    grad_pl = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in id_pl)
-    run = local_map(lambda t, i: t[i], out_placements=(id_pl,), in_placements=(whole, id_pl),
-                    in_grad_placements=(grad_pl, id_pl), device_mesh=mesh)
-    return run(table.redistribute(mesh, whole), ids.redistribute(mesh, id_pl))
+    """``table[ids]``.  Under a mesh (DTensors) the rows are read locally
+    (:func:`repro_torch.dist.ctx.local_apply`): the ids batch over "dp" (the
+    rest whole), the table gathered whole, each rank indexing its own rows;
+    the table's gradient comes back as a partial sum over the ranks that
+    split the ids, which the gather's backward reduces and scatters to the
+    table's placements.  (DTensor's own strategy for the index's backward,
+    ``index_put``, fails in PyTorch 2.11.)"""
+    return local_apply(lambda t, i: t[i], (table, ids), ((), ("dp",)), (("dp",),))
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

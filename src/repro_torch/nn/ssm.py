@@ -20,6 +20,15 @@ no longer put ``0 · inf`` into a gradient when ``exp(rel)`` overflows there.
 
 Shapes: q/k [B, S, H, dk], v [B, S, H, dv], log-decay la [B, S, H] (≤ 0),
 optional log input gate li [B, S, H] (mLSTM).  State [B, H, dk, dv].
+
+Under a mesh the entry points (``ssd_chunked``, ``ssd_step``,
+``mlstm_chunked``, ``mlstm_step``, ``slstm_seq``, ``slstm_step``,
+``causal_conv``) run their bodies (the same names with a leading ``_``) on
+each rank's local tensors through :func:`repro_torch.dist.ctx.local_apply`:
+every (batch row, head) is independent, so the batch goes over "dp", the
+heads over "tp" where they divide (the channels for the depthwise
+convolution), and the sequence stays whole; the recurrences' cumulative
+sums and maxima and the sLSTM's step loop see plain tensors.
 """
 from __future__ import annotations
 
@@ -27,7 +36,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist.ctx import local_apply
+
 _F32 = torch.float32
+#: logical axes of the recurrences' operands under a mesh (each (batch row,
+#: head) is independent; the sequence stays whole): a per-step operand
+#: [B, S, H, …], and a state or one step's operand [B, H, …]
+_SEQ = ("dp", None, "tp")
+_ROW = ("dp", "tp")
 
 
 def _lower_exp(rel: torch.Tensor) -> torch.Tensor:
@@ -60,7 +76,7 @@ def ssd_seq(q, k, v, la, s0=None):
     return torch.stack(ys, 1), state
 
 
-def ssd_chunked(q, k, v, la, s0=None, chunk: int = 128):
+def _ssd_chunked(q, k, v, la, s0=None, chunk: int = 128):
     """Chunkwise-parallel SSD.  Returns (y [B, S, H, dv], final state).
 
     Non-multiple lengths are padded with identity steps (k = v = 0, decay
@@ -69,7 +85,7 @@ def ssd_chunked(q, k, v, la, s0=None, chunk: int = 128):
     dv = v.shape[-1]
     pad = (-s) % chunk
     if pad:
-        y, st = ssd_chunked(_pad_steps(q, pad), _pad_steps(k, pad), _pad_steps(v, pad),
+        y, st = _ssd_chunked(_pad_steps(q, pad), _pad_steps(k, pad), _pad_steps(v, pad),
                             _pad_steps(la, pad), s0=s0, chunk=chunk)
         return y[:, :s], st
     nc = s // chunk
@@ -98,8 +114,11 @@ def ssd_chunked(q, k, v, la, s0=None, chunk: int = 128):
     return y.to(v.dtype), state
 
 
-def ssd_step(state, qt, kt, vt, lat):
-    """Single decode step.  state [B, H, dk, dv]; qt/kt [B, H, dk], vt [B, H, dv]."""
+def _ssd_step(state, qt, kt, vt, lat):
+    """Single decode step.  state [B, H, dk, dv] (None: zeros); qt/kt [B, H,
+    dk], vt [B, H, dv]."""
+    if state is None:
+        state = torch.zeros(*qt.shape, vt.shape[-1], dtype=_F32, device=qt.device)
     a = torch.exp(lat.to(_F32))[..., None, None]
     state = a * state + kt.to(_F32)[..., :, None] * vt.to(_F32)[..., None, :]
     y = torch.einsum("bhk,bhkv->bhv", qt.to(_F32), state)
@@ -124,7 +143,7 @@ def mlstm_init_state(b, h, dk, dv, device="cpu") -> MLSTMState:
                       m=torch.full((b, h), -1e30, dtype=_F32, device=device))
 
 
-def mlstm_step(st: MLSTMState, qt, kt, vt, lft, lit):
+def _mlstm_step(st: MLSTMState, qt, kt, vt, lft, lit):
     """One step of the stabilized recurrence: (new state, h_t [B, H, dv])."""
     qt, kt, vt = (a.to(_F32) for a in (qt, kt, vt))
     m_new = torch.maximum(st.m + lft, lit)
@@ -145,12 +164,12 @@ def mlstm_seq(q, k, v, lf, li, st: Optional[MLSTMState] = None):
     st = st or mlstm_init_state(b, h, dk, v.shape[-1], q.device)
     ys = []
     for t in range(s):
-        st, y = mlstm_step(st, q[:, t], k[:, t], v[:, t], lf[:, t], li[:, t])
+        st, y = _mlstm_step(st, q[:, t], k[:, t], v[:, t], lf[:, t], li[:, t])
         ys.append(y)
     return torch.stack(ys, 1), st
 
 
-def mlstm_chunked(q, k, v, lf, li, st: Optional[MLSTMState] = None, chunk: int = 128):
+def _mlstm_chunked(q, k, v, lf, li, st: Optional[MLSTMState] = None, chunk: int = 128):
     """Chunkwise mLSTM with the per-step-exact stabilizer computed through a
     cumulative max.  Non-multiple lengths are padded with identity steps
     (decay 1, input gate -1e30)."""
@@ -158,7 +177,7 @@ def mlstm_chunked(q, k, v, lf, li, st: Optional[MLSTMState] = None, chunk: int =
     dv = v.shape[-1]
     pad = (-s) % chunk
     if pad:
-        y, stf = mlstm_chunked(_pad_steps(q, pad), _pad_steps(k, pad), _pad_steps(v, pad),
+        y, stf = _mlstm_chunked(_pad_steps(q, pad), _pad_steps(k, pad), _pad_steps(v, pad),
                                _pad_steps(lf, pad), _pad_steps(li, pad, -1e30), st=st,
                                chunk=chunk)
         return y[:, :s], stf
@@ -219,7 +238,7 @@ def slstm_init_state(b, h, dh, device="cpu") -> SLSTMState:
                       m=torch.full((b, h, dh), -1e30, dtype=_F32, device=device))
 
 
-def slstm_step(st: SLSTMState, zt, lft, lit, ot):
+def _slstm_step(st: SLSTMState, zt, lft, lit, ot):
     """z: cell input [B, H, dh]; lf/li: log gates [B, H, dh]; o: output gate."""
     m_new = torch.maximum(st.m + lft, lit)
     fdec = torch.exp(st.m + lft - m_new)
@@ -230,7 +249,7 @@ def slstm_step(st: SLSTMState, zt, lft, lit, ot):
     return SLSTMState(c, n, m_new), h
 
 
-def slstm_seq(z, lf, li, o, st: Optional[SLSTMState] = None):
+def _slstm_seq(z, lf, li, o, st: Optional[SLSTMState] = None):
     """Sequential sLSTM over S steps (a host loop of :func:`slstm_step`;
     the reference's ``unroll`` has no counterpart)."""
     b, s, h, dh = z.shape
@@ -238,7 +257,7 @@ def slstm_seq(z, lf, li, o, st: Optional[SLSTMState] = None):
     zf, lff, lif, of = (a.to(_F32) for a in (z, lf, li, o))
     ys = []
     for t in range(s):
-        st, y = slstm_step(st, zf[:, t], lff[:, t], lif[:, t], of[:, t])
+        st, y = _slstm_step(st, zf[:, t], lff[:, t], lif[:, t], of[:, t])
         ys.append(y)
     return torch.stack(ys, 1).to(z.dtype), st
 
@@ -246,7 +265,7 @@ def slstm_seq(z, lf, li, o, st: Optional[SLSTMState] = None):
 # ====================================================================== #
 # causal depthwise conv (width kw) with carry for decode
 # ====================================================================== #
-def causal_conv(x: torch.Tensor, w: torch.Tensor, carry: Optional[torch.Tensor] = None):
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, carry: Optional[torch.Tensor] = None):
     """x [B, S, D], w [kw, D] depthwise.  Returns (y [B, S, D], new carry
     [B, kw-1, D]); the carry and x are concatenated with type promotion."""
     kw = w.shape[0]
@@ -255,3 +274,49 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, carry: Optional[torch.Tensor] 
     xp = torch.cat([carry, x], dim=1)
     ys = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(kw))
     return ys, xp[:, -(kw - 1):]
+
+
+# ====================================================================== #
+# entry points: on each rank's batch rows and heads under a mesh
+# ====================================================================== #
+def ssd_chunked(q, k, v, la, s0=None, chunk: int = 128):
+    """:func:`_ssd_chunked`; under a mesh on each rank's local rows and heads
+    (:func:`repro_torch.dist.ctx.local_apply`)."""
+    return local_apply(lambda *a: _ssd_chunked(*a, chunk=chunk), (q, k, v, la, s0),
+                       (_SEQ, _SEQ, _SEQ, _SEQ, _ROW), (_SEQ, _ROW))
+
+
+def ssd_step(state, qt, kt, vt, lat):
+    """:func:`_ssd_step`, local under a mesh."""
+    return local_apply(_ssd_step, (state, qt, kt, vt, lat), (_ROW,) * 5, (_ROW, _ROW))
+
+
+def mlstm_chunked(q, k, v, lf, li, st: Optional[MLSTMState] = None, chunk: int = 128):
+    """:func:`_mlstm_chunked`, local under a mesh."""
+    return local_apply(lambda *a: _mlstm_chunked(*a, chunk=chunk), (q, k, v, lf, li, st),
+                       (_SEQ,) * 5 + ([_ROW] * 3,), (_SEQ, [_ROW] * 3))
+
+
+def mlstm_step(st: MLSTMState, qt, kt, vt, lft, lit):
+    """:func:`_mlstm_step`, local under a mesh."""
+    return local_apply(_mlstm_step, (st, qt, kt, vt, lft, lit), ([_ROW] * 3,) + (_ROW,) * 5,
+                       ([_ROW] * 3, _ROW))
+
+
+def slstm_seq(z, lf, li, o, st: Optional[SLSTMState] = None):
+    """:func:`_slstm_seq`, local under a mesh: its host loop runs on plain
+    tensors, with no DTensor dispatch a step."""
+    return local_apply(_slstm_seq, (z, lf, li, o, st), (_SEQ,) * 4 + ([_ROW] * 3,),
+                       (_SEQ, [_ROW] * 3))
+
+
+def slstm_step(st: SLSTMState, zt, lft, lit, ot):
+    """:func:`_slstm_step`, local under a mesh."""
+    return local_apply(_slstm_step, (st, zt, lft, lit, ot), ([_ROW] * 3,) + (_ROW,) * 4,
+                       ([_ROW] * 3, _ROW))
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, carry: Optional[torch.Tensor] = None):
+    """:func:`_causal_conv`, local under a mesh (rows over "dp", channels
+    over "tp": the convolution is depthwise)."""
+    return local_apply(_causal_conv, (x, w, carry), (_SEQ, (None, "tp"), _SEQ), (_SEQ, _SEQ))

@@ -532,6 +532,91 @@ def test_reduced_vlm_train_step_on_a_one_card_mesh_matches_plain(cuda):
         dist.destroy_process_group()
 
 
+#: the MoE, encoder-decoder, hymba and xLSTM families, cut as the CPU mesh tests
+#: cut them (tests/test_torch_dist_families.py): arch, config changes
+MESH_FAMILIES = {
+    "moe": ("qwen3-moe-30b-a3b", dict(num_experts=4, top_k=2)),
+    "encdec": ("seamless-m4t-large-v2", dict(num_layers=2, enc_layers=2, d_frontend=16)),
+    "hymba": ("hymba-1.5b", dict(num_layers=2)),  # window 16 < 40 tokens, layer 0 global
+    "xlstm": ("xlstm-1.3b", dict(num_layers=2, slstm_every=2)),  # 1 sLSTM + 1 mLSTM
+}
+
+
+@pytest.mark.parametrize("family", sorted(MESH_FAMILIES))
+def test_reduced_family_on_a_one_card_mesh_is_bitwise_plain(cuda, family):
+    """The MoE, encoder-decoder, hymba and xLSTM families through the launch
+    layer on the card's ``("data", "model")`` mesh of 1 × 1 (NCCL at world
+    size 1), remat on: the loss, every gradient leaf and the params after an
+    AdamW step bitwise the plain path's; a prefill and 4 decode steps (hymba
+    past its 16-slot window, so the ring wraps) bitwise too; the attention
+    families' forward and backward in the kernels, MoE's combine and its
+    dispatch backward in ``segment_spmm``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import activation_sharding, distribute_tree
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step, make_train_step,
+                                          shardings_for_cell)
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainer import TrainConfig, synthetic_batch, value_and_grad
+    from repro_torch.train.tree import tree_leaves
+
+    arch, kw = MESH_FAMILIES[family]
+    cfg = dataclasses.replace(reduced_config(get_arch(arch)), remat=True, **kw)
+    L = cfg.num_layers
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        sh = shardings_for_cell(cfg, ShapeConfig("tiny", 40, 2, "train"), mesh)
+        plain = _to(lm_models.init_model(torch.Generator().manual_seed(0), cfg), "cuda")
+        params = distribute_tree(plain, sh["params_sharding"])
+        batch = synthetic_batch(cfg, TrainConfig(batch=2, seq_len=40), 0, device="cuda")
+        dbatch = distribute_tree(batch, sh["batch_sharding"])
+        n_fwd, n_bwd, n_sum = (fmod.KERNEL.launches, fmod.BWD_KERNEL.launches,
+                               smod.KERNEL.launches)
+        with activation_sharding(mesh, sh["shcfg"]):
+            loss, _, grads = value_and_grad(params, cfg, dbatch)
+        attn = {"moe": L, "encdec": cfg.enc_layers + 2 * L, "hymba": L, "xlstm": 0}[family]
+        assert fmod.KERNEL.launches - n_fwd == 2 * attn  # remat: twice
+        assert fmod.BWD_KERNEL.launches - n_bwd == 2 * attn  # dQ and dK/dV
+        # MoE: the combine twice a layer (remat), the dispatch backward once
+        assert smod.KERNEL.launches - n_sum == (3 * L if family == "moe" else 0)
+        loss_p, _, grads_p = value_and_grad(plain, cfg, batch)
+        assert torch.equal(loss.full_tensor(), loss_p)
+        for a, c in zip(tree_leaves(grads), tree_leaves(grads_p)):
+            assert torch.equal(a.full_tensor(), c)
+        step = make_train_step(cfg, OptConfig(warmup_steps=1, stable_steps=10, decay_steps=1))
+        opt = distribute_tree(adamw_init(plain), sh["opt_sharding"])
+        with activation_sharding(mesh, sh["shcfg"]):
+            new, _, _ = step(params, opt, dbatch)
+        new_p, _, _ = step(plain, adamw_init(plain), batch)
+        for a, c in zip(tree_leaves(new), tree_leaves(new_p)):
+            assert torch.equal(a.full_tensor(), c)
+
+        ssh = shardings_for_cell(cfg, ShapeConfig("tinydec", 40, 2, "decode"), mesh)
+        prompt = {k: v[:, :36] for k, v in batch.items() if k != "labels"}
+        prefill, serve_step = make_prefill_step(cfg, ssh["s_max"]), make_serve_step(cfg)
+
+        def run(ps, place):
+            logits, cache = prefill(ps, place(prompt, {k: ssh["batch_sharding"][k]
+                                                       for k in prompt}))
+            outs = [logits]
+            for i in range(36, 40):
+                logits, cache = serve_step(ps, cache, place(batch["tokens"][:, i:i + 1],
+                                                            ssh["token_sharding"]))
+                outs.append(logits)
+            return [o.full_tensor() if hasattr(o, "full_tensor") else o for o in outs]
+
+        want = run(plain, lambda x, s: x)
+        with activation_sharding(mesh, ssh["shcfg"]):
+            got = run(distribute_tree(plain, ssh["params_sharding"]), distribute_tree)
+        for i, (a, c) in enumerate(zip(got, want)):
+            assert torch.equal(a, c), i
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("h", [1, 2, 3, 4, 8])  # vector widths and the generic loop
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_edge_softmax_kernel_matches_plain_and_op_matches_reference(cuda, idx_dtype, h):
