@@ -11,7 +11,7 @@ Phases, one JSON line each:
              instructions (``HGMMA``) in each library's SASS
              (``cuobjdump --dump-sass``): ``flash_attention`` and
              ``flash_attention_bwd`` must have some, and ptxas must report no
-             spills for ``flash_attention_bwd``;
+             spills for either;
 2. engine  — ``create_engine("device", …)`` for gcn and then gat (heads=2) on
              ``make_graph("uniform", n, avg_degree=10, weighted=True)`` with
              128-wide random features and dims [128, 128, 128], driven by a
@@ -508,8 +508,8 @@ def phase_build() -> None:
     for name in ("flash_attention", "flash_attention_bwd"):
         if not hgmma[name]:
             raise AssertionError(f"{name}'s SASS has no HGMMA: it misses the tensor cores")
-    if spills["flash_attention_bwd"]:
-        raise AssertionError(f"flash_attention_bwd spills: {spills['flash_attention_bwd']}")
+        if spills[name]:
+            raise AssertionError(f"{name} spills: {spills[name]}")
 
 
 def _sass_count(lib: Path, opcode: str) -> int:
@@ -1797,7 +1797,7 @@ def _device_split_ms(prof) -> dict:
             continue
         name = e.key.lower()
         kind = ("flash_attention" if "flash_attention" in name else
-                "flash_attention_bwd" if "bwd_dq_kernel" in name or "bwd_dkdv_kernel" in name
+                "flash_attention_bwd" if "bwd_dq_" in name or "bwd_dkdv_" in name
                 else "segment_spmm" if "row_sum" in name  # the MoE combine on the LM path
                 else "matmul" if any(w in name for w in ("gemm", "gemv", "splitk")) else "other")
         split[kind] += e.self_device_time_total / 1e3

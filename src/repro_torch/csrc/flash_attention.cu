@@ -55,24 +55,28 @@
 // fp32 at dh 128 (whose Q fragments would take 128 registers a thread) and bf16
 // read Q from shared memory and use one buffer; fp32 at dh 128 also takes
 // 32-key tiles and one raw stage to fit in 227 KB.  dh 160 (pixtral-12b, whose
-// prefill runs it causal over 2,304 rows in fp32): with 128 query rows, Q's hi
-// and lo alone take 2 × 128 × 160 × 4 = 163,840 B, and with dh 128's 32-key
-// tiles and one raw stage the block would need 286,728 B.  Two ways fit: 128
-// rows with 16-key tiles (225,288 B, but S in m64n16 products, 60 of them a
-// tile, and a barrier every 16 keys), or one warpgroup of 64 rows a block; fp32
-// at dh 160 takes the second: Q 81,920 + K and Vᵀ hi and lo 81,920 + one raw
-// K/V stage 40,960 + 8 = 204,808 B, one block an SM, a grid of Sq / 64 rows
-// (so the split of a tile does not overlap the other warpgroup's products).
-// bf16 at dh 160 keeps the two-warpgroup shape: Q 40,960 + K and Vᵀ 40,960 +
-// two raw stages 81,920 + 16 = 163,856 B.  O += P·V is one m64n160 wgmma a k
-// step (80 fp32 accumulators a thread); ptxas -v gives 240 registers a thread
-// in fp32 and 197 in bf16 at dh 160, no spills.  The split's bank spreading
-// gives each group of 8 threads 8 distinct chunks; in bf16 at dh 160 a raw row
-// is 20 chunks, so some groups' shared reads of a K tile meet 2-way conflicts
-// (the fp32 row, 40 chunks, has none).  P never leaves the
-// registers: the S accumulator gives a thread keys 2t, 2t+1 of each 8-key group
-// where the TF32 A fragment wants keys t, t+4, so the V split stores each 8-key
-// group in the order 0 2 4 6 1 3 5 7 and the product is unchanged.  (bf16 needs
+// prefill and training run it causal over 2,304 rows in fp32): Q's hi and lo
+// for 128 rows would take 163,840 B.  But Q is only ever the A of S = Q·Kᵀ,
+// and wgmma may read A from registers, so fp32 at dh 160 (kQFrag) keeps Q raw
+// in shared memory in the A-fragment order of hopper.cuh (one conflict-free
+// 16-byte load a k step and thread) and splits it in registers four k steps at
+// a time, the next group's split running while the tensor cores take the last
+// (hopper::product_frag).  That halves Q's bytes, so the block keeps dh ≤ 128's
+// two warpgroups of 64 rows, and one warpgroup's splits and softmax run beside
+// the other's products: Q 81,920 + K and Vᵀ hi and lo of 32 keys 81,920 + one
+// raw K/V stage 40,960 + 8 = 204,808 B, one block an SM.  Its splits (Q, K, Vᵀ
+// and P) leave lo unrounded (hopper::split_tf32_fast): three ALU operations
+// where the rounded split takes five.  bf16 at dh 160 keeps Q
+// in the operand layout: Q 40,960 + K and Vᵀ 40,960 + two raw stages 81,920 +
+// 16 = 163,856 B.  O += P·V is one m64n160 wgmma a k step (80 fp32
+// accumulators a thread); ptxas -v gives 246 registers a thread in fp32 and
+// 197 in bf16 at dh 160, no spills.  Times against the bound: PERF.md §6.  The
+// split's bank spreading gives each group of 8 threads 8 distinct chunks; in
+// bf16 at dh 160 a raw row is 20 chunks, so some groups' shared reads of a K
+// tile meet 2-way conflicts (the fp32 row, 40 chunks, has none).  P never
+// leaves the registers: the S accumulator gives a thread keys 2t, 2t+1 of each
+// 8-key group where the TF32 A fragment wants keys t, t+4, so the V split stores
+// each 8-key group in the order 0 2 4 6 1 3 5 7 and the product is unchanged.  (bf16 needs
 // no reordering: its k16 fragment matches the accumulator.)  Nothing branches
 // between a wgmma's issue and its wait, so ptxas keeps the wgmma pipelined.  Key
 // tiles outside a warpgroup's causal or window band are skipped, masks are
@@ -105,10 +109,8 @@ struct Cfg {
   static constexpr int kEPC = 16 / kE;                    // elements per 16-byte chunk
   static constexpr int kCPR = DH / kEPC;                  // chunks per row of q or k
   static constexpr int kKStep = 32 / kE;                  // k of one wgmma
-  // A block is two warpgroups of 64 query rows, except fp32 at dh 160: Q's hi
-  // and lo for 128 rows would take 160 KB there, so its block is one
-  // warpgroup of 64 rows (a grid twice as tall).
-  static constexpr int kWGs = (kSplit && DH > 128) ? 1 : 2;
+  // A block is two warpgroups of 64 query rows.
+  static constexpr int kWGs = 2;
   static constexpr int kBQ = kWGs * kWG;        // query rows per block
   static constexpr int kThreads = kWGs * 128;
   // fp32 up to dh 64 keeps Q's hi and lo A fragments in registers and splits
@@ -117,6 +119,10 @@ struct Cfg {
   // bf16 read Q from shared memory and use one operand buffer; fp32 from dh
   // 128 also shrinks the tiles to 32 keys and one raw stage to fit in 227 KB.
   static constexpr bool kQRegs = kSplit && DH <= 64;
+  // fp32 at dh 160 keeps Q raw in the A-fragment order of hopper.cuh (80 KB for
+  // 128 rows, where its hi and lo would take 160 KB) and splits it into
+  // fragments in registers a group of k steps at a time (hopper::product_frag).
+  static constexpr bool kQFrag = kSplit && DH > 128;
   static constexpr int kBK = (kSplit && DH >= 128) ? 32 : 64;
   static constexpr int kStages = (kSplit && DH >= 128) ? 1 : 2;
   static constexpr int kBufs = kQRegs ? 2 : 1;  // two: tile t + 1 is split while t computes
@@ -125,23 +131,31 @@ struct Cfg {
   static constexpr int kBufBytes = kParts * 2 * kKBytes;  // K and Vᵀ, all parts
   static constexpr int kRawBytes = kBK * DH * kE;  // one raw K (or V) tile
   // with fragments in registers, Q is split into the second operand buffer
-  static constexpr int kQRegion = kQRegs ? 0 : kParts * kQBytes;
+  static constexpr int kQRegion = kQRegs ? 0 : kQFrag ? kQBytes : kParts * kQBytes;
   static constexpr int kSmem =
       kQRegion + kBufs * kBufBytes + kStages * 2 * kRawBytes + 8 * kStages;
   static_assert(!kQRegs || kParts * kQBytes <= kBufBytes, "Q must fit in an operand buffer");
   static_assert(kSmem <= 232448, "a block may have at most 227 KB of shared memory");
 };
 
+// x ≈ hi + lo by hopper::split_tf32, or with kFast (fp32 at dh 160, Cfg::kQFrag)
+// by hopper::split_tf32_fast
+template <bool kFast>
+__device__ __forceinline__ void split_x(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kFast) hopper::split_tf32_fast(x, hi, lo);
+  else hopper::split_tf32(x, hi, lo);
+}
+
 // One 16-byte chunk of raw values → the operand part(s) at byte `off`.
-template <typename T>
+template <typename T, bool kFast = false>
 __device__ __forceinline__ void put_chunk(unsigned char* hi, unsigned char* lo, int off,
                                           uint4 x) {
   if constexpr (std::is_same<T, float>::value) {
     uint4 h, l;
-    hopper::split_tf32(__uint_as_float(x.x), h.x, l.x);
-    hopper::split_tf32(__uint_as_float(x.y), h.y, l.y);
-    hopper::split_tf32(__uint_as_float(x.z), h.z, l.z);
-    hopper::split_tf32(__uint_as_float(x.w), h.w, l.w);
+    split_x<kFast>(__uint_as_float(x.x), h.x, l.x);
+    split_x<kFast>(__uint_as_float(x.y), h.y, l.y);
+    split_x<kFast>(__uint_as_float(x.z), h.z, l.z);
+    split_x<kFast>(__uint_as_float(x.w), h.w, l.w);
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
   } else {
@@ -174,7 +188,7 @@ __device__ __forceinline__ void split_rows(const T* raw, unsigned char* hi, unsi
       const uint4 y = *src;
       x = r < nvalid ? y : x;
     }
-    put_chunk<T>(hi, lo, hopper::chunk_offset(R, r, c), x);
+    put_chunk<T, C::kQFrag>(hi, lo, hopper::chunk_offset(R, r, c), x);
   }
 }
 
@@ -211,7 +225,7 @@ __device__ __forceinline__ void split_vt(const T* raw, unsigned char* hi, unsign
       const Bits y = bits[key * DH + d];
       x.v[e] = key < nvalid ? y : Bits(0);
     }
-    put_chunk<T>(hi, lo, hopper::chunk_offset(DH, d, kc), x.u);
+    put_chunk<T, C::kQFrag>(hi, lo, hopper::chunk_offset(DH, d, kc), x.u);
   }
 }
 
@@ -284,8 +298,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   if (tid == 0)
     for (int t = 0; t < min(C::kStages, n_tiles); ++t) issue(t, t);
-  split_rows<T, DH, kBQ, true>(qp, qs, qs + C::kQBytes,
-                               static_cast<int>(min(static_cast<long long>(kBQ), sq - q0)));
+  if constexpr (C::kQFrag) {  // each warpgroup its 64 rows, each thread its own fragments
+    const long long nq = min(static_cast<long long>(kWG), sq - q0 - wg * kWG);
+    hopper::load_frags<DH>(qp + wg * kWG * DH, static_cast<int>(max(nq, 0LL)),
+                           qs + wg * kWG * DH * C::kE, tid & 127);
+  } else {
+    split_rows<T, DH, kBQ, true>(qp, qs, qs + C::kQBytes,
+                                 static_cast<int>(min(static_cast<long long>(kBQ), sq - q0)));
+  }
   if (n_tiles > 0) {
     arrived(0);
     split_tile(0, bufs);
@@ -348,36 +368,40 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!active) {
       if (ahead) split_tile(t + 1, next);
     } else {
-      hopper::wgmma_fence();
-      if constexpr (C::kQRegs) {
-#pragma unroll
-        for (int i = 0; i < QK_STEPS; ++i)
-          Mma<C::kOp, Src::kRS, BK>::run(s, qf_lo + 4 * i, dk_hi + i * (2 * BK), i > 0);
-#pragma unroll
-        for (int i = 0; i < QK_STEPS; ++i)
-          Mma<C::kOp, Src::kRS, BK>::run(s, qf_hi + 4 * i, dk_lo + i * (2 * BK), 1);
-#pragma unroll
-        for (int i = 0; i < QK_STEPS; ++i)
-          Mma<C::kOp, Src::kRS, BK>::run(s, qf_hi + 4 * i, dk_hi + i * (2 * BK), 1);
+      if constexpr (C::kQFrag) {
+        hopper::product_frag<DH, BK, 4>(s, qs + wg * kWG * DH * C::kE, buf, C::kKBytes);
       } else {
-        if constexpr (C::kSplit) {
+        hopper::wgmma_fence();
+        if constexpr (C::kQRegs) {
 #pragma unroll
           for (int i = 0; i < QK_STEPS; ++i)
-            Mma<C::kOp, Src::kSS, BK>::run(s, dq_lo + i * (2 * kBQ), dk_hi + i * (2 * BK), i > 0);
+            Mma<C::kOp, Src::kRS, BK>::run(s, qf_lo + 4 * i, dk_hi + i * (2 * BK), i > 0);
 #pragma unroll
           for (int i = 0; i < QK_STEPS; ++i)
-            Mma<C::kOp, Src::kSS, BK>::run(s, dq_hi + i * (2 * kBQ), dk_lo + i * (2 * BK), 1);
+            Mma<C::kOp, Src::kRS, BK>::run(s, qf_hi + 4 * i, dk_lo + i * (2 * BK), 1);
+#pragma unroll
+          for (int i = 0; i < QK_STEPS; ++i)
+            Mma<C::kOp, Src::kRS, BK>::run(s, qf_hi + 4 * i, dk_hi + i * (2 * BK), 1);
+        } else {
+          if constexpr (C::kSplit) {
+#pragma unroll
+            for (int i = 0; i < QK_STEPS; ++i)
+              Mma<C::kOp, Src::kSS, BK>::run(s, dq_lo + i * (2 * kBQ), dk_hi + i * (2 * BK), i > 0);
+#pragma unroll
+            for (int i = 0; i < QK_STEPS; ++i)
+              Mma<C::kOp, Src::kSS, BK>::run(s, dq_hi + i * (2 * kBQ), dk_lo + i * (2 * BK), 1);
+          }
+#pragma unroll
+          for (int i = 0; i < QK_STEPS; ++i)
+            Mma<C::kOp, Src::kSS, BK>::run(s, dq_hi + i * (2 * kBQ), dk_hi + i * (2 * BK),
+                                           C::kSplit || i > 0);
         }
-#pragma unroll
-        for (int i = 0; i < QK_STEPS; ++i)
-          Mma<C::kOp, Src::kSS, BK>::run(s, dq_hi + i * (2 * kBQ), dk_hi + i * (2 * BK),
-                                         C::kSplit || i > 0);
+        hopper::wgmma_commit();
+        // while the tensor cores work: split the next tile into the other buffer
+        if (ahead) split_tile(t + 1, next);
+        hopper::wgmma_wait_all();
+        hopper::fence_regs(s);
       }
-      hopper::wgmma_commit();
-      // while the tensor cores work: split the next tile into the other buffer
-      if (ahead) split_tile(t + 1, next);
-      hopper::wgmma_wait_all();
-      hopper::fence_regs(s);
 
       // online softmax; s[4·i + 2·h + e] is row r0 + 8·h, key k0 + 8·i + 2·tig + e
       const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
@@ -430,10 +454,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // = key 2·tig, (row + 8, tig), (row, tig + 4) = key 2·tig + 1, (row + 8, tig + 4)
 #pragma unroll
         for (int i = 0; i < PV_STEPS; ++i) {
-          hopper::split_tf32(s[4 * i + 0], p_hi[4 * i + 0], p_lo[4 * i + 0]);
-          hopper::split_tf32(s[4 * i + 2], p_hi[4 * i + 1], p_lo[4 * i + 1]);
-          hopper::split_tf32(s[4 * i + 1], p_hi[4 * i + 2], p_lo[4 * i + 2]);
-          hopper::split_tf32(s[4 * i + 3], p_hi[4 * i + 3], p_lo[4 * i + 3]);
+          split_x<C::kQFrag>(s[4 * i + 0], p_hi[4 * i + 0], p_lo[4 * i + 0]);
+          split_x<C::kQFrag>(s[4 * i + 2], p_hi[4 * i + 1], p_lo[4 * i + 1]);
+          split_x<C::kQFrag>(s[4 * i + 1], p_hi[4 * i + 2], p_lo[4 * i + 2]);
+          split_x<C::kQFrag>(s[4 * i + 3], p_hi[4 * i + 3], p_lo[4 * i + 3]);
         }
       } else {
         // k step i covers keys 16i … 16i + 15: pairs (row, 2·tig), (row + 8, 2·tig),

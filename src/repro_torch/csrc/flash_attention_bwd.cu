@@ -55,7 +55,10 @@
 // which is what removes the atomics.  A block is one warpgroup per 64 rows (or
 // keys) it owns: two in fp32 up to dh 64, sharing the split of each loop tile
 // (the CUDA-core work of one warpgroup then runs beside the other's products),
-// one otherwise (Cfg).  P and dS never go to shared memory: the accumulator
+// one otherwise (Cfg).  fp32 at dh 160 (pixtral-12b's training) runs kernels of
+// its own, two warpgroups with a role each over the same 64 rows or keys (the
+// note above bwd_dq_roles_kernel).  Elsewhere P and dS never go to shared
+// memory: the accumulator
 // gives a thread columns 2t, 2t+1 of each 8-group where the TF32 A fragment
 // wants t, t+4, so the transposed operands (Kᵀ; Qᵀ, dOᵀ) store each 8-group of
 // their K dimension in the order 0 2 4 6 1 3 5 7, as the forward's Vᵀ does;
@@ -66,7 +69,8 @@
 // fp32 sums truncate, so dQ, dK and dV are not one wgmma chain over the whole
 // loop (~3000 steps, which put dk and dv ~5e-4 off): each tile's product runs
 // in a fresh accumulator that the CUDA cores add to the running sum.  The TF32
-// splits use integer ALU operations (cvt.rna's bits, without conversions).
+// splits use integer ALU operations (cvt.rna's bits, without conversions; at fp32
+// dh 160 hopper::split_tf32_fast, whose lo is not rounded).
 // The loop's raw tiles (K and V, or Q and dO, each one contiguous run of rows
 // of one head) arrive by 1-D bulk async copies into a ring of stages completed
 // on mbarriers, so the copy of tile t + 1 overlaps the products of tile t; the
@@ -96,6 +100,7 @@ namespace {
 using hopper::Mma;
 using hopper::Op;
 using hopper::Src;
+using hopper::split_tf32_alu;  // x ≈ hi + lo by integer ALU operations
 
 constexpr int kWgRows = 64;       // rows of one wgmma's M: query rows (dQ) or keys (dK/dV)
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have on an H100
@@ -120,16 +125,20 @@ struct Cfg {
   // small enough to run several to an SM and whose two-warpgroup kernels took
   // more registers (fewer warps an SM, and spills at dh 128), take one.  The
   // loop tile (keys a step of the dQ kernel, query rows a step of the dK/dV
-  // kernel) is as large as fits in 227 KB: at fp32 dh 160 the 64-row block
-  // operands (Q and dO, or K and V, hi and lo) take 160 KB and leave room for
-  // 8-row tiles only.  bf16 at dh 160 takes 32-row tiles for its registers: the
-  // dK and dV sums of 64 × 160 are 160 a thread, and a 64-row tile's Pᵀ and dSᵀ
-  // with their fragments would add 96.
-  static constexpr int kWG = (kSplit && DH <= 64) ? 2 : 1;
+  // kernel) is as large as fits in 227 KB.  bf16 at dh 160 takes 32-row tiles
+  // for its registers: the dK and dV sums of 64 × 160 are 160 a thread, and a
+  // 64-row tile's Pᵀ and dSᵀ with their fragments would add 96.
+  // fp32 at dh 160 (kRoles) runs the kernels of their own below
+  // (bwd_dq_roles_kernel, bwd_dkdv_roles_kernel): 64 rows (keys) a block, two
+  // warpgroups with a role each, the block operands raw in the A-fragment
+  // order of hopper.cuh (the dQ kernel's Q in role 0's registers), loop tiles
+  // of 32 keys (dQ) and 16 query rows (dK/dV).
+  static constexpr bool kRoles = kSplit && DH == 160;
+  static constexpr int kWG = (kSplit && DH <= 64) || kRoles ? 2 : 1;
   static constexpr int kThreads = 128 * kWG;
-  static constexpr int kRows = kWgRows * kWG;
+  static constexpr int kRows = kRoles ? kWgRows : kWgRows * kWG;
   static constexpr int kTile =
-      DH == 160 ? (kSplit ? 8 : 32) : !kSplit || DH <= 32 ? 64 : DH == 64 ? 32 : 16;
+      kRoles ? 16 : DH == 160 ? 32 : !kSplit || DH <= 32 ? 64 : DH == 64 ? 32 : 16;
   static constexpr int kBlockPart = kRows * DH * kE;  // one part of a block operand
   static constexpr int kTilePart = kTile * DH * kE;   // one part of a loop-tile operand
   // operands of a loop tile: dQ: K, V (+ Kᵀ in fp32); dK/dV: Q, dO (+ Qᵀ, dOᵀ in fp32)
@@ -139,35 +148,45 @@ struct Cfg {
     return 2 * kParts * kBlockPart + tile_ops * kParts * kTilePart + stages * 2 * kTilePart +
            2 * 4 * kRows + 8 * stages;  // + lse · log2 e and D of ≤ kRows rows, barriers
   }
+  // kRoles: `blocks` raw block operands, loop tiles of `tile` rows, and the
+  // roles' exchange of P
+  static constexpr int kTileDq = kRoles ? 32 : kTile;
+  static constexpr int smem_roles(int blocks, int tile, int tile_ops, int stages) {
+    return blocks * kBlockPart + (tile_ops * kParts + stages * 2) * tile * DH * kE +
+           4 * kWgRows * tile + 2 * 4 * kRows + 8 * stages;
+  }
+  static constexpr int smem_dq(int stages) {
+    return kRoles ? smem_roles(1, kTileDq, kTileOps, stages) : smem(kTileOps, stages);
+  }
+  static constexpr int smem_dkdv(int stages) {
+    return kRoles ? smem_roles(2, kTile, kTileOpsDkdv, stages) : smem(kTileOpsDkdv, stages);
+  }
   // two raw stages where they fit, else one
-  static constexpr int kStagesDq = smem(kTileOps, 2) <= kSmemMax ? 2 : 1;
-  static constexpr int kStagesDkdv = smem(kTileOpsDkdv, 2) <= kSmemMax ? 2 : 1;
-  static constexpr int kSmemDq = smem(kTileOps, kStagesDq);
-  static constexpr int kSmemDkdv = smem(kTileOpsDkdv, kStagesDkdv);
+  static constexpr int kStagesDq = smem_dq(2) <= kSmemMax ? 2 : 1;
+  static constexpr int kStagesDkdv = smem_dkdv(2) <= kSmemMax ? 2 : 1;
+  static constexpr int kSmemDq = smem_dq(kStagesDq);
+  static constexpr int kSmemDkdv = smem_dkdv(kStagesDkdv);
   static_assert(kSmemDq <= kSmemMax && kSmemDkdv <= kSmemMax, "shared memory");
 };
 
-// x ≈ hi + lo, both TF32, with the bits of hopper::split_tf32 (cvt.rna: to
-// nearest, ties away from zero) formed by integer ALU operations, which the
-// SM issues at a higher rate than conversions.
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
-  return (bits + 0x1000u) & 0xFFFFE000u;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(__float_as_uint(x));
-  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
+// x ≈ hi + lo by split_tf32_alu, or with kFast (the kernels of Cfg::kRoles) by
+// hopper::split_tf32_fast
+template <bool kFast>
+__device__ __forceinline__ void split_x(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kFast) hopper::split_tf32_fast(x, hi, lo);
+  else split_tf32_alu(x, hi, lo);
 }
 
 // One 16-byte chunk of raw values → the operand part(s) at byte `off`.
-template <typename T>
+template <typename T, bool kFast = false>
 __device__ __forceinline__ void put_chunk(unsigned char* hi, unsigned char* lo, int off,
                                           uint4 x) {
   if constexpr (std::is_same<T, float>::value) {
     uint4 h, l;
-    split_tf32(__uint_as_float(x.x), h.x, l.x);
-    split_tf32(__uint_as_float(x.y), h.y, l.y);
-    split_tf32(__uint_as_float(x.z), h.z, l.z);
-    split_tf32(__uint_as_float(x.w), h.w, l.w);
+    split_x<kFast>(__uint_as_float(x.x), h.x, l.x);
+    split_x<kFast>(__uint_as_float(x.y), h.y, l.y);
+    split_x<kFast>(__uint_as_float(x.z), h.z, l.z);
+    split_x<kFast>(__uint_as_float(x.w), h.w, l.w);
     *reinterpret_cast<uint4*>(hi + off) = h;
     *reinterpret_cast<uint4*>(lo + off) = l;
   } else {
@@ -180,7 +199,7 @@ __device__ __forceinline__ void put_chunk(unsigned char* hi, unsigned char* lo, 
 // distinct chunks, so neither its reads nor its writes share a bank.  kGlobal:
 // the tile is in device memory, where rows ≥ nvalid may not be read; in shared
 // memory they are read and dropped.
-template <typename T, int DH, int R, bool kGlobal>
+template <typename T, int DH, int R, bool kGlobal, bool kFast = false>
 __device__ __forceinline__ void put_rows(const T* raw, unsigned char* hi, unsigned char* lo,
                                          int nvalid) {
   using C = Cfg<T, DH>;
@@ -199,7 +218,7 @@ __device__ __forceinline__ void put_rows(const T* raw, unsigned char* hi, unsign
       const uint4 y = *src;
       x = r < nvalid ? y : x;
     }
-    put_chunk<T>(hi, lo, hopper::chunk_offset(R, r, c), x);
+    put_chunk<T, kFast>(hi, lo, hopper::chunk_offset(R, r, c), x);
   }
 }
 
@@ -207,7 +226,7 @@ __device__ __forceinline__ void put_rows(const T* raw, unsigned char* hi, unsign
 // operand (DH rows, the R raw rows along K), each 8-group of raw rows stored as
 // 0 2 4 6 | 1 3 5 7: the order in which a thread's accumulator values sit in the
 // TF32 A fragment.  Raw rows ≥ nvalid become 0.
-template <int DH, int R>
+template <int DH, int R, bool kFast = false>
 __device__ __forceinline__ void put_cols(const float* raw, unsigned char* hi, unsigned char* lo,
                                          int nvalid) {
   constexpr int NKC = R / 4, N = DH * NKC, NT = Cfg<float, DH>::kThreads;  // chunks along K
@@ -227,7 +246,7 @@ __device__ __forceinline__ void put_cols(const float* raw, unsigned char* hi, un
       const uint32_t y = bits[row * DH + d];
       x.v[e] = row < nvalid ? y : 0u;
     }
-    put_chunk<float>(hi, lo, hopper::chunk_offset(DH, d, kc), x.u);
+    put_chunk<float, kFast>(hi, lo, hopper::chunk_offset(DH, d, kc), x.u);
   }
 }
 
@@ -237,15 +256,15 @@ __device__ __forceinline__ void put_cols(const float* raw, unsigned char* hi, un
 // (r0 + 8, tig), (r0, tig + 4) = column 2·tig + 1, (r0 + 8, tig + 4), each split
 // into hi and lo; bf16 (k16 steps): pairs (r0, 2·tig), (r0 + 8, 2·tig), (r0, 2·tig
 // + 8), (r0 + 8, 2·tig + 8).
-template <typename T, int N>
+template <typename T, int N, bool kFast = false>
 __device__ __forceinline__ void to_frags(const float* acc, uint32_t* hi, uint32_t* lo) {
   if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
     for (int i = 0; i < N / 8; ++i) {
-      split_tf32(acc[4 * i + 0], hi[4 * i + 0], lo[4 * i + 0]);
-      split_tf32(acc[4 * i + 2], hi[4 * i + 1], lo[4 * i + 1]);
-      split_tf32(acc[4 * i + 1], hi[4 * i + 2], lo[4 * i + 2]);
-      split_tf32(acc[4 * i + 3], hi[4 * i + 3], lo[4 * i + 3]);
+      split_x<kFast>(acc[4 * i + 0], hi[4 * i + 0], lo[4 * i + 0]);
+      split_x<kFast>(acc[4 * i + 2], hi[4 * i + 1], lo[4 * i + 1]);
+      split_x<kFast>(acc[4 * i + 1], hi[4 * i + 2], lo[4 * i + 2]);
+      split_x<kFast>(acc[4 * i + 3], hi[4 * i + 3], lo[4 * i + 3]);
     }
   } else {
 #pragma unroll
@@ -705,6 +724,434 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// ------------------------------------------------------------- fp32 at dh 160
+// The two kernels of Cfg::kRoles (pixtral-12b's training: B 2, 32/8 heads, S
+// 2,304).  At dh 160 the 64-row block operands as hi and lo (Q and dO, or K
+// and V) take 163,840 B, which left room for 8-row loop tiles only: N = 8
+// products and two barriers every 8 keys.  Here a block is two warpgroups that
+// own the same 64 query rows (dQ) or keys (dK/dV), one role each.  Role 0 runs
+// S = Q·Kᵀ (Sᵀ = K·Qᵀ) and P; role 1 runs dP = dO·Vᵀ (dPᵀ = V·dOᵀ), takes P
+// through shared memory (thread t of one role holds the same accumulator
+// entries as thread t of the other), and forms dS.  The dQ kernel's role 1 then
+// owns dQ += dS·K; in the dK/dV kernel role 0 owns dV += Pᵀ·dO and role 1 dK +=
+// dSᵀ·Q, so that each thread holds one 64 × 160 sum (80 registers; both would
+// take 160).  One role's exp, dS and adds run beside the other's products.
+// Each block operand is the A of one product only, and wgmma may read A from
+// registers, so it stays raw in the A-fragment order of hopper.cuh, half the
+// bytes of hi and lo, and is split in registers per group of k steps
+// (hopper::product_frag) with hopper::split_tf32_fast,
+// as are the loop tiles and the fragments of P and dS.
+//   dQ kernel: role 0 keeps Q's raw fragments in its registers (product_regs;
+//   the roles run loops of their own, so Q's 80 registers and role 1's dQ sums
+//   are the same registers), which leaves room for 32-key loop tiles: dO
+//   40,960 + K, V and Kᵀ hi and lo 122,880 + one raw K/V stage 40,960 + P
+//   8,192 + the rows' lse and D 512 + 8 = 213,512 B; ptxas -v 244 registers.
+//   dK/dV kernel: K and V 81,920 + Q, dO, Qᵀ and dOᵀ hi and lo of 16 query
+//   rows 81,920 + two raw stages 40,960 + P 4,096 + 528 = 209,424 B; 226
+//   registers.  32-row tiles would take 245,760 B, and K or V in registers
+//   would sit beside a role's dK or dV sums.
+// No spills.  The loop tile's split runs on all 256 threads between two
+// barriers, beside no product.  Times against the bound: PERF.md §6.
+
+// x[4i + 2h + e] ↔ float4 i / 2 of this thread's slots in the exchange buffer
+template <int NS>
+__device__ __forceinline__ void put_exchange(float* xs, const float (&x)[NS]) {
+  float4* xt = reinterpret_cast<float4*>(xs) + (threadIdx.x & 127);
+#pragma unroll
+  for (int c = 0; c < NS / 4; ++c)
+    xt[c * 128] = make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+}
+template <int NS>
+__device__ __forceinline__ void get_exchange(const float* xs, float (&x)[NS]) {
+  const float4* xt = reinterpret_cast<const float4*>(xs) + (threadIdx.x & 127);
+#pragma unroll
+  for (int c = 0; c < NS / 4; ++c) {
+    const float4 y = xt[c * 128];
+    x[4 * c] = y.x;
+    x[4 * c + 1] = y.y;
+    x[4 * c + 2] = y.z;
+    x[4 * c + 3] = y.w;
+  }
+}
+
+// acc += A · B over K = KD in split TF32: A from the fragments of to_frags<float,
+// KD>, B the transposed operand of put_cols (DH rows, KD along K).  As
+// accumulate_rs, each chunk of NC columns runs in a fresh accumulator that the
+// CUDA cores add to acc; here chunk c + 1 is issued before chunk c is waited for
+// and added (two chunk accumulators), so the adds overlap the products.
+template <int DH, int KD, int NC>
+__device__ __forceinline__ void accumulate_frag(float (&acc)[DH / 2], const uint32_t* a_hi,
+                                                const uint32_t* a_lo, const unsigned char* b,
+                                                int b_part) {
+  constexpr int STEPS = KD / 8, NCH = DH / NC;
+  const uint64_t b0 = hopper::make_desc(b, DH * 16, 128);
+  float part[2][NC / 2];
+  auto issue = [&](int c, float(&d)[NC / 2]) {
+    const uint64_t b_hi = b0 + c * NC, b_lo = b_hi + (b_part >> 4);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i)
+      Mma<Op::kTf32, Src::kRS, NC>::run(d, a_lo + 4 * i, b_hi + i * (2 * DH), i > 0);
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i)
+      Mma<Op::kTf32, Src::kRS, NC>::run(d, a_hi + 4 * i, b_lo + i * (2 * DH), 1);
+#pragma unroll
+    for (int i = 0; i < STEPS; ++i)
+      Mma<Op::kTf32, Src::kRS, NC>::run(d, a_hi + 4 * i, b_hi + i * (2 * DH), 1);
+    hopper::wgmma_commit();
+  };
+  issue(0, part[0]);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (c + 1 < NCH) {
+      issue(c + 1, part[(c + 1) & 1]);
+      hopper::wgmma_wait<1>();
+    } else {
+      hopper::wgmma_wait<0>();
+    }
+    hopper::fence_regs(part[c & 1]);
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[c * (NC / 2) + i] += part[c & 1][i];
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(256, 1)
+bwd_dq_roles_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ o, const float* __restrict__ lse,
+                    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ delta,
+                    int hq, int g, long long sq, long long sk, float scale, int causal,
+                    long long window, long long q_offset) {
+  using C = Cfg<T, DH>;
+  static_assert(C::kRoles && C::kOp == Op::kTf32, "the role-split kernels are fp32 at dh 160");
+  constexpr int R = kWgRows, BK = C::kTileDq, S = C::kStagesDq, NS = BK / 2, NO = DH / 2;
+  constexpr int kPart = BK * DH * C::kE;  // one part of a loop-tile operand
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* dof = smem;                // dO, raw in A-fragment order: role 1's A
+  unsigned char* ks = dof + C::kBlockPart;  // [K parts][V parts][Kᵀ parts]
+  unsigned char* vs = ks + C::kParts * kPart;
+  unsigned char* kts = vs + C::kParts * kPart;
+  unsigned char* raw = ks + C::kTileOps * C::kParts * kPart;          // [stage][K, V]
+  float* xs = reinterpret_cast<float*>(raw + S * 2 * kPart);         // P of the tile
+  float* lse2s = xs + R * BK;                                         // the rows' lse · log2 e
+  float* drow = lse2s + R;                                            // the rows' D
+  uint64_t* full = reinterpret_cast<uint64_t*>(drow + R);
+
+  const int tid = threadIdx.x, role = tid >> 7;
+  const long long bh = blockIdx.x, b = bh / hq;
+  const long long kvh = b * (hq / g) + (bh % hq) / g;
+  // the last query tiles see the most keys under the causal mask: they go first
+  const long long q0 = (static_cast<long long>(gridDim.y) - 1 - blockIdx.y) * R;
+  const int nq = static_cast<int>(min(static_cast<long long>(R), sq - q0));
+  const long long row0 = bh * sq + q0;  // the block's first row of [B · Hq · Sq]
+  const T* kp = k + kvh * sk * DH;
+  const T* vp = v + kvh * sk * DH;
+
+  // the key tiles that some row of the block may see: [t0, t0 + BK · n_tiles)
+  long long k_lo = 0, k_hi = sk;
+  if (causal) k_hi = min(k_hi, q0 + nq + q_offset);
+  if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
+  const long long t0 = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
+
+  auto issue = [&](int t, int stage) {  // thread 0: bulk-copy K and V tile t into a raw stage
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const uint32_t bytes =
+        static_cast<uint32_t>(min(static_cast<long long>(BK), sk - k0)) * DH * C::kE;
+    unsigned char* dst = raw + stage * 2 * kPart;
+    hopper::mbar_expect_tx(&full[stage], 2 * bytes);
+    hopper::bulk_load(dst, kp + k0 * DH, bytes, &full[stage]);
+    hopper::bulk_load(dst + kPart, vp + k0 * DH, bytes, &full[stage]);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < min(S, n_tiles); ++t) issue(t, t);
+  if (role == 1) hopper::load_frags<DH>(dout + row0 * DH, nq, dof, tid & 127);
+  {  // D = rowsum(dO ∘ O): four threads a row, a quarter of the columns each
+    const int r = tid >> 2, part = tid & 3;
+    float sum = 0.0f;
+    if (r < nq) {
+      const T* dr = dout + (row0 + r) * DH + part * (DH / 4);
+      const T* orow = o + (row0 + r) * DH + part * (DH / 4);
+#pragma unroll
+      for (int c = 0; c < DH / 4; c += C::kEPC)
+        sum = dot_chunk<T>(__ldg(reinterpret_cast<const uint4*>(dr + c)),
+                           __ldg(reinterpret_cast<const uint4*>(orow + c)), sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0) {
+      drow[r] = sum;
+      if (r < nq) delta[row0 + r] = sum;
+    } else if (part == 1) {
+      lse2s[r] = r < nq ? lse[row0 + r] * kLog2e : 0.0f;
+    }
+  }
+  __syncthreads();
+  const Lane<2> ln;
+  const long long qa_lo = q0 + q_offset, qa_hi = q0 + nq - 1 + q_offset;
+
+  // The roles run loops of their own (so that role 0's Q fragments and role 1's
+  // dQ sums take the same registers), meeting at named barriers: kTileReady
+  // once a tile's operands are split, kTileDone once it is used, kPReady for P.
+  constexpr int kTileReady = 2, kTileDone = 3, kPReady = 1;
+  auto start_tile = [&](int t) {  // all threads: tile t's K, V and Kᵀ into the operands
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const int nk = static_cast<int>(min(static_cast<long long>(BK), sk - k0));
+    hopper::mbar_wait(&full[t % S], (t / S) & 1);
+    const T* rk = reinterpret_cast<const T*>(raw + (t % S) * 2 * kPart);
+    put_rows<T, DH, BK, false, true>(rk, ks, ks + kPart, nk);
+    put_rows<T, DH, BK, false, true>(rk + BK * DH, vs, vs + kPart, nk);
+    put_cols<DH, BK, true>(rk, kts, kts + kPart, nk);
+    hopper::fence_proxy_async();
+    hopper::bar_sync(kTileReady, 256);  // the operands are ready and the raw stage is free
+    if (tid == 0 && t + S < n_tiles) {
+      hopper::fence_proxy_async();
+      issue(t + S, t % S);
+    }
+    return k0;
+  };
+
+  if (role == 0) {  // S = Q · Kᵀ and P, to role 1
+    uint32_t qa[DH / 2];  // this thread's raw A fragments of Q
+    hopper::load_frags_regs<DH>(q + row0 * DH, nq, tid, qa);
+    const float lse2[2] = {lse2s[ln.r0], lse2s[ln.r0 + 8]};
+    const float scale_log2 = scale * kLog2e;
+    for (int t = 0; t < n_tiles; ++t) {
+      const long long k0 = start_tile(t);
+      // x[4i + 2h + e] is row r0 + 8h, key k0 + 8i + 2·tig + e
+      float x[NS];
+      hopper::product_regs<DH, BK, 4>(x, qa, ks, kPart);
+      const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
+                          (window > 0 && k0 <= qa_hi - window);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long qpos = qa_lo + ln.r0 + 8 * h;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * i + 2 * h + e;
+            const float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -lse2[h]));
+            x[j] = !masked || visible(qpos, k0 + 8 * i + 2 * ln.tig + e, sk, causal, window)
+                       ? p
+                       : 0.0f;
+          }
+      }
+      put_exchange(xs, x);
+      hopper::bar_arrive(kPReady, 256);
+      hopper::bar_sync(kTileDone, 256);
+    }
+    return;
+  }
+
+  // role 1: dP = dO · Vᵀ, dS = P ∘ (dP − D), dQ += dS · K with dS from registers
+  const float drw[2] = {drow[ln.r0], drow[ln.r0 + 8]};
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+  for (int t = 0; t < n_tiles; ++t) {
+    start_tile(t);
+    float x[NS], p[NS];
+    hopper::product_frag<DH, BK, 2>(x, dof, vs, kPart);
+    hopper::bar_sync(kPReady, 256);
+    get_exchange(xs, p);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) x[j] = p[j] * (x[j] - drw[(j >> 1) & 1]);
+    constexpr int NF = C::template frag_regs<BK>();
+    uint32_t f_hi[NF], f_lo[NF];
+    to_frags<T, BK, true>(x, f_hi, f_lo);
+    accumulate_frag<DH, BK, 32>(acc, f_hi, f_lo, kts, kPart);
+    hopper::fence_regs(f_hi);
+    hopper::fence_regs(f_lo);
+    hopper::bar_sync(kTileDone, 256);  // the operands and the exchange are free for tile t + 1
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ln.r0 + 8 * h;
+    if (r >= nq) continue;
+    T* out = dq + (row0 + r) * DH + 2 * ln.tig;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, acc[4 * i + 2 * h] * scale, acc[4 * i + 2 * h + 1] * scale);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(256, 1)
+bwd_dkdv_roles_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ lse,
+                      const T* __restrict__ dout, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, int hq, int g, long long sq,
+                      long long sk, float scale, int causal, long long window,
+                      long long q_offset) {
+  using C = Cfg<T, DH>;
+  static_assert(C::kRoles && C::kOp == Op::kTf32, "the role-split kernels are fp32 at dh 160");
+  constexpr int R = kWgRows, BQ = C::kTile, S = C::kStagesDkdv, NS = BQ / 2, NO = DH / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* kf = smem;                   // K, raw in A-fragment order: role 0's A
+  unsigned char* vf = kf + C::kBlockPart;     // V, the same: role 1's A
+  unsigned char* qs = vf + C::kBlockPart;     // [Q][dO][Qᵀ][dOᵀ], parts each
+  unsigned char* dos = qs + C::kParts * C::kTilePart;
+  unsigned char* qts = dos + C::kParts * C::kTilePart;
+  unsigned char* dots = qts + C::kParts * C::kTilePart;
+  unsigned char* raw = qs + C::kTileOpsDkdv * C::kParts * C::kTilePart;  // [stage][Q, dO]
+  float* xs = reinterpret_cast<float*>(raw + S * 2 * C::kTilePart);     // Pᵀ of the tile
+  float* lse2s = xs + R * BQ;                                            // the tile's lse · log2 e
+  float* drow = lse2s + BQ;                                              // the tile's D
+  uint64_t* full = reinterpret_cast<uint64_t*>(drow + BQ);
+
+  const int tid = threadIdx.x, role = tid >> 7;
+  const long long bkv = blockIdx.x;  // b · Hkv + KV head
+  const long long hkv = hq / g, b = bkv / hkv;
+  const long long h0 = b * hq + (bkv % hkv) * g;  // b · Hq + the group's first q head
+  // the first key tiles are seen by the most rows under the causal mask: they go first
+  const long long k0 = static_cast<long long>(blockIdx.y) * R;
+  const int nk = static_cast<int>(min(static_cast<long long>(R), sk - k0));
+
+  // the query tiles that see some key of the block, for each of the g heads
+  long long i_lo = 0, i_hi = sq;
+  if (causal) i_lo = max(i_lo, k0 - q_offset);
+  if (window > 0) i_hi = min(i_hi, k0 + nk - 1 + window - q_offset);
+  const long long qt0 = (i_lo / BQ) * BQ;
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - qt0 + BQ - 1) / BQ) : 0;
+  const int n_tiles = g * n_qt;
+  auto tile_q0 = [&](int t) { return qt0 + static_cast<long long>(t % n_qt) * BQ; };
+  auto tile_row0 = [&](int t) { return (h0 + t / n_qt) * sq + tile_q0(t); };
+
+  auto issue = [&](int t, int stage) {  // thread 0: bulk-copy Q and dO tile t into a raw stage
+    const uint32_t bytes =
+        static_cast<uint32_t>(min(static_cast<long long>(BQ), sq - tile_q0(t))) * DH * C::kE;
+    const long long row0 = tile_row0(t);
+    unsigned char* dst = raw + stage * 2 * C::kTilePart;
+    hopper::mbar_expect_tx(&full[stage], 2 * bytes);
+    hopper::bulk_load(dst, q + row0 * DH, bytes, &full[stage]);
+    hopper::bulk_load(dst + C::kTilePart, dout + row0 * DH, bytes, &full[stage]);
+  };
+  // threads < BQ: tile t's lse · log2 e and D for one row (0 past Sq)
+  float lse_next = 0.0f, d_next = 0.0f;
+  auto prefetch = [&](int t) {
+    if (tid < BQ && t < n_tiles && tile_q0(t) + tid < sq) {
+      lse_next = lse[tile_row0(t) + tid] * kLog2e;
+      d_next = delta[tile_row0(t) + tid];
+    } else {
+      lse_next = d_next = 0.0f;
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int t = 0; t < min(S, n_tiles); ++t) issue(t, t);
+  hopper::load_frags<DH>((role ? v : k) + (bkv * sk + k0) * DH, nk, role ? vf : kf, tid & 127);
+  prefetch(0);
+
+  const Lane<2> ln;
+  const float scale_log2 = scale * kLog2e;
+  float acc[NO];  // role 0's dV, role 1's dK
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const long long q0 = tile_q0(t);
+    const int nq = static_cast<int>(min(static_cast<long long>(BQ), sq - q0));
+    hopper::mbar_wait(&full[t % S], (t / S) & 1);
+    const T* rq = reinterpret_cast<const T*>(raw + (t % S) * 2 * C::kTilePart);
+    put_rows<T, DH, BQ, false, true>(rq, qs, qs + C::kTilePart, nq);
+    put_rows<T, DH, BQ, false, true>(rq + BQ * DH, dos, dos + C::kTilePart, nq);
+    put_cols<DH, BQ, true>(rq, qts, qts + C::kTilePart, nq);
+    put_cols<DH, BQ, true>(rq + BQ * DH, dots, dots + C::kTilePart, nq);
+    if (tid < BQ) {
+      lse2s[tid] = lse_next;
+      drow[tid] = d_next;
+    }
+    hopper::fence_proxy_async();
+    __syncthreads();  // the operands are ready and the raw stage is free
+    if (tid == 0 && t + S < n_tiles) {
+      hopper::fence_proxy_async();
+      issue(t + S, t % S);
+    }
+    prefetch(t + 1);
+
+    // role 0: Sᵀ = K · Qᵀ; role 1: dPᵀ = V · dOᵀ (keys as M).  x[4i + 2h + e] is
+    // key k0 + r0 + 8h, query row q0 + 8i + 2·tig + e
+    float x[NS];
+    hopper::product_frag<DH, BQ, 4>(x, role ? vf : kf, role ? dos : qs, C::kTilePart);
+    if (role == 0) {  // Pᵀ, to role 1
+      const bool masked = k0 + R > sk || (causal && k0 + R - 1 > q0 + q_offset) ||
+                          (window > 0 && k0 <= q0 + BQ - 1 + q_offset - window);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const int c = 8 * i + 2 * ln.tig;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2s + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * i + 2 * h + e;
+            const float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -(e ? l2.y : l2.x)));
+            x[j] = !masked ||
+                           visible(q0 + c + e + q_offset, k0 + ln.r0 + 8 * h, sk, causal, window)
+                       ? p
+                       : 0.0f;
+          }
+      }
+      put_exchange(xs, x);
+      hopper::bar_arrive(1, 256);
+    } else {  // dSᵀ = Pᵀ ∘ (dPᵀ − D)
+      float p[NS];
+      hopper::bar_sync(1, 256);
+      get_exchange(xs, p);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const float2 dd = *reinterpret_cast<const float2*>(drow + 8 * i + 2 * ln.tig);
+#pragma unroll
+        for (int j = 4 * i; j < 4 * i + 4; ++j) x[j] = p[j] * (x[j] - (j & 1 ? dd.y : dd.x));
+      }
+    }
+
+    // role 0: dV += Pᵀ · dO; role 1: dK += dSᵀ · Q; the A from registers
+    constexpr int NF = C::template frag_regs<BQ>();
+    uint32_t f_hi[NF], f_lo[NF];
+    to_frags<T, BQ, true>(x, f_hi, f_lo);
+    accumulate_frag<DH, BQ, 32>(acc, f_hi, f_lo, role ? qts : dots, C::kTilePart);
+    hopper::fence_regs(f_hi);
+    hopper::fence_regs(f_lo);
+    __syncthreads();  // the operands, the exchange and the tile's lse and D are free
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ln.r0 + 8 * h;
+    if (r >= nk) continue;
+    T* out = (role ? dk : dv) + (bkv * sk + k0 + r) * DH + 2 * ln.tig;
+    const float f = role ? scale : 1.0f;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, acc[4 * i + 2 * h] * f, acc[4 * i + 2 * h + 1] * f);
+  }
+}
+
+// the dQ and dK/dV kernels of an instantiation
+template <typename T, int DH>
+constexpr auto dq_kernel() {
+  if constexpr (Cfg<T, DH>::kRoles) return &bwd_dq_roles_kernel<T, DH>;
+  else return &bwd_dq_kernel<T, DH>;
+}
+template <typename T, int DH>
+constexpr auto dkdv_kernel() {
+  if constexpr (Cfg<T, DH>::kRoles) return &bwd_dkdv_roles_kernel<T, DH>;
+  else return &bwd_dkdv_kernel<T, DH>;
+}
+
 struct Args {
   long long b, hq, hkv, sq, sk;
   float scale;
@@ -717,12 +1164,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
               const void* dout, void* dq, void* delta, const Args& a, cudaStream_t stream) {
   using C = Cfg<T, DH>;
   constexpr int smem = C::kSmemDq;
-  cudaError_t err = cudaFuncSetAttribute(bwd_dq_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr auto kernel = dq_kernel<T, DH>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(a.b * a.hq),
                   static_cast<unsigned>((a.sq + C::kRows - 1) / C::kRows));
-  bwd_dq_kernel<T, DH><<<grid, C::kThreads, smem, stream>>>(
+  kernel<<<grid, C::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),
       static_cast<T*>(dq), static_cast<float*>(delta), static_cast<int>(a.hq),
@@ -736,12 +1184,13 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
                 cudaStream_t stream) {
   using C = Cfg<T, DH>;
   constexpr int smem = C::kSmemDkdv;
-  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr auto kernel = dkdv_kernel<T, DH>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(a.b * a.hkv),
                   static_cast<unsigned>((a.sk + C::kRows - 1) / C::kRows));
-  bwd_dkdv_kernel<T, DH><<<grid, C::kThreads, smem, stream>>>(
+  kernel<<<grid, C::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(lse), static_cast<const T*>(dout),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),

@@ -93,6 +93,29 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// The same split by integer ALU operations (cvt.rna's bits: to nearest, ties
+// away from zero), which the SM issues at a higher rate than conversions.
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t bits) {
+  return (bits + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split_tf32_alu(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(__float_as_uint(x));
+  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
+}
+
+// x = hi + lo in three ALU operations: hi as split_tf32_alu's, lo = x − hi left
+// in fp32.  The tensor cores read a TF32 operand's top 19 bits only (its low 13
+// are ignored: fp32 bits passed as hi gave the bits of hi masked, on an H100),
+// so lo enters the product truncated, ~2^-21 of x off (split_tf32 rounds lo:
+// ~2^-22).  The redesigned fp32 kernels at dh 160 split this way.  (hi
+// truncated instead, one operation fewer, left a lo twice as large and a
+// backward ~2^-19 a term off, at the edge of the fp32 tolerance where dS = dP −
+// D cancels.)
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(__float_as_uint(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // 2^x by the MUFU unit (ex2.approx, ~2 ulp; results below 2^-126 flush to 0).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -118,6 +141,24 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers (id 1–15; __syncthreads is id 0) over `n` threads of the
+// block: bar_arrive signals and goes on, bar_sync signals and waits until `n`
+// threads have signalled.  A producer's shared-memory writes before its
+// bar_arrive are visible to a consumer after its bar_sync.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // Pin register values in place around asynchronous wgmma: the compiler may
@@ -388,22 +429,9 @@ template <> struct Mma<Op::kBf16, Src::kRST, 64> {
   }
 };
 
-// Forms added for the backward at dh 160 (flash_attention_bwd.cu), whose loop
-// tiles are 8 rows in fp32 and 32 in bf16: S and dP of one tile are N = 8 or
-// 32 products from shared memory.
-template <> struct Mma<Op::kTf32, Src::kSS, 8> {
-  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3}, "
-        "%4, %5, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
+// A form added for the backward at dh 160 in bf16 (flash_attention_bwd.cu),
+// whose loop tiles are 32 rows: S and dP of one tile are N = 32 products from
+// shared memory.
 template <> struct Mma<Op::kBf16, Src::kSS, 32> {
   static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
@@ -471,5 +499,122 @@ template <> struct Mma<Op::kBf16, Src::kRS, 160> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };
+
+// ------------------------------------------ fp32 A operands split in registers
+// The redesigned fp32 kernels at dh 160 (flash_attention.cu, flash_attention_bwd.cu)
+// keep a 64-row block operand that is only ever the A of a product raw in shared
+// memory, in the order of wgmma's TF32 A fragment, instead of as hi and lo
+// copies in the operand layout (half the bytes).  For k step i (columns 8i …
+// 8i + 7), thread t of the warpgroup (warp w, lane l) finds its four values,
+// (r0, 8i + c), (r0 + 8, 8i + c), (r0, 8i + c + 4), (r0 + 8, 8i + c + 4) with r0 =
+// 16w + l / 4 and c = l % 4, as the 16 bytes at (i · 128 + t) · 16: one
+// conflict-free 16-byte load a k step, split into hi and lo in registers just
+// before its products.  The operand takes DH · 256 bytes.
+
+// Rows [0, 64) of a row-major [·, DH] fp32 array in device memory → that layout
+// at `dst`; rows ≥ nvalid become 0.  Thread t of the warpgroup writes its own
+// fragments.
+template <int DH>
+__device__ __forceinline__ void load_frags(const float* rows, int nvalid, unsigned char* dst,
+                                           int t) {
+  const int r0 = (t >> 5) * 16 + ((t & 31) >> 2), tig = t & 3;
+  const bool v0 = r0 < nvalid, v1 = r0 + 8 < nvalid;
+  const float* p0 = rows + r0 * DH + tig;
+  const float* p1 = p0 + 8 * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (v0) {
+      x.x = __ldg(p0 + 8 * i);
+      x.z = __ldg(p0 + 8 * i + 4);
+    }
+    if (v1) {
+      x.y = __ldg(p1 + 8 * i);
+      x.w = __ldg(p1 + 8 * i + 4);
+    }
+    *reinterpret_cast<float4*>(dst + (i * 128 + t) * 16) = x;
+  }
+}
+
+// d[64 × N] = A · Bᵀ over K = DH in split TF32 (lo·hi + hi·lo + hi·hi a k step,
+// fp32 accumulation), load(i) giving this thread's four raw A values of k step
+// i (split here by split_tf32_fast), B a K-major operand of N rows (DH along
+// K) with its hi part at `b` and its lo part `b_part` bytes after.  The k steps
+// go in groups of G: group j + 1 is loaded and split into a second set of
+// fragment registers while the tensor cores run group j (wgmma.wait_group 1).
+// Returns once the product is done.
+template <int DH, int N, int G, typename Load>
+__device__ __forceinline__ void product_split(float (&d)[N / 2], Load&& load,
+                                              const unsigned char* b, int b_part) {
+  constexpr int STEPS = DH / 8, NG = STEPS / G;
+  static_assert(STEPS % G == 0, "the k steps go in whole groups");
+  const uint64_t b_hi = make_desc(b, N * 16, 128), b_lo = b_hi + (b_part >> 4);
+  uint32_t hi[2][4 * G], lo[2][4 * G];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    uint32_t(&h)[4 * G] = hi[j & 1];
+    uint32_t(&l)[4 * G] = lo[j & 1];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const uint4 x = load(j * G + u);
+      split_tf32_fast(__uint_as_float(x.x), h[4 * u + 0], l[4 * u + 0]);
+      split_tf32_fast(__uint_as_float(x.y), h[4 * u + 1], l[4 * u + 1]);
+      split_tf32_fast(__uint_as_float(x.z), h[4 * u + 2], l[4 * u + 2]);
+      split_tf32_fast(__uint_as_float(x.w), h[4 * u + 3], l[4 * u + 3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int i = j * G + u;
+      Mma<Op::kTf32, Src::kRS, N>::run(d, l + 4 * u, b_hi + i * (2 * N), i > 0);
+      Mma<Op::kTf32, Src::kRS, N>::run(d, h + 4 * u, b_lo + i * (2 * N), 1);
+      Mma<Op::kTf32, Src::kRS, N>::run(d, h + 4 * u, b_hi + i * (2 * N), 1);
+    }
+    wgmma_commit();
+    if (j > 0) {
+      wgmma_wait<1>();  // group j − 1 is done: its fragment registers are free
+      fence_regs(hi[(j - 1) & 1]);
+      fence_regs(lo[(j - 1) & 1]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(d);
+  fence_regs(hi[(NG - 1) & 1]);
+  fence_regs(lo[(NG - 1) & 1]);
+}
+
+// product_split with A the fragment-order operand at `a` in shared memory
+template <int DH, int N, int G>
+__device__ __forceinline__ void product_frag(float (&d)[N / 2], const unsigned char* a,
+                                             const unsigned char* b, int b_part) {
+  const uint4* af = reinterpret_cast<const uint4*>(a) + (threadIdx.x & 127);
+  product_split<DH, N, G>(d, [&](int i) { return af[i * 128]; }, b, b_part);
+}
+
+// product_split with A this thread's raw fragments in registers (load_frags_regs)
+template <int DH, int N, int G>
+__device__ __forceinline__ void product_regs(float (&d)[N / 2], const uint32_t (&a)[DH / 2],
+                                             const unsigned char* b, int b_part) {
+  product_split<DH, N, G>(
+      d, [&](int i) { return make_uint4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]); },
+      b, b_part);
+}
+
+// load_frags into registers: a[4i … 4i + 3] are the 16 bytes of k step i
+template <int DH>
+__device__ __forceinline__ void load_frags_regs(const float* rows, int nvalid, int t,
+                                                uint32_t (&a)[DH / 2]) {
+  const int r0 = (t >> 5) * 16 + ((t & 31) >> 2), tig = t & 3;
+  const bool v0 = r0 < nvalid, v1 = r0 + 8 < nvalid;
+  const float* p0 = rows + r0 * DH + tig;
+  const float* p1 = p0 + 8 * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    a[4 * i + 0] = v0 ? __float_as_uint(__ldg(p0 + 8 * i)) : 0u;
+    a[4 * i + 1] = v1 ? __float_as_uint(__ldg(p1 + 8 * i)) : 0u;
+    a[4 * i + 2] = v0 ? __float_as_uint(__ldg(p0 + 8 * i + 4)) : 0u;
+    a[4 * i + 3] = v1 ? __float_as_uint(__ldg(p1 + 8 * i + 4)) : 0u;
+  }
+}
 
 }  // namespace hopper

@@ -301,6 +301,8 @@ def _attn_inputs(b, hq, hkv, sq, sk, dh, dtype, seed=0):
         (2, 4, 2, 5, 300, True, None, 295),  # a few rows at the end of a cache
         (1, 2, 1, 70, 70, True, 16, -20),  # rows that see no key give 0
         (1, 2, 1, 2049, 2049, True, None, 0),  # one row past 16 query tiles of 128
+        (1, 4, 2, 300, 300, True, 100, 0),  # a window across key tiles and query blocks
+        (1, 4, 2, 150, 150, True, None, -40),  # the first 40 rows see no key
     ],
 )
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, causal, window,
@@ -316,16 +318,19 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, causal, 
                                                  q_offset=q_offset))  # bitwise repeat
 
 
-#: around the 64-key tiles and the 128-row query tiles (fp32 from dh 128: 32-key tiles;
-#: fp32 at dh 160: 64-row query tiles)
-_EDGES = (63, 64, 65, 127, 128, 129)
+#: around the forward's 128-row query tiles and its key tiles: 64 keys, 32 in fp32
+#: from dh 128 (fp32 at dh 160 too); and the backward's 64-row blocks
+_EDGES = (31, 32, 33, 63, 64, 65, 127, 128, 129)
+#: Sq ≠ Sk without the causal mask: an edge against one from the other end
+_CROSS_EDGES = ((63, 129), (64, 128), (65, 127), (127, 65), (128, 64), (129, 63),
+                (31, 129), (32, 128), (33, 127), (127, 33), (128, 32), (129, 31))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", fmod.HEAD_DIMS)
 @pytest.mark.parametrize("sq,sk,causal",
                          [(n, n, True) for n in _EDGES]
-                         + [(a, b_, False) for a, b_ in zip(_EDGES, reversed(_EDGES))])
+                         + [(a, b_, False) for a, b_ in _CROSS_EDGES])
 def test_flash_attention_kernel_matches_plain_at_tile_edges(cuda, sq, sk, causal, dh, dtype):
     q, k, v = _attn_inputs(1, 4, 2, sq, sk, dh, dtype, seed=sq * 1000 + sk)
     out = fmod.flash_attention(q, k, v, causal=causal)
@@ -390,6 +395,8 @@ def _bwd_check(q, k, v, causal=True, window=None, q_offset=0, seed=1):
         (1, 2, 2, 100, 77, False, None, 0),  # not causal, Sq ≠ Sk
         (2, 4, 2, 5, 300, True, None, 295),  # a few rows at the end of a cache
         (1, 2, 1, 70, 70, True, 16, -20),  # rows that see no key: zero gradients
+        (1, 4, 2, 300, 300, True, 100, 0),  # a window across loop tiles and blocks
+        (1, 4, 2, 150, 150, True, None, -40),  # the first 40 rows see no key: zero gradients
     ],
 )
 def test_flash_attention_bwd_kernels_match_plain(cuda, b, hq, hkv, sq, sk, causal, window,
@@ -397,17 +404,17 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, b, hq, hkv, sq, sk, causa
     _bwd_check(*_attn_inputs(b, hq, hkv, sq, sk, dh, dtype), causal, window, q_offset)
 
 
-#: the backward's loop steps: 64 keys or query rows, 32 in fp32 at dh 64, 16 in
-#: fp32 at dh 128, 8 in fp32 and 32 in bf16 at dh 160 (its blocks: 128 query
-#: rows or keys, 64 in fp32 from dh 128 and in bf16)
-_BWD_STEP_EDGES = (7, 8, 9, 15, 16, 17, 31, 32, 33)
+#: the backward's loop steps: 64 keys or query rows, 32 in fp32 at dh 64 and in
+#: bf16 at dh 160, 16 in fp32 from dh 128 (dh 160 too); those of 32 and 64 are in
+#: ``_EDGES`` (its blocks: 128 query rows or keys in fp32 up to dh 64, else 64)
+_BWD_STEP_EDGES = (15, 16, 17)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", fmod.BWD_HEAD_DIMS)
 @pytest.mark.parametrize("sq,sk,causal",
                          [(n, n, True) for n in _EDGES]
-                         + [(a, b_, False) for a, b_ in zip(_EDGES, reversed(_EDGES))]
+                         + [(a, b_, False) for a, b_ in _CROSS_EDGES]
                          + [(n, n, True) for n in _BWD_STEP_EDGES]
                          + [(a, b_, False) for a in (15, 33, 129) for b_ in (17, 31, 64)])
 def test_flash_attention_bwd_kernels_match_plain_at_tile_edges(cuda, sq, sk, causal, dh, dtype):
