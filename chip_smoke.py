@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # full size: n = 1,000,000 vertices, ~10M edges
     python3 chip_smoke.py --n 20000  # a quick rehearsal at smaller graphs (the LM stays full)
+    python3 chip_smoke.py --ab OTHER  # time OTHER's checkout against this one, in turns
 
 Phases, one JSON line each:
 
@@ -181,6 +182,19 @@ Phases, one JSON line each:
              forward twice a layer a step, the dispatch gather's backward
              once); seconds a step (the host copies excluded), peak memory,
              prefill seconds and decode ms a step;
+5q. dryrun_check — the dry run (``repro_torch.launch.dryrun``, fake process
+             group, fake tensors) against the card: in a child process (a
+             process holds one process group) it estimates the peak bytes of
+             ``lm_vlm_train``'s step and of a gcn ``full_forward`` at n over
+             the base graph, which this phase runs meanwhile (peak reset
+             around it); each estimate is held within ±15%
+             (``TOL_DRYRUN_PEAK``) of ``max_memory_allocated()`` less what
+             the process held that the call was not given.  Meanwhile, in
+             ``DRYRUN_WORKERS`` processes of that child, a fixed set of
+             cells (``dryrun_tasks``: each family's train, prefill and
+             decode cell on both production meshes, cut in depth and
+             sequence, and the GNN cells) on this machine's PyTorch: every
+             one must run and give its figures;
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
@@ -330,6 +344,8 @@ import collections
 import contextlib
 import dataclasses
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -403,6 +419,18 @@ MESH_STEPS, MESH_BATCH, MESH_SEQ, MESH_DECODE = 2, 2, 2048, 4
 TOL_MESH_LOSS = 1e-6  # lm_vlm_train: the mesh's loss against the plain path's, relative
 TOL_MESH_GRAD = 1e-5  # lm_vlm_train: each gradient leaf's max |Δ| / its max |entry|
 DIST_BACKEND = "nccl"  # lm_vlm_train's process group (world size 1)
+#: dryrun_check: the dry run's peak estimate against the card's, relative
+TOL_DRYRUN_PEAK = 0.15
+#: dryrun_check's cells, on this machine's PyTorch: each family's train, prefill and decode
+#: cell on both production meshes, cut in depth to DRYRUN_LAYERS (xlstm: one sLSTM-led
+#: group; hymba: a global and a windowed layer) and in sequence to DRYRUN_SEQ tokens (train,
+#: prefill), as ``python -m repro_torch.launch.dryrun --layers 2 --seq 256`` cuts them, and
+#: the three GNN cells on both meshes at full size
+DRYRUN_ARCHS = ("llama3.2-1b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2", "hymba-1.5b",
+                "xlstm-1.3b", "pixtral-12b")
+DRYRUN_LAYERS, DRYRUN_SEQ = 2, 256
+DRYRUN_WORKERS = 6  # the cells' processes (this machine has 8 cores)
+DRYRUN_TIMEOUT_S = 300  # the estimates' and the cells' child process
 TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
 TOL_TRAIN_GRAD = 1e-3  # lm_train_consistency: each leaf's max |Δ| / its max |entry|
 #: the same for the embedding under compute_dtype bf16: the gradient of its gathered rows
@@ -2650,6 +2678,10 @@ def phase_lm_vlm_train(seed: int, kernels: dict) -> dict:
 
         losses, step_s = [], []
         torch.cuda.reset_peak_memory_stats()
+        # what the steps start from: the dry run's estimate counts the params, the
+        # moments and the batch, and not what else the process holds on the card
+        mem_at_reset = torch.cuda.memory_allocated()
+        input_bytes = _storage_bytes(params, opt_state, *batches)
         _zero_counts(kernels)
         fmod._forward, fmod.flash_attention_bwd = reading_fwd, reading_bwd
         try:
@@ -2723,6 +2755,7 @@ def phase_lm_vlm_train(seed: int, kernels: dict) -> dict:
            "positions_per_step": tokens, "init_s": init_s, "losses": losses, "step_s": step_s,
            "steady_step_s": steady_s, "tokens_per_s": tokens / steady_s,
            "text_tokens_per_s": B * S / steady_s, "peak_mem_bytes": peak,
+           "mem_at_reset_bytes": mem_at_reset, "input_bytes": input_bytes,
            "model_flops_per_step": model_flops,
            "model_flops_share_of_fp32_peak": model_flops / steady_s / FP32_FLOPS,
            "launches": launches, "bwd_launches_by_entry": entries,
@@ -2751,6 +2784,23 @@ def phase_lm_vlm_train(seed: int, kernels: dict) -> dict:
         raise AssertionError(f"{phase}: mesh vs plain: loss {loss_rel}, gradient "
                              f"{grad_err[worst]} at {worst}")
     return row
+
+
+def _storage_bytes(*trees) -> int:
+    """Bytes of the distinct storages under ``trees`` (a DTensor's local
+    shard), each as the caching allocator rounds it (512 B)."""
+    from repro_torch.train.tree import tree_leaves
+
+    seen, total = set(), 0
+    for tree in trees:
+        for t in tree_leaves(tree):
+            if not hasattr(t, "untyped_storage"):
+                continue
+            st = _local(t).untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += -(-st.nbytes() // 512) * 512
+    return total
 
 
 def _local(t):
@@ -3071,6 +3121,181 @@ def phase_lm_family_mesh(phase: str, seed: int, kernels: dict):
     return row, (dispatch_in["y"], dispatch_in["key"], dispatch_in["num_rows"]) if moe else None
 
 
+def dryrun_tasks(out_dir: str) -> list:
+    """dryrun_check's cells as command lines (module, arguments): the slowest
+    first, so that the pool's processes finish together."""
+    cut = ["--layers", str(DRYRUN_LAYERS), "--seq", str(DRYRUN_SEQ)]
+    lm = [(("--multi-pod",) if mp else ()) + ("--arch", arch, "--shape", shape)
+          for shape in ("train_4k", "prefill_32k", "decode_32k") for mp in (True, False)
+          for arch in DRYRUN_ARCHS]
+    common = ["--mode", "opt", "--out-dir", out_dir, "--force"]
+    return ([("repro_torch.launch.dryrun", [*cell, *cut, *common]) for cell in lm]
+            + [("repro_torch.launch.gnn_dryrun", common)])
+
+
+def dryrun_task(module: str, argv: list) -> dict:
+    """One of :func:`dryrun_tasks` in this process: its sweep's counts."""
+    import importlib
+
+    with contextlib.redirect_stdout(sys.stderr):
+        return importlib.import_module(module).main(argv)
+
+
+def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
+    """(Run in a child process: a fake process group is process-global, and
+    this process's phases hold a real one.)  The dry run's estimates of the
+    peak bytes of two calls this script measures on the card: ``lm_vlm_train``'s
+    step (its config, batch and 1 × 1 mesh, placed as ``shardings_for_cell``
+    places them) and the gcn ``full_forward`` of ``phase_dryrun_check`` (n
+    vertices, e edges, dims [WIDTH] × 3).  Fake tensors: nothing allocated.
+    Meanwhile :func:`dryrun_tasks`' cells run in ``DRYRUN_WORKERS`` processes,
+    each writing its JSON to ``cells_dir``; their summed counts are kept."""
+    import multiprocessing
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import make_model
+    from repro_torch.core.full import full_forward_edges
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import OptConfig
+
+    out = {}
+    t0 = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    cells = pool.starmap_async(dryrun_task, dryrun_tasks(cells_dir), chunksize=1)
+    cfg = dataclasses.replace(get_arch(VLM_ARCH), num_layers=VLM_TRAIN_LAYERS)
+    shape = ShapeConfig("lm_vlm_train", TRAIN_SEQ, VLM_TRAIN_BATCH, "train")
+    with dryrun.fake_world(1):
+        res = dryrun.estimate(cfg, shape, dryrun.fake_mesh((1, 1), ("data", "model")), "opt",
+                              OptConfig(peak_lr=3e-3, warmup_steps=10,
+                                        stable_steps=VLM_TRAIN_STEPS, decay_steps=10))
+    out["lm_vlm_train"] = {**dryrun.memory_analysis(res), "trace_s": res["trace_s"]}
+    model = make_model("gcn")
+    with FakeTensorMode():
+        x = torch.empty(n, WIDTH)
+        params = [{k: torch.empty(v.shape, dtype=v.dtype) for k, v in
+                   model.init_params(torch.Generator(), WIDTH, WIDTH).items()}
+                  for _ in range(2)]
+
+        def call(x, params):  # full_forward: the graph's arrays land on the card inside it
+            src, dst = torch.empty(e, dtype=torch.int64), torch.empty(e, dtype=torch.int64)
+            ew, et = torch.empty(e), torch.empty(e, dtype=torch.int32)
+            deg, row_ptr = torch.empty(n), torch.empty(n + 1, dtype=torch.int64)
+            return full_forward_edges(model, params, x, src, dst, ew, et, deg, row_ptr)
+
+        res = dryrun.analyse(call, (x, params), {"inputs": x, "params": params})
+    out["gcn_full_forward"] = {**dryrun.memory_analysis(res), "trace_s": res["trace_s"]}
+    out["estimates_s"] = time.perf_counter() - t0
+    counts = cells.get()
+    pool.close()
+    pool.join()
+    out["cells"] = {k: sum(c[k] for c in counts) for k in ("done", "skipped", "failed")}
+    out["seconds"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(out))
+
+
+def phase_dryrun_check(graph, seed: int, vlm_train: dict) -> dict:
+    """The dry run against the card: its peak estimates (``dryrun_estimates``,
+    in a child process with a timeout) beside ``max_memory_allocated()`` of
+    the same calls, less what the process held on the card that the call
+    was not given: ``lm_vlm_train``'s steps (read by that phase) and a gcn
+    ``full_forward`` over ``graph`` run here (peak reset around it).  Each
+    estimate must lie within ``TOL_DRYRUN_PEAK`` of its measured peak, and
+    every cell of :func:`dryrun_tasks` must have run, each with its figures."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import full_forward, make_model
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        est_path, cells_dir = f"{tmp}/estimates.json", f"{tmp}/cells"
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.dryrun_estimates({graph.n}, {graph.num_edges}, {est_path!r}, "
+                f"{cells_dir!r})")
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+        # a session of its own: a timeout kills the child and its pool together
+        child = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 start_new_session=True)
+        try:
+            # the card's side meanwhile: full_forward from its inputs, peak reset around it
+            model = make_model("gcn")
+            gen = torch.Generator().manual_seed(seed)
+            params = [{k: v.cuda() for k, v in model.init_params(gen, WIDTH, WIDTH).items()}
+                      for _ in range(2)]
+            x = torch.randn(graph.n, WIDTH, generator=gen).cuda()
+            _free_cuda()
+            before = torch.cuda.memory_allocated()
+            inputs = _storage_bytes(x, *params)
+            torch.cuda.reset_peak_memory_stats()
+            states = full_forward(model, params, x, graph)
+            torch.cuda.synchronize()
+            ff_peak = torch.cuda.max_memory_allocated()
+            if (states[-1].h.shape != (graph.n, WIDTH)
+                    or not bool(torch.isfinite(states[-1].h).all())):
+                raise AssertionError("dryrun_check: full_forward gave bad embeddings")
+            del states, x, params
+            _free_cuda()
+            stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"dryrun_check: the dry run took over {DRYRUN_TIMEOUT_S} s")
+        finally:
+            if child.poll() is None:
+                os.killpg(child.pid, signal.SIGKILL)
+                child.communicate()
+        if child.returncode != 0:
+            raise AssertionError(f"dryrun_check: the dry run failed:\n{stderr[-4000:]}")
+        est = json.loads(Path(est_path).read_text())
+        results = {f.stem: json.loads(f.read_text()) for f in Path(cells_dir).glob("*.json")}
+        errors = {f.stem: f.read_text().strip().splitlines()[-1][:300]
+                  for f in Path(cells_dir).glob("*.err")}
+    measured = {
+        "lm_vlm_train": (vlm_train["peak_mem_bytes"],
+                         vlm_train["mem_at_reset_bytes"] - vlm_train["input_bytes"]),
+        "gcn_full_forward": (ff_peak, before - inputs),
+    }
+    checks = {}
+    for name, (peak, other) in measured.items():
+        e = est[name]
+        call_peak = peak - other  # the card's peak less what the call was not given
+        checks[name] = {"estimate_bytes": e["peak_bytes_per_device"],
+                        "max_memory_allocated": peak, "held_before_not_inputs": other,
+                        "measured_call_peak": call_peak,
+                        "ratio": e["peak_bytes_per_device"] / call_peak,
+                        "estimate_split": e["peak_split_bytes"],
+                        "estimate_top": e["peak_top_storages"][:6],
+                        "estimate_trace_s": e["trace_s"]}
+    from repro_torch.launch import gnn_dryrun
+
+    want = len(dryrun_tasks("")) - 1 + 2 * len(gnn_dryrun.CELLS)  # LM cells, GNN's × 2 meshes
+    cells = {"expected": want, **est["cells"], "failed_cells": errors,
+             "workers": DRYRUN_WORKERS, "cut": {"num_layers": DRYRUN_LAYERS,
+                                                "seq_len": DRYRUN_SEQ},
+             "peak_gb": {k: r["memory_analysis"]["peak_est_gb"] for k, r in results.items()},
+             "trace_s": {k: r["trace_s"] for k, r in results.items()}}
+    row = {"phase": "dryrun_check", **checks, "estimates_s": est["estimates_s"],
+           "cells": cells, "child_s": est["seconds"], "phase_s": time.perf_counter() - t0}
+    emit(row)
+    for name, c in checks.items():
+        if not abs(c["ratio"] - 1) <= TOL_DRYRUN_PEAK:
+            raise AssertionError(f"dryrun_check: {name} estimate {c['estimate_bytes']} vs "
+                                 f"measured {c['measured_call_peak']} (ratio {c['ratio']:.4f})")
+    if est["cells"]["failed"] or est["cells"]["done"] != want or len(results) != want:
+        raise AssertionError(f"dryrun_check: {est['cells']} of {want} cells ran: {errors}")
+    for name, r in results.items():
+        ops, mem = r["ops_per_device"], r["memory_analysis"]
+        if not (mem["peak_bytes_per_device"] > 0 and ops["flops"] > 0
+                and ops["hbm_bytes_raw"] > 0 and r["roofline"]["bound_s"] > 0
+                and r["model_flops"]["useful_fraction"] > 0):
+            raise AssertionError(f"dryrun_check: {name} lacks a figure")
+    return row
+
+
 def _rel_err(card, cpu) -> float:
     """max |card − cpu| over max |cpu|."""
     return float((card.cpu() - cpu).abs().max()) / max(float(cpu.abs().max()), 1e-30)
@@ -3389,10 +3614,100 @@ def kernel_row_linear(m: int, e: int, r_cap: int, gen) -> list:
     return rows
 
 
+#: --ab: the kernel rows and LM phases timed in each turn (``ab_child``)
+AB_N, AB_GAT_EDGES, AB_ROW_CAP = 1_000_000, 9_995_744, 131_072  # the engine's (PERF.md §4)
+
+
+def ab_child(cs) -> dict:
+    """(In a child of :func:`ab`: ``cs`` is the ``chip_smoke`` module of the
+    checkout under test, and its ``repro_torch`` the one imported.)  Times a
+    subset of the kernel rows through that checkout's own functions:
+    ``segment_spmm`` and ``delta_agg`` at the Zipf shape (integer messages,
+    bitwise), ``row_linear`` at the engine's shapes, the ``flash_attention``
+    forward and backward at llama3.2-1b's; then the LM phases' prefill
+    seconds, decode ms a token and training seconds a step."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import set_fp32_precision
+    from repro_torch.kernels import delta_agg as dmod
+    from repro_torch.kernels import edge_softmax as emod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import row_linear as rmod
+    from repro_torch.kernels import segment_spmm as smod
+
+    set_fp32_precision()
+    with contextlib.redirect_stdout(sys.stderr):  # the phases' own lines
+        cs.phase_build()
+        kernels = {"segment_spmm": smod.KERNEL, "delta_agg": dmod.KERNEL,
+                   "flash_attention": fmod.KERNEL, "flash_attention_bwd": fmod.BWD_KERNEL,
+                   "edge_softmax_normalize": emod.KERNEL, "row_linear": rmod.KERNEL}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rng = np.random.default_rng(0)
+        zipf = cs.zipf_in_indptr(AB_N, 0)
+        keys = np.repeat(np.arange(AB_N), np.diff(zipf))[rng.permutation(int(zipf[-1]))]
+        cfg = get_arch(cs.LM_ARCH)
+        rows = [{**cs.kernel_segment_spmm(zipf, cs.WIDTH + 1, gen, integer=True),
+                 "variant": "zipf"},
+                {**cs.kernel_delta_agg(keys, AB_N, cs.WIDTH + 1, gen, iters=20, integer=True),
+                 "variant": "zipf"},
+                *cs.kernel_row_linear(AB_N, AB_GAT_EDGES, AB_ROW_CAP, gen),
+                cs.kernel_flash_attention(cfg, gen), cs.kernel_flash_attention_bwd(cfg, gen)]
+        keep = ("name", "variant", "ms", "max_abs_err", "bitwise_repeat", "repeat_bitwise",
+                "chunked_order_bitwise")
+        rows = [{k: r[k] for k in keep if k in r} for r in rows]
+        phases = {}
+        for name, run in (
+                ("lm_serve", lambda: cs.phase_lm_serve(0, kernels)[0]),
+                ("lm_train", lambda: cs.phase_lm_train(0, kernels)),
+                ("lm_moe_serve", lambda: cs.phase_lm_moe_serve(0, kernels)[0]),
+                ("lm_hymba_serve", lambda: cs.phase_lm_recurrent_serve(cs.HYMBA_ARCH, 0,
+                                                                       kernels)[0]),
+                ("lm_xlstm_serve", lambda: cs.phase_lm_recurrent_serve(cs.XLSTM_ARCH, 0,
+                                                                       kernels)[0]),
+                ("lm_encdec_serve", lambda: cs.phase_lm_encdec_serve(0, kernels)[0]),
+                ("lm_vlm_serve", lambda: cs.phase_lm_vlm_serve(0, kernels)[0]),
+                ("lm_vlm_train", lambda: cs.phase_lm_vlm_train(0, kernels))):
+            row = run()
+            phases[name] = {k: row[k] for k in ("prefill_s", "decode_ms_per_token",
+                                                "steady_step_s") if k in row}
+            cs._free_cuda()
+    return {"rows": rows, "phases": phases}
+
+
+def ab(other: Path) -> int:
+    """Time ``other``'s checkout (its own ``chip_smoke.py`` and ``src``) and this
+    one on this card in turns (other, this, this, other), each in a process of
+    its own that builds its kernels; one JSON line a turn: the checkout's
+    directory, the card and its power limit, :func:`ab_child`'s figures."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    for tree in (other.resolve(), ROOT, ROOT, other.resolve()):
+        # the checkout's chip_smoke and repro_torch first; then this file as a module of
+        # its own (it puts its own src first on the path: the checkout's is imported)
+        code = (f"import importlib.util, json, sys; sys.path.insert(0, {str(tree)!r}); "
+                f"import chip_smoke as cs; import repro_torch; "
+                f"spec = importlib.util.spec_from_file_location('chip_smoke_ab', "
+                f"{str(Path(__file__).resolve())!r}); "
+                f"ab = importlib.util.module_from_spec(spec); spec.loader.exec_module(ab); "
+                f"print(json.dumps(ab.ab_child(cs)))")
+        run = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
+                             text=True)
+        if run.returncode != 0:
+            print(run.stderr[-6000:], file=sys.stderr)
+            return run.returncode
+        print(json.dumps({"tree": tree.name, "card": smi,
+                          **json.loads(run.stdout.strip().splitlines()[-1])}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="vertices (default 1,000,000)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", type=Path, default=None, metavar="OTHER",
+                    help="time the checkout at OTHER against this one, in turns (ab)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3401,9 +3716,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 2
     try:
-        from repro_torch.core.full import next_bucket
         from repro_torch.device import set_fp32_precision
-        from repro_torch.graph import make_graph, make_stream, random_features
         from repro_torch.kernels import delta_agg as dmod
         from repro_torch.kernels import edge_softmax as emod
         from repro_torch.kernels import flash_attention as fmod
@@ -3412,12 +3725,23 @@ def main(argv=None) -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})", file=sys.stderr)
         return 2
+    if args.ab is not None:
+        return ab(args.ab)
     set_fp32_precision()
     kernels = {"segment_spmm": smod.KERNEL, "delta_agg": dmod.KERNEL,
                "flash_attention": fmod.KERNEL, "flash_attention_bwd": fmod.BWD_KERNEL,
                "edge_softmax_normalize": emod.KERNEL, "row_linear": rmod.KERNEL}
 
     phase_build()
+    return _phases(args, kernels)
+
+
+def _phases(args, kernels: dict) -> int:
+    """Every phase after the build, then the kernel rows and the last lines."""
+    import torch
+
+    from repro_torch.core.full import next_bucket
+    from repro_torch.graph import make_graph, make_stream, random_features
 
     t0 = time.perf_counter()
     graph = make_graph("uniform", args.n, avg_degree=10, seed=args.seed, weighted=True)
@@ -3510,6 +3834,7 @@ def main(argv=None) -> int:
     for name, cnt in launches.items():
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on its path")
+    phase_dryrun_check(wl.base, args.seed, vlm_train)
 
     # kernels at the shapes their paths used (GNN: largest layer caps over both runs)
     caps = {k: max(row["caps"][k] for row in engine_rows) for k in ("e", "r", "f", "fe")}

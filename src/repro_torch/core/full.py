@@ -116,7 +116,16 @@ def full_forward(
     ew = torch.from_numpy(w_np).to(dev)
     et = torch.from_numpy(t_np).to(dev)
     row_ptr = torch.from_numpy(graph.in_indptr.astype(np.int64)).to(dev)
-    mask = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+    return full_forward_edges(model, params, x, src, dst, ew, et, deg, row_ptr)
+
+
+def full_forward_edges(model: GNNModel, params: Sequence[Params], x: torch.Tensor,
+                       src: torch.Tensor, dst: torch.Tensor, ew: torch.Tensor,
+                       et: torch.Tensor, deg: torch.Tensor, row_ptr: torch.Tensor
+                       ) -> List[LayerState]:
+    """:func:`full_forward` over the snapshot's dst-sorted edge arrays, already
+    on ``x.device`` (the dry run passes fake tensors of their shapes)."""
+    mask = torch.ones(src.shape[0], dtype=torch.bool, device=x.device)
     h = x
     states = []
     for p in params:

@@ -31,6 +31,7 @@ rank's local shards through ``local_map``, as
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Optional, Tuple
 
@@ -62,19 +63,23 @@ def _stack():
 def current_mesh_and_config() -> Optional[Tuple[object, ShardingConfig]]:
     """The innermost active (mesh, ShardingConfig), or None."""
     stack = _stack()
-    return stack[-1] if stack else None
+    return stack[-1][:2] if stack else None
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, shcfg: ShardingConfig):
+def activation_sharding(mesh, shcfg: ShardingConfig, constrain: bool = True):
     """Activate :func:`ashard` for the ``DeviceMesh`` ``mesh`` under
     ``shcfg``'s rules::
 
         sh = shardings_for_cell(cfg, shape, mesh)
         with activation_sharding(mesh, sh["shcfg"]):
             params, opt, metrics = step(params, opt, batch)
-    """
-    _stack().append((mesh, shcfg))
+
+    ``constrain=False`` keeps the mesh for :func:`local_apply` but makes
+    :func:`ashard` pass its DTensor through: DTensor's propagation alone
+    lays the activations out, the reference's ``--mode baseline`` (XLA
+    propagation without ``with_sharding_constraint``)."""
+    _stack().append((mesh, shcfg, constrain))
     try:
         yield
     finally:
@@ -87,12 +92,14 @@ def in_current_context(fn):
     open.  A checkpointed layer needs this: on a card autograd runs its
     backward, and so the recomputation, on a thread of its own, where the
     caller's thread-local context is not seen."""
-    ctx = current_mesh_and_config()
-    if ctx is None:
+    stack = _stack()
+    if not stack:
         return fn
+    ctx = stack[-1]
 
     def bound(*args, **kwargs):
-        if current_mesh_and_config() is ctx:
+        now = _stack()
+        if now and now[-1] is ctx:
             return fn(*args, **kwargs)
         with activation_sharding(*ctx):
             return fn(*args, **kwargs)
@@ -163,11 +170,46 @@ def ashard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
         raise TypeError("ashard inside activation_sharding needs a DTensor (place the "
                         "parameters and the batch on the mesh first), got a "
                         f"{type(x).__name__}")
+    if not _stack()[-1][2]:  # constrain=False: propagation decides
+        return x
     mesh, _ = ctx
     target = activation_placements(x.shape, *logical_axes)
     if tuple(x.placements) == target:
         return x
     return x.redistribute(mesh, target)
+
+
+def split_heads(t: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """``t`` [..., n·head_dim] as [..., n, head_dim].  Under a mesh whose split
+    of the last dim does not divide the n heads (8 KV heads, or hymba's 25,
+    over a model axis of 16), DTensor refuses the uneven unflatten: that dim
+    is gathered whole first, as the reference's divisibility check
+    replicates such a head dim.  Outside :func:`activation_sharding` tensors
+    reshape as they are."""
+    if getattr(_state, "stack", None):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        if isinstance(t, DTensor):
+            last = t.ndim - 1
+            cut = [isinstance(pl, Shard) and pl.dim == last for pl in t.placements]
+            mesh = t.device_mesh
+            if n % math.prod(mesh.size(i) for i, c in enumerate(cut) if c):
+                t = t.redistribute(mesh, [Replicate() if c else pl
+                                          for pl, c in zip(t.placements, cut)])
+    return t.reshape(*t.shape[:-1], n, head_dim)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [B, …, n, head_dim] as [B, …, n·head_dim], :func:`split_heads`'s
+    inverse.  Under a mesh it runs on each rank's heads (:func:`local_apply`),
+    so that the gradient comes back in the heads' own layout: a gradient
+    split over a model axis that does not divide n (hymba's 25 heads over 16)
+    cannot be unflattened by DTensor."""
+    if not getattr(_state, "stack", None):
+        return t.reshape(*t.shape[:-2], -1)
+    mid = (None,) * (t.ndim - 3)
+    return local_apply(lambda x: x.reshape(*x.shape[:-2], -1), (t,),
+                       (("dp", *mid, "tp", None),), (("dp", *mid, "tp"),))
 
 
 def place_cache(cache, batch: int):
@@ -223,7 +265,10 @@ def local_apply(fn, args: tuple, in_axes: tuple, out_axes: tuple):
     split.  A whole argument's gradient is ``Partial`` over the mesh dims
     that split the work (each rank's rows add to it) and so is summed, as
     :func:`repro_torch.nn.layers.embed_lookup`'s table's.  Non-tensor
-    arguments (None, ints) pass through."""
+    arguments (None, ints) pass through.  Outside :func:`activation_sharding`
+    (no mesh) this is ``fn(*args)`` at once."""
+    if not getattr(_state, "stack", None):
+        return fn(*args)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -231,10 +276,7 @@ def local_apply(fn, args: tuple, in_axes: tuple, out_axes: tuple):
     dts = [x for x in leaves if isinstance(x, DTensor)]
     if not dts:
         return fn(*args)
-    ctx = current_mesh_and_config()
-    if ctx is None:
-        raise TypeError("local_apply of DTensors needs an activation_sharding context")
-    mesh, shcfg = ctx
+    mesh, shcfg = current_mesh_and_config()
     sizes = mesh_axis_sizes(mesh)
     lookup = {"dp": tuple(a for a in shcfg.dp_axes if a in sizes),
               "tp": (shcfg.tp_axis,) if shcfg.tp_axis in sizes else ()}

@@ -293,10 +293,10 @@ def opt_state_specs(axes_tree, mesh, shcfg: ShardingConfig, shapes_tree=None):
 
 def distribute(x, sharding: NamedSharding):
     """``x`` as a DTensor on ``sharding``'s mesh with its placements (every
-    rank passes the same full tensor and keeps its shard)."""
+    rank passes the same full tensor and keeps its shard: no collective)."""
     from torch.distributed.tensor import distribute_tensor
 
-    return distribute_tensor(x, sharding.mesh, sharding.placements)
+    return distribute_tensor(x, sharding.mesh, sharding.placements, src_data_rank=None)
 
 
 def distribute_tree(tree, shardings):

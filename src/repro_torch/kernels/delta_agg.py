@@ -20,9 +20,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _fake
 from repro_torch.kernels._build import ROW_SUM_ARGTYPES, CudaKernel
 from repro_torch.kernels.segment_spmm import (
     _check_cuda,
+    _fake_row_sum,
     _same_device,
     _launch_row_sum,
     segment_spmm_plain,
@@ -57,6 +59,9 @@ def delta_agg(
     """Add the scheduled row sums of ``messages`` into ``state`` in place;
     returns ``state``.  ``state`` is ``[R, D]`` float32, ``row_ptr`` has
     ``R + 1`` entries."""
+    if isinstance(state, _fake.FakeTensor):
+        _fake_row_sum("delta_agg", messages, row_ptr, order, state, reads_out=True)
+        return state
     dev = state.device
     if dev.type == "cpu":
         _same_device(dev, messages, row_ptr, order)

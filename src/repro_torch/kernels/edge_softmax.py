@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _fake
 from repro_torch.kernels._build import I64, PTR, CudaKernel
 from repro_torch.kernels.segment_spmm import _same_device
 
@@ -47,6 +48,12 @@ def edge_softmax_normalize(scores: torch.Tensor, dst: torch.Tensor,
             or dst.shape[0] != scores.shape[0] or sums.shape[1] != scores.shape[1]):
         raise ValueError(f"expected scores [E, H], dst [E], sums [R, H], got "
                          f"{tuple(scores.shape)}, {tuple(dst.shape)}, {tuple(sums.shape)}")
+    if isinstance(scores, _fake.FakeTensor):
+        out = torch.empty_like(scores)
+        # one division an entry; each edge reads its destination's sums row
+        _fake.report("edge_softmax_normalize", float(scores.numel()),
+                     _fake.nbytes(scores, dst, scores, out))
+        return out
     dev = scores.device
     if dev.type == "cpu":
         _same_device(dev, dst, sums)

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import _fake
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels._build import F32, I32, I64, PTR, CudaKernel
 from repro_torch.kernels.segment_spmm import _same_device
@@ -91,6 +92,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _forward(q, k, v, causal, window, q_offset, with_lse: bool):
     _check_shapes(q, k, v, window)
+    if isinstance(q, _fake.FakeTensor):
+        return _fake_forward(q, k, v, causal, window, q_offset, with_lse)
     dev = q.device
     if dev.type == "cpu":
         _same_device(dev, k, v)
@@ -134,6 +137,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError(f"o and do must be shaped like q {tuple(q.shape)} and lse "
                          f"{tuple(q.shape[:3])}, got {tuple(o.shape)}, {tuple(do.shape)}, "
                          f"{tuple(lse.shape)}")
+    if isinstance(q, _fake.FakeTensor):
+        return _fake_bwd(q, k, v, o, lse, do, causal, window, q_offset)
     dev = q.device
     if dev.type == "cpu":
         _same_device(dev, k, v, o, lse, do)
@@ -168,6 +173,33 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         BWD_KERNEL.launch(f"flash_attention_bwd_dkdv_{t}", q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
                           dk.data_ptr(), dv.data_ptr(), *sizes, stream)
+    return dq, dk, dv
+
+
+def _pairs(q, k, causal, window, q_offset) -> int:
+    """Visible (query, key) pairs of the call, over every batch row and head."""
+    b, hq, sq, _ = q.shape
+    return b * hq * _fake.visible_pairs(sq, k.shape[2], causal, window, q_offset)
+
+
+def _fake_forward(q, k, v, causal, window, q_offset, with_lse: bool):
+    """The CUDA route's allocations, no launch (:mod:`repro_torch.kernels._fake`):
+    4 · dh FLOPs a visible pair (q·k and p·v)."""
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if with_lse else None
+    _fake.report("flash_attention", 4.0 * q.shape[3] * _pairs(q, k, causal, window, q_offset),
+                 _fake.nbytes(q, k, v, out, lse))
+    return out, lse
+
+
+def _fake_bwd(q, k, v, o, lse, do, causal, window, q_offset):
+    """The backward's allocations (dq, dk, dv and the D scratch), no launch:
+    10 · dh FLOPs a visible pair (S, dP, dV, dQ, dK)."""
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)  # noqa: F841
+    _fake.report("flash_attention_bwd",
+                 10.0 * q.shape[3] * _pairs(q, k, causal, window, q_offset),
+                 _fake.nbytes(q, k, v, o, lse, do, dq, dk, dv))
     return dq, dk, dv
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _fake
 from repro_torch.kernels._build import I64, PTR, CudaKernel
 
 TILED_N = 128  # the tiled kernel's N: one 128-wide output tile, every row of A read once
@@ -78,6 +79,13 @@ def row_linear(a: torch.Tensor, w: torch.Tensor, *, entry: str | None = None) ->
     launch raise."""
     if entry is not None and entry not in ENTRIES:
         raise ValueError(f"row_linear: entry must be one of {ENTRIES}, got {entry!r}")
+    if isinstance(a, _fake.FakeTensor):
+        _check_shapes(a, w)
+        a, w = a.contiguous(), w.contiguous()
+        out = torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+        _fake.report("row_linear", 2.0 * a.shape[0] * a.shape[1] * w.shape[1],
+                     _fake.nbytes(a, w, out))
+        return out
     dev = a.device
     if dev.type == "cpu":
         if w.device != dev:

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import _fake
 from repro_torch.kernels._build import ROW_SUM_ARGTYPES, CudaKernel
 
 KERNEL = CudaKernel("segment_spmm", {"segment_spmm_i32": ROW_SUM_ARGTYPES,
@@ -152,6 +153,19 @@ def _launch_row_sum(kernel: CudaKernel, prefix: str, messages: torch.Tensor,
                       stream)
 
 
+def _fake_row_sum(name: str, messages, row_ptr, order, out, reads_out: bool) -> None:
+    """A row-sum kernel's fake route: its scratch, no launch; one add a
+    scheduled record element (every record counted live); each record and the
+    schedule read once, ``out`` written once (and read first when
+    ``reads_out``: ``delta_agg`` adds into it)."""
+    num_records = order.shape[0] if order is not None else messages.shape[0]
+    d = out.shape[1]
+    scratch = _row_sum_scratch(num_records, d, out.device)  # noqa: F841
+    _fake.report(name, float(num_records * d),
+                 num_records * d * messages.element_size() + _fake.nbytes(row_ptr, order)
+                 + (2 if reads_out else 1) * _fake.nbytes(out))
+
+
 def segment_spmm(
     messages: torch.Tensor,
     row_ptr: torch.Tensor,
@@ -162,6 +176,11 @@ def segment_spmm(
     Plain local tensors only: a DTensor raises (under a mesh the callers run
     this inside ``local_map``, on each rank's rows)."""
     _refuse_dtensor(messages, row_ptr, order)
+    if isinstance(messages, _fake.FakeTensor):
+        out = torch.empty((row_ptr.shape[0] - 1, messages.shape[1]), dtype=torch.float32,
+                          device=messages.device)
+        _fake_row_sum("segment_spmm", messages, row_ptr, order, out, reads_out=False)
+        return out
     dev = messages.device
     if dev.type == "cpu":
         _same_device(dev, row_ptr, order)

@@ -87,8 +87,10 @@ from repro_torch.dist.ctx import (
     ashard,
     in_current_context,
     local_apply,
+    merge_heads,
     place_cache,
     replicate_like,
+    split_heads,
 )
 from repro_torch.nn import param as pm
 from repro_torch.nn.attention import (
@@ -302,10 +304,13 @@ def _ssd_branch(cfg: ArchConfig, p, h: torch.Tensor, ssm_state: torch.Tensor,
     xr = F.silu(xr)
     bmat, cmat = (xr @ p["w_bc"]).chunk(2, dim=-1)  # [B, S, H·ns] each
     b, s, _ = h.shape
-    k = bmat.reshape(b, s, nh, ns)
-    q = cmat.reshape(b, s, nh, ns)
-    v = xr.reshape(b, s, nh, dh)
-    dt = F.softplus(xr @ p["w_dt"] + p["dt_bias"])  # [B, S, H]
+    k = split_heads(bmat, nh, ns)
+    q = split_heads(cmat, nh, ns)
+    v = split_heads(xr, nh, dh)
+    # [B, S, H]; the product over the split channels reduced where it is made (as
+    # swiglu's): PyTorch 2.11 otherwise splits its gradient's sequence dim, and
+    # then cannot flatten (batch, sequence) in the product's backward
+    dt = F.softplus(ashard(xr @ p["w_dt"], "dp") + p["dt_bias"])
     la = -dt * torch.exp(p["a_log"])  # log decay ≤ 0
     if decoding:
         ssm_state, y = ssd_step(ssm_state, q[:, 0], k[:, 0], v[:, 0], la[:, 0])
@@ -313,7 +318,7 @@ def _ssd_branch(cfg: ArchConfig, p, h: torch.Tensor, ssm_state: torch.Tensor,
     else:
         y, ssm_state = ssd_chunked(q, k, v, la, s0=ssm_state, chunk=min(cfg.chunk, s))
     y = y + (p["d_skip"][None, None, :, None] * v).to(y.dtype)
-    y = y.reshape(b, s, di).to(h.dtype)
+    y = merge_heads(y).to(h.dtype)
     y = rms_norm(y, p["out_norm"]) * F.silu(z)
     return (y @ p["w_out"]).to(h.dtype), ssm_state, conv_carry
 
@@ -360,9 +365,9 @@ def _mlstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[MLSTMState
     xm, zg = (h @ p["w_up"]).chunk(2, dim=-1)
     xc, conv_carry = causal_conv(xm, p["conv_w"], conv_carry)
     xc = F.silu(xc)
-    q = (xc @ p["wq"]).reshape(b, s, nh, dh)
-    k = (xc @ p["wk"]).reshape(b, s, nh, dh) / (dh ** 0.5)
-    v = (xm @ p["wv"]).reshape(b, s, nh, dh)
+    q = split_heads(xc @ p["wq"], nh, dh)
+    k = split_heads(xc @ p["wk"], nh, dh) / (dh ** 0.5)
+    v = split_heads(xm @ p["wv"], nh, dh)
     gates = (h @ p["w_gates"]).float() + p["b_gates"]
     lf_raw, li = gates.chunk(2, dim=-1)  # [B, S, H]: forget first, then input
     lf = _logsigmoid(lf_raw)
@@ -371,7 +376,7 @@ def _mlstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[MLSTMState
         y = y[:, None]
     else:
         y, state = mlstm_chunked(q, k, v, lf, li, st=state, chunk=min(cfg.chunk, s))
-    y = y.reshape(b, s, d).to(x.dtype)
+    y = merge_heads(y).to(x.dtype)
     y = rms_norm(y, p["out_norm"]) * F.silu(zg)
     return x + y @ p["w_down"], state, conv_carry
 
@@ -386,18 +391,17 @@ def _slstm_block(cfg: ArchConfig, p, x: torch.Tensor, state: Optional[SLSTMState
     """(x, state).  The gate projection splits as (input, forget)."""
     d, nh = cfg.d_model, cfg.num_heads
     dh = d // nh
-    b, s, _ = x.shape
     h = rms_norm(x, p["ln"])
-    z = torch.tanh(h @ p["wz"]).reshape(b, s, nh, dh)
-    li, lf_raw = (h @ p["wif"]).float().reshape(b, s, nh, 2 * dh).chunk(2, dim=-1)
+    z = split_heads(torch.tanh(h @ p["wz"]), nh, dh)
+    li, lf_raw = split_heads((h @ p["wif"]).float(), nh, 2 * dh).chunk(2, dim=-1)
     lf = _logsigmoid(lf_raw)
-    o = torch.sigmoid(h @ p["wo_gate"]).reshape(b, s, nh, dh)
+    o = split_heads(torch.sigmoid(h @ p["wo_gate"]), nh, dh)
     if decoding:
         state, y = slstm_step(state, z[:, 0].float(), lf[:, 0], li[:, 0], o[:, 0].float())
         y = y[:, None]
     else:
         y, state = slstm_seq(z, lf, li, o, st=state)
-    y = y.reshape(b, s, d).to(x.dtype)
+    y = merge_heads(y).to(x.dtype)
     # bf16 y (layer 0 under bf16 compute) @ fp32 weights: JAX promotes the
     # product to fp32, torch.matmul would refuse it
     w = p["w_down"]
@@ -494,8 +498,11 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """``x @ head``; under a mesh the head's vocab split over "tp" (DTensor's
+    own choice for this product on a 16 × 16 mesh replicated both operands
+    and computed every row of the global batch on each rank)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return x @ ashard(head, None, "tp").to(x.dtype)
 
 
 # ====================================================================== #

@@ -39,7 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.ctx import ashard, local_apply
+from repro_torch.dist.ctx import ashard, local_apply, merge_heads, split_heads
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import param as pm
 from repro_torch.nn.layers import apply_rope, rms_norm, rope_freqs
@@ -111,6 +111,11 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def _split_heads(t: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """[B, S, n·dh] → [B, n, S, dh] (:func:`repro_torch.dist.ctx.split_heads`)."""
+    return split_heads(t, n, head_dim).transpose(1, 2)
+
+
 def _qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
          rope_theta: float, start: int):
     """Projections, heads split to [B, H, S, Dh], QK-norm and RoPE at
@@ -119,9 +124,9 @@ def _qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, n_heads: int, n_kv: int, h
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = ashard(q.reshape(b, s, n_heads, head_dim).transpose(1, 2), "dp", "tp")
-    k = ashard(k.reshape(b, s, n_kv, head_dim).transpose(1, 2), "dp", "tp")
-    v = ashard(v.reshape(b, s, n_kv, head_dim).transpose(1, 2), "dp", "tp")
+    q = ashard(_split_heads(q, n_heads, head_dim), "dp", "tp")
+    k = ashard(_split_heads(k, n_kv, head_dim), "dp", "tp")
+    v = ashard(_split_heads(v, n_kv, head_dim), "dp", "tp")
     if "q_norm" in p:
         q, k = rms_norm(q, p["q_norm"]), rms_norm(k, p["k_norm"])
     angles = rope_freqs(head_dim, rope_theta, start + torch.arange(s, device=x.device))
@@ -135,7 +140,9 @@ def _merge_heads(out: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     (it takes ``bmm``, which rounds otherwise), and a 1 × 1 mesh must give
     the plain path's bits."""
     b, h, s, dh = out.shape
-    return (out.transpose(1, 2).reshape(b * s, h * dh) @ p["wo"]).reshape(b, s, -1)
+    merged = merge_heads(out.transpose(1, 2)).reshape(b * s, h * dh)
+    # a partial sum over the split heads: reduced here, as swiglu's output
+    return ashard((merged @ p["wo"]).reshape(b, s, -1), "dp")
 
 
 def attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads: int, n_kv: int,
@@ -197,7 +204,7 @@ def cross_attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """x [B, Sq, D] over precomputed memory K/V ([B, H, Sk, dh] each),
     unmasked and without RoPE → [B, Sq, D]."""
     b, s, _ = x.shape
-    q = ashard((x @ p["wq"]).reshape(b, s, n_heads, head_dim).transpose(1, 2), "dp", "tp")
+    q = ashard(_split_heads(x @ p["wq"], n_heads, head_dim), "dp", "tp")
     k, v = memory_kv
     return _merge_heads(attention_core(q, k, v, False, None, 0), p)
 
@@ -206,9 +213,8 @@ def cross_memory(p: Dict[str, torch.Tensor], enc: torch.Tensor, n_heads: int, he
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encoder output enc [B, Sk, D_enc] as cross-attention K/V, each
     [B, H, Sk, dh] (once per request)."""
-    b, sk, _ = enc.shape
-    k = (enc @ p["wk"]).reshape(b, sk, n_heads, head_dim).transpose(1, 2)
-    v = (enc @ p["wv"]).reshape(b, sk, n_heads, head_dim).transpose(1, 2)
+    k = _split_heads(enc @ p["wk"], n_heads, head_dim)
+    v = _split_heads(enc @ p["wv"], n_heads, head_dim)
     return ashard(k, "dp", "tp"), ashard(v, "dp", "tp")
 
 

@@ -32,7 +32,10 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = ashard(x @ w_gate, "dp", None, "tp")
     u = ashard(x @ w_up, "dp", None, "tp")
-    return (F.silu(g) * u) @ w_down
+    # the product over the split features is a partial sum on each rank: reduced
+    # here, or DTensor carries the partial into the next block's products, which
+    # then run whole on every rank
+    return ashard((F.silu(g) * u) @ w_down, "dp")
 
 
 def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor) -> torch.Tensor:
@@ -68,10 +71,16 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy; logits [.., V] in fp32 (log-sum-exp
-    less the label's logit), averaged over ``mask`` where it is given."""
+    less the label's logit), averaged over ``mask`` where it is given.  Under
+    a mesh the label's logit is read on each rank's rows
+    (:func:`repro_torch.dist.ctx.local_apply`): DTensor's rule for the
+    gather's backward builds a zero gradient of the global shape on every
+    rank."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
-    ll = lg.gather(-1, labels[..., None].long())[..., 0]
+    rows = ("dp",) + (None,) * (lg.ndim - 1)
+    ll = local_apply(lambda t, y: t.gather(-1, y[..., None].long())[..., 0], (lg, labels),
+                     (rows, rows[:-1]), (rows[:-1],))
     nll = lse - ll
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

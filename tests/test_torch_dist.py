@@ -348,7 +348,7 @@ def test_dryrun_param_bytes_equal_the_references_spec_divided_shapes(ref_steps, 
     of the reference's spec-divided shapes, on both production meshes; the
     model FLOPs are the reference's count."""
     for mp in (False, True):
-        res = tdry.run_cell(name, "train_4k", mp)
+        res = tdry.shape_cell(name, "train_4k", mp)
         m = FakeMesh(*MESHES["2x16x16" if mp else "16x16"])
         jcfg = dataclasses.replace(j_get_arch(name), param_dtype="bfloat16")
         ref = ref_steps.shardings_for_cell(jcfg, J_SHAPES["train_4k"], m)
@@ -369,7 +369,7 @@ def test_dryrun_param_bytes_equal_the_references_spec_divided_shapes(ref_steps, 
 def test_dryrun_cells_and_skips():
     assert tdry.cell_skipped("llama3.2-1b", "long_500k")
     assert not tdry.cell_skipped("hymba-1.5b", "long_500k")
-    res = tdry.run_cell("qwen2.5-3b", "decode_32k", False)
+    res = tdry.shape_cell("qwen2.5-3b", "decode_32k", False)
     assert res["per_device_bytes"]["cache"] > 0 and res["kind"] == "decode"
     assert res["per_device_bytes"]["total"] == sum(
         v for k, v in res["per_device_bytes"].items() if k != "total")
