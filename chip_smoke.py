@@ -57,8 +57,10 @@ Phases, one JSON line each:
              ``flash_attention`` at least twice a layer a step (remat
              recomputes it) and each backward entry (dQ, dK/dV) once a layer
              a step; every loss finite; seconds a step, tokens/s, peak
-             memory, model FLOPs a step beside the fp32 peak; then one
-             profiled step for the device-time split;
+             memory (which must come in below ``LM_TRAIN_PEAK_BEFORE_GB``,
+             the peak before the AdamW update reused its temporaries), model
+             FLOPs a step beside the fp32 peak; then one profiled step for
+             the device-time split;
 5c. lm_train_consistency — the same config at 2 layers (full width), batch 1
              × 512, weights made with numpy from the seed: ``loss_fn`` and
              every gradient leaf on the card (the kernels) against the CPU
@@ -152,7 +154,8 @@ Phases, one JSON line each:
              zeroed before and read after: the forward ``flash_attention`` at
              least twice a layer a step (remat) and each backward entry once
              a layer a step, every call at dh 160; every loss finite; seconds
-             a step, tokens/s, peak memory, model FLOPs a step beside the
+             a step, tokens/s, peak memory (beside
+             ``VLM_TRAIN_PEAK_BEFORE_GB``), model FLOPs a step beside the
              fp32 peak; one profiled step; then the same weights from the
              seed, the first batch's loss and gradients under the mesh and
              with no mesh (loss within 1e-6 relative, each gradient leaf
@@ -194,7 +197,9 @@ Phases, one JSON line each:
              cells (``dryrun_tasks``: each family's train, prefill and
              decode cell on both production meshes, cut in depth and
              sequence, and the GNN cells) on this machine's PyTorch: every
-             one must run and give its figures;
+             one must run and give its figures; and, uncut on 16 × 16, the
+             ``DRYRUN_UNCUT`` cells (llama3.2-1b ``train_4k``, pixtral-12b
+             ``prefill_32k``), each of which must fit the card's 80 GB;
 6. kernels — each kernel against its plain PyTorch version at the shapes its
              path gave it (segment_spmm/delta_agg max |Δ| ≤ 1e-5;
              flash_attention at the prefill shape, atol 2e-5 + rtol 2e-3 in
@@ -403,6 +408,10 @@ VLM_ARCH, VLM_CONSIST_PROMPT = "pixtral-12b", 300
 #: of fp32 params, gradients and AdamW's two moments; all 40 would be 204 GB), 3 steps
 #: of 2 × (256 patches + 2,048 tokens) through make_train_step on the card's 1 × 1 mesh
 VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 4, 3, 2
+#: lm_train's and lm_vlm_train's peaks on the H100 before the vocab-parallel loss and the
+#: AdamW update's in-place temporaries (PERF.md §6: 37.92 and 74.71 GB), recorded beside
+#: this run's; lm_train's must come in below its figure
+LM_TRAIN_PEAK_BEFORE_GB, VLM_TRAIN_PEAK_BEFORE_GB = 37.92, 74.71
 #: the mesh phases (10g′, and training at full width: 10c′, 10d″, 10e′): each family at its
 #: full widths, cut in depth, fp32 params, the config's compute dtype, remat; MESH_STEPS AdamW
 #: steps of MESH_BATCH × MESH_SEQ tokens of the trainer's data, plain and then on the card's
@@ -429,6 +438,9 @@ TOL_DRYRUN_PEAK = 0.15
 DRYRUN_ARCHS = ("llama3.2-1b", "qwen3-moe-30b-a3b", "seamless-m4t-large-v2", "hymba-1.5b",
                 "xlstm-1.3b", "pixtral-12b")
 DRYRUN_LAYERS, DRYRUN_SEQ = 2, 256
+#: dryrun_check's cells run uncut on 16 × 16, each of which must fit the card's 80 GB: the
+#: training cell whose whole-vocab loss rows, and the prefill whose whole caches, did not
+DRYRUN_UNCUT = (("llama3.2-1b", "train_4k"), ("pixtral-12b", "prefill_32k"))
 DRYRUN_WORKERS = 6  # the cells' processes (this machine has 8 cores)
 DRYRUN_TIMEOUT_S = 300  # the estimates' and the cells' child process
 TOL_TRAIN_LOSS = 1e-4  # lm_train_consistency: loss, relative
@@ -2503,6 +2515,7 @@ def phase_lm_train(seed: int, kernels: dict) -> dict:
            "tokens_per_step": tokens, "init_s": init_s, "losses": losses,
            "step_s": step_s, "wall_s": out["wall_s"], "steady_step_s": steady_s,
            "tokens_per_s": tokens / steady_s, "peak_mem_bytes": peak,
+           "peak_gb": peak / 1e9, "peak_before_gb": LM_TRAIN_PEAK_BEFORE_GB,
            "model_flops_per_step": model_flops,
            "model_flops_share_of_fp32_peak": model_flops / steady_s / FP32_FLOPS,
            "launches": launches, "bwd_launches_by_entry": entries,
@@ -2510,6 +2523,9 @@ def phase_lm_train(seed: int, kernels: dict) -> dict:
     emit(row)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"lm_train: losses {losses}")
+    if not peak / 1e9 < LM_TRAIN_PEAK_BEFORE_GB:
+        raise AssertionError(f"lm_train: peak {peak / 1e9:.2f} GB, not below "
+                             f"{LM_TRAIN_PEAK_BEFORE_GB} GB")
     if launches["flash_attention"] < 2 * L * TRAIN_STEPS:
         raise AssertionError(f"lm_train: flash_attention launched {launches['flash_attention']} "
                              f"times, expected at least {2 * L * TRAIN_STEPS}")
@@ -2755,6 +2771,7 @@ def phase_lm_vlm_train(seed: int, kernels: dict) -> dict:
            "positions_per_step": tokens, "init_s": init_s, "losses": losses, "step_s": step_s,
            "steady_step_s": steady_s, "tokens_per_s": tokens / steady_s,
            "text_tokens_per_s": B * S / steady_s, "peak_mem_bytes": peak,
+           "peak_gb": peak / 1e9, "peak_before_gb": VLM_TRAIN_PEAK_BEFORE_GB,
            "mem_at_reset_bytes": mem_at_reset, "input_bytes": input_bytes,
            "model_flops_per_step": model_flops,
            "model_flops_share_of_fp32_peak": model_flops / steady_s / FP32_FLOPS,
@@ -3133,6 +3150,13 @@ def dryrun_tasks(out_dir: str) -> list:
             + [("repro_torch.launch.gnn_dryrun", common)])
 
 
+def dryrun_uncut_tasks(out_dir: str) -> list:
+    """dryrun_check's ``DRYRUN_UNCUT`` cells on 16 × 16 as command lines."""
+    return [("repro_torch.launch.dryrun", ["--arch", arch, "--shape", shape, "--mode", "opt",
+                                           "--out-dir", out_dir, "--force"])
+            for arch, shape in DRYRUN_UNCUT]
+
+
 def dryrun_task(module: str, argv: list) -> dict:
     """One of :func:`dryrun_tasks` in this process: its sweep's counts."""
     import importlib
@@ -3148,8 +3172,9 @@ def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
     step (its config, batch and 1 × 1 mesh, placed as ``shardings_for_cell``
     places them) and the gcn ``full_forward`` of ``phase_dryrun_check`` (n
     vertices, e edges, dims [WIDTH] × 3).  Fake tensors: nothing allocated.
-    Meanwhile :func:`dryrun_tasks`' cells run in ``DRYRUN_WORKERS`` processes,
-    each writing its JSON to ``cells_dir``; their summed counts are kept."""
+    Meanwhile :func:`dryrun_uncut_tasks`' cells (into ``cells_dir/uncut``) and
+    :func:`dryrun_tasks`' run in ``DRYRUN_WORKERS`` processes, each writing its
+    JSON to ``cells_dir``; their summed counts are kept."""
     import multiprocessing
 
     import torch
@@ -3165,7 +3190,8 @@ def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
     out = {}
     t0 = time.perf_counter()
     pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
-    cells = pool.starmap_async(dryrun_task, dryrun_tasks(cells_dir), chunksize=1)
+    cells = pool.starmap_async(dryrun_task, dryrun_uncut_tasks(f"{cells_dir}/uncut")
+                               + dryrun_tasks(cells_dir), chunksize=1)
     cfg = dataclasses.replace(get_arch(VLM_ARCH), num_layers=VLM_TRAIN_LAYERS)
     shape = ShapeConfig("lm_vlm_train", TRAIN_SEQ, VLM_TRAIN_BATCH, "train")
     with dryrun.fake_world(1):
@@ -3252,8 +3278,10 @@ def phase_dryrun_check(graph, seed: int, vlm_train: dict) -> dict:
             raise AssertionError(f"dryrun_check: the dry run failed:\n{stderr[-4000:]}")
         est = json.loads(Path(est_path).read_text())
         results = {f.stem: json.loads(f.read_text()) for f in Path(cells_dir).glob("*.json")}
+        uncut = {f.stem: json.loads(f.read_text())
+                 for f in Path(cells_dir, "uncut").glob("*.json")}
         errors = {f.stem: f.read_text().strip().splitlines()[-1][:300]
-                  for f in Path(cells_dir).glob("*.err")}
+                  for f in Path(cells_dir).glob("**/*.err")}
     measured = {
         "lm_vlm_train": (vlm_train["peak_mem_bytes"],
                          vlm_train["mem_at_reset_bytes"] - vlm_train["input_bytes"]),
@@ -3273,11 +3301,15 @@ def phase_dryrun_check(graph, seed: int, vlm_train: dict) -> dict:
     from repro_torch.launch import gnn_dryrun
 
     want = len(dryrun_tasks("")) - 1 + 2 * len(gnn_dryrun.CELLS)  # LM cells, GNN's × 2 meshes
-    cells = {"expected": want, **est["cells"], "failed_cells": errors,
+    cells = {"expected": want + len(DRYRUN_UNCUT), **est["cells"], "failed_cells": errors,
              "workers": DRYRUN_WORKERS, "cut": {"num_layers": DRYRUN_LAYERS,
                                                 "seq_len": DRYRUN_SEQ},
              "peak_gb": {k: r["memory_analysis"]["peak_est_gb"] for k, r in results.items()},
-             "trace_s": {k: r["trace_s"] for k, r in results.items()}}
+             "trace_s": {k: r["trace_s"] for k, r in results.items()},
+             "uncut": {k: {"peak_gb": r["memory_analysis"]["peak_est_gb"],
+                           "fits_hbm": r["fits_hbm"], "trace_s": r["trace_s"],
+                           "peak_top": r["memory_analysis"]["peak_top_storages"][:4]}
+                       for k, r in uncut.items()}}
     row = {"phase": "dryrun_check", **checks, "estimates_s": est["estimates_s"],
            "cells": cells, "child_s": est["seconds"], "phase_s": time.perf_counter() - t0}
     emit(row)
@@ -3285,8 +3317,14 @@ def phase_dryrun_check(graph, seed: int, vlm_train: dict) -> dict:
         if not abs(c["ratio"] - 1) <= TOL_DRYRUN_PEAK:
             raise AssertionError(f"dryrun_check: {name} estimate {c['estimate_bytes']} vs "
                                  f"measured {c['measured_call_peak']} (ratio {c['ratio']:.4f})")
-    if est["cells"]["failed"] or est["cells"]["done"] != want or len(results) != want:
-        raise AssertionError(f"dryrun_check: {est['cells']} of {want} cells ran: {errors}")
+    if (est["cells"]["failed"] or est["cells"]["done"] != want + len(DRYRUN_UNCUT)
+            or len(results) != want or len(uncut) != len(DRYRUN_UNCUT)):
+        raise AssertionError(f"dryrun_check: {est['cells']} of {want + len(DRYRUN_UNCUT)} "
+                             f"cells ran: {errors}")
+    unfit = {k: r["memory_analysis"]["peak_est_gb"] for k, r in uncut.items()
+             if not r["fits_hbm"]}
+    if unfit:
+        raise AssertionError(f"dryrun_check: uncut cells over the card's 80 GB: {unfit}")
     for name, r in results.items():
         ops, mem = r["ops_per_device"], r["memory_analysis"]
         if not (mem["peak_bytes_per_device"] > 0 and ops["flops"] > 0
@@ -3625,7 +3663,7 @@ def ab_child(cs) -> dict:
     ``segment_spmm`` and ``delta_agg`` at the Zipf shape (integer messages,
     bitwise), ``row_linear`` at the engine's shapes, the ``flash_attention``
     forward and backward at llama3.2-1b's; then the LM phases' prefill
-    seconds, decode ms a token and training seconds a step."""
+    seconds, decode ms a token, training seconds a step and peak memory."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3670,7 +3708,7 @@ def ab_child(cs) -> dict:
                 ("lm_vlm_train", lambda: cs.phase_lm_vlm_train(0, kernels))):
             row = run()
             phases[name] = {k: row[k] for k in ("prefill_s", "decode_ms_per_token",
-                                                "steady_step_s") if k in row}
+                                                "steady_step_s", "peak_mem_bytes") if k in row}
             cs._free_cuda()
     return {"rows": rows, "phases": phases}
 

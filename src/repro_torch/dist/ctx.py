@@ -38,18 +38,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.dist.sharding import (
-    NamedSharding,
     ShardingConfig,
     Spec,
     _as_tuple,
     _entry,
     _prod_size,
-    cache_specs,
-    distribute_tree,
+    cache_spec,
     mesh_axis_sizes,
     placements,
 )
-from repro_torch.train.tree import tree_map
 
 _state = threading.local()
 
@@ -107,26 +104,40 @@ def in_current_context(fn):
     return bound
 
 
-def _activation_spec(shape, logical_axes, mesh, shcfg: ShardingConfig) -> Spec:
+def _logical_axes(mesh, shcfg: ShardingConfig) -> dict:
+    """{"dp": its mesh axes, "tp": its mesh axis} on ``mesh`` (empty where the
+    mesh lacks them)."""
+    sizes = mesh_axis_sizes(mesh)
+    return {"dp": tuple(a for a in shcfg.dp_axes if a in sizes),
+            "tp": (shcfg.tp_axis,) if shcfg.tp_axis in sizes else ()}
+
+
+def _splits(n: int, k: int, uneven: bool) -> bool:
+    """Whether a dim of ``n`` splits over ``k`` ranks: evenly, or with
+    ``uneven`` in DTensor's chunks (ceil(n / k) a rank, the last one shorter)
+    as long as no rank's chunk is empty."""
+    return n % k == 0 or (uneven and -(-n // k) * (k - 1) < n)
+
+
+def _activation_spec(shape, logical_axes, mesh, shcfg: ShardingConfig, uneven=()) -> Spec:
     """Map ("dp"|"tp"|None, ...) onto mesh axes, divisibility-checked.
 
     ``logical_axes`` may be shorter than the rank; trailing dims replicate.
     A mesh axis is used at most once (first dim wins), and any dim not
     divisible by its axes falls back to replicated, so the same annotation
-    is valid for 4-head test models and 128-head production models.
+    is valid for 4-head test models and 128-head production models.  A
+    logical axis named in ``uneven`` also splits a dim it does not divide
+    (:func:`_splits`).
     """
     sizes = mesh_axis_sizes(mesh)
-    lookup = {
-        "dp": tuple(a for a in shcfg.dp_axes if a in sizes),
-        "tp": (shcfg.tp_axis,) if shcfg.tp_axis in sizes else (),
-    }
+    lookup = _logical_axes(mesh, shcfg)
     used: set = set()
     entries = []
     for i, dim in enumerate(shape):
         ax = logical_axes[i] if i < len(logical_axes) else None
         mesh_axes = _as_tuple(lookup.get(ax, ())) if ax is not None else ()
         if (mesh_axes and not any(m in used for m in mesh_axes)
-                and dim % _prod_size(mesh_axes, sizes) == 0):
+                and _splits(dim, _prod_size(mesh_axes, sizes), ax in uneven)):
             used.update(mesh_axes)
             entries.append(_entry(mesh_axes))
         else:
@@ -134,14 +145,34 @@ def _activation_spec(shape, logical_axes, mesh, shcfg: ShardingConfig) -> Spec:
     return tuple(entries)
 
 
-def activation_placements(shape, *logical_axes: Optional[str]) -> Optional[tuple]:
+def activation_placements(shape, *logical_axes: Optional[str], uneven=()) -> Optional[tuple]:
     """The placements :func:`ashard` gives a tensor of ``shape`` inside the
     current context, or None outside one."""
     ctx = current_mesh_and_config()
     if ctx is None:
         return None
     mesh, shcfg = ctx
-    return placements(_activation_spec(tuple(shape), logical_axes, mesh, shcfg), mesh)
+    return placements(_activation_spec(tuple(shape), logical_axes, mesh, shcfg, uneven), mesh)
+
+
+def axis_size(name: str) -> int:
+    """The number of ranks the logical axis ``name`` ("dp" or "tp") spans in
+    the current context; 1 outside one."""
+    ctx = current_mesh_and_config()
+    if ctx is None:
+        return 1
+    mesh, shcfg = ctx
+    axes = _logical_axes(mesh, shcfg)[name]
+    return _prod_size(axes, mesh_axis_sizes(mesh)) if axes else 1
+
+
+def tp_rank() -> int:
+    """This rank's coordinate along the "tp" mesh axis of the current
+    context; 0 outside one."""
+    ctx = current_mesh_and_config()
+    if ctx is None or ctx[1].tp_axis not in mesh_axis_sizes(ctx[0]):
+        return 0
+    return ctx[0].get_local_rank(ctx[1].tp_axis)
 
 
 def replicate_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -156,8 +187,10 @@ def replicate_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
-def ashard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+def ashard(x: torch.Tensor, *logical_axes: Optional[str], uneven=()) -> torch.Tensor:
     """Redistribute the DTensor ``x`` to the logical axes, or pass through.
+    The logical axes named in ``uneven`` split a dim they do not divide too
+    (DTensor's uneven chunks).
 
     Outside an :func:`activation_sharding` context this returns ``x`` itself,
     which keeps every single-device code path unchanged."""
@@ -173,7 +206,7 @@ def ashard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     if not _stack()[-1][2]:  # constrain=False: propagation decides
         return x
     mesh, _ = ctx
-    target = activation_placements(x.shape, *logical_axes)
+    target = activation_placements(x.shape, *logical_axes, uneven=uneven)
     if tuple(x.placements) == target:
         return x
     return x.redistribute(mesh, target)
@@ -212,16 +245,47 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
                        (("dp", *mid, "tp", None),), (("dp", *mid, "tp"),))
 
 
-def place_cache(cache, batch: int):
-    """A fresh decode cache (a NamedTuple of tensors, the index a host int)
-    on the current context's mesh under :func:`cache_specs`; the cache itself
-    outside a context."""
+def cache_tensor(shape, fill: float, dtype: torch.dtype, device, batch: int) -> torch.Tensor:
+    """A decode-cache leaf of ``shape`` filled with ``fill``: a tensor on
+    ``device`` outside a context; inside one, a DTensor made in its shards
+    under :func:`~repro_torch.dist.sharding.cache_spec` (``batch`` locates
+    the batch dim), so that each rank allocates its own shard and no rank
+    ever holds the whole cache."""
     ctx = current_mesh_and_config()
     if ctx is None:
-        return cache
+        return torch.full(tuple(shape), fill, dtype=dtype, device=device)
+    from torch.distributed.tensor import full
+
     mesh, shcfg = ctx
-    specs = cache_specs(cache, mesh, shcfg, batch=batch)
-    return distribute_tree(cache, tree_map(lambda s: NamedSharding(mesh, s), specs))
+    return full(tuple(shape), fill, dtype=dtype, device_mesh=mesh,
+                placements=placements(cache_spec(shape, mesh, shcfg, batch), mesh))
+
+
+def vocab_split(x: torch.Tensor):
+    """``(x, group, offset)`` for a function that reads ``x`` [B, …, V] on
+    each rank's slice of its last dim.  Outside a context ``(x, None, 0)``.
+    Inside one, ``x`` redistributed to its batch over "dp" and its last dim
+    over "tp", unevenly where "tp" does not divide it (the placements
+    :func:`local_apply` gives ``("dp", …, "tp")`` with ``uneven=("tp",)``),
+    the process group of that split (None where it spans one rank) and the
+    index of this rank's first entry of the last dim, from DTensor's own
+    layout."""
+    ctx = current_mesh_and_config()
+    if ctx is None:
+        return x, None, 0
+    from torch.distributed.tensor import Shard
+
+    mesh, shcfg = ctx
+    x = ashard(x, "dp", *(None,) * (x.ndim - 2), "tp", uneven=("tp",))
+    tp = _logical_axes(mesh, shcfg)["tp"]
+    last = x.ndim - 1
+    dim = mesh.mesh_dim_names.index(tp[0]) if tp else None
+    if dim is None or mesh.size(dim) == 1 or not x.placements[dim].is_shard(last):
+        return x, None, 0
+    # "tp" alone splits the last dim: this rank's chunk of it is DTensor's own
+    _, offset = Shard.local_shard_size_and_offset(x.shape[last], mesh.size(dim),
+                                                  mesh.get_local_rank(dim))
+    return x, mesh.get_group(dim), offset
 
 
 def _is_record(x) -> bool:
@@ -249,7 +313,7 @@ def _unflat(template, leaves):
                  for t in template)
 
 
-def local_apply(fn, args: tuple, in_axes: tuple, out_axes: tuple):
+def local_apply(fn, args: tuple, in_axes: tuple, out_axes: tuple, uneven=()):
     """``fn(*args)`` on each rank's local shards, for a function whose rows
     along some logical axes are independent (a recurrence per batch row and
     head, the MoE's per-row dispatch).
@@ -265,8 +329,11 @@ def local_apply(fn, args: tuple, in_axes: tuple, out_axes: tuple):
     split.  A whole argument's gradient is ``Partial`` over the mesh dims
     that split the work (each rank's rows add to it) and so is summed, as
     :func:`repro_torch.nn.layers.embed_lookup`'s table's.  Non-tensor
-    arguments (None, ints) pass through.  Outside :func:`activation_sharding`
-    (no mesh) this is ``fn(*args)`` at once."""
+    arguments (None, ints) pass through.  A logical axis named in ``uneven``
+    also splits a dim it does not divide, in DTensor's uneven chunks, for an
+    input only: an output's global shape is taken from its local one.
+    Outside :func:`activation_sharding` (no mesh) this is ``fn(*args)`` at
+    once."""
     if not getattr(_state, "stack", None):
         return fn(*args)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -278,13 +345,13 @@ def local_apply(fn, args: tuple, in_axes: tuple, out_axes: tuple):
         return fn(*args)
     mesh, shcfg = current_mesh_and_config()
     sizes = mesh_axis_sizes(mesh)
-    lookup = {"dp": tuple(a for a in shcfg.dp_axes if a in sizes),
-              "tp": (shcfg.tp_axis,) if shcfg.tp_axis in sizes else ()}
+    lookup = _logical_axes(mesh, shcfg)
     active = {}
     for name, axes in lookup.items():
         dims = [x.shape[d] for x, ax in zip(leaves, leaf_axes) if isinstance(x, DTensor)
                 for d, a in enumerate(ax) if a == name]
-        active[name] = bool(axes and dims) and all(n % _prod_size(axes, sizes) == 0 for n in dims)
+        active[name] = bool(axes and dims) and all(
+            _splits(n, _prod_size(axes, sizes), name in uneven) for n in dims)
     owner = {m: name for name, axes in lookup.items() if active[name] for m in axes}
     names = tuple(mesh.mesh_dim_names)
 

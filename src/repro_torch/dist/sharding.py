@@ -242,6 +242,27 @@ def batch_specs(batch_struct: Dict[str, Any], mesh, shcfg: ShardingConfig,
             for k, v in batch_struct.items()}
 
 
+def cache_spec(shape: Sequence[int], mesh, shcfg: ShardingConfig,
+               batch: Optional[int] = None) -> Spec:
+    """The spec of one decode-cache leaf of ``shape`` (:func:`cache_specs`)."""
+    shape = tuple(shape)
+    if len(shape) < 3:
+        return (None,) * len(shape)
+    sizes = mesh_axis_sizes(mesh)
+    dp = tuple(a for a in shcfg.dp_axes if a in sizes)
+    tp = shcfg.tp_axis if shcfg.tp_axis in sizes else None
+    b_dim = 1
+    if batch is not None:
+        b_dim = next((i for i in range(1, len(shape)) if shape[i] == batch), 1)
+    entries: list = [None] * len(shape)
+    if dp and shape[b_dim] % _prod_size(dp, sizes) == 0:
+        entries[b_dim] = _entry(dp)
+    h_dim = b_dim + 1
+    if tp and h_dim < len(shape) - 1 and shape[h_dim] % sizes[tp] == 0:
+        entries[h_dim] = tp
+    return tuple(entries)
+
+
 def cache_specs(cache_struct, mesh, shcfg: ShardingConfig, batch: Optional[int] = None):
     """Spec tree for a decode-cache tree (a cache NamedTuple of tensors).
 
@@ -255,27 +276,8 @@ def cache_specs(cache_struct, mesh, shcfg: ShardingConfig, batch: Optional[int] 
     collective.  Scalars (the ring index, a host int in the port) and short
     leaves replicate.
     """
-    sizes = mesh_axis_sizes(mesh)
-    dp = tuple(a for a in shcfg.dp_axes if a in sizes)
-    dp_size = _prod_size(dp, sizes) if dp else 0
-    tp = shcfg.tp_axis if shcfg.tp_axis in sizes else None
-
-    def one(leaf):
-        shape = tuple(getattr(leaf, "shape", ()))  # the index: a host int
-        if len(shape) < 3:
-            return (None,) * len(shape)
-        b_dim = 1
-        if batch is not None:
-            b_dim = next((i for i in range(1, len(shape)) if shape[i] == batch), 1)
-        entries: list = [None] * len(shape)
-        if dp and shape[b_dim] % dp_size == 0:
-            entries[b_dim] = _entry(dp)
-        h_dim = b_dim + 1
-        if tp and h_dim < len(shape) - 1 and shape[h_dim] % sizes[tp] == 0:
-            entries[h_dim] = tp
-        return tuple(entries)
-
-    return tree_map(one, cache_struct)
+    return tree_map(lambda leaf: cache_spec(getattr(leaf, "shape", ()), mesh, shcfg, batch),
+                    cache_struct)
 
 
 def opt_state_specs(axes_tree, mesh, shcfg: ShardingConfig, shapes_tree=None):

@@ -35,10 +35,11 @@ runs under ``torch.utils.checkpoint.checkpoint``, as the reference's
 ``jax.checkpoint`` of its scan bodies.
 
 Under a mesh (:mod:`repro_torch.dist`) the same functions run on DTensors,
-as the decoder-only families do: :func:`prefill` places its
-:class:`EncDecCache` by ``cache_specs`` (the self K/V at ``num_kv_heads``,
-the cross memory at ``num_heads``, both batch over "dp" and heads over
-"tp"), and :func:`encdec_loss` reads whole vocab rows.
+as the decoder-only families do: :func:`prefill` makes its
+:class:`EncDecCache` in its shards by ``cache_specs`` (the self K/V at
+``num_kv_heads``, the cross memory at ``num_heads``, both batch over "dp"
+and heads over "tp"), and :func:`encdec_loss` reads each rank's slice of
+the vocab-split logits.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.ctx import ashard, place_cache
+from repro_torch.dist.ctx import ashard, cache_tensor
 from repro_torch.models.lm import (
     DTYPES,
     _attn_kwargs,
@@ -169,8 +170,7 @@ def encdec_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor])
     """Next-token cross entropy: ``(loss, {"ce": loss})``.  batch:
     ``frames`` [B, S_src, d_frontend], ``tokens`` and ``labels`` [B, S]."""
     logits = forward(params, cfg, batch["frames"], batch["tokens"])
-    # under a mesh: whole vocab rows, as lm_loss
-    loss = softmax_xent(ashard(logits, "dp"), ashard(batch["labels"], "dp"))
+    loss = softmax_xent(logits, ashard(batch["labels"], "dp"))
     return loss, {"ce": loss}
 
 
@@ -185,11 +185,8 @@ def prefill(params: Params, cfg: ArchConfig, frames: torch.Tensor, tokens: torch
     L, h, hd, dev = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim, x.device
     self_shape = (L, b, cfg.num_kv_heads, s_max, hd)
     mem_shape = (L, b, h, memory.shape[1], hd)
-    cache = place_cache(EncDecCache(k=torch.zeros(self_shape, dtype=cache_dtype, device=dev),
-                                    v=torch.zeros(self_shape, dtype=cache_dtype, device=dev),
-                                    mem_k=torch.zeros(mem_shape, dtype=cache_dtype, device=dev),
-                                    mem_v=torch.zeros(mem_shape, dtype=cache_dtype, device=dev),
-                                    index=s), b)
+    cache = EncDecCache(*(cache_tensor(shape, 0.0, cache_dtype, dev, b)
+                          for shape in (self_shape, self_shape, mem_shape, mem_shape)), index=s)
     for l in range(L):
         p = _layer(params["dec_blocks"], l)
         out, k, v = attention_prefill_kv(p["attn"], rms_norm(x, p["ln1"]), **_attn_kwargs(cfg),

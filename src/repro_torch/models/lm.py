@@ -57,13 +57,14 @@ inside ``activation_sharding``, the same functions run sharded; the
 reference's ``ashard`` annotations stand in :mod:`repro_torch.nn.layers`,
 :mod:`repro_torch.nn.attention` and :mod:`repro_torch.nn.moe`, the embedding
 lookup reads local rows (:func:`repro_torch.nn.layers.embed_lookup`), the
-loss reads whole vocab rows, and :func:`prefill` places its cache by
-``cache_specs``.  Every family runs so: the MoE routing and combine, the
-recurrences of :mod:`repro_torch.nn.ssm`, hymba's ring attention and the
-gates' ``logsigmoid`` run on each rank's local rows and heads through
-:func:`repro_torch.dist.ctx.local_apply`, and a checkpointed layer's
-recomputation runs in the forward's mesh context (on a card autograd
-recomputes on a thread of its own).
+logits stay split over the vocab into the loss, which reads each rank's
+slice (:func:`repro_torch.nn.layers.softmax_xent`), and :func:`prefill`
+makes its cache in its shards by ``cache_specs``.  Every family runs so:
+the MoE routing and combine, the recurrences of :mod:`repro_torch.nn.ssm`,
+hymba's ring attention and the gates' ``logsigmoid`` run on each rank's
+local rows and heads through :func:`repro_torch.dist.ctx.local_apply`, and
+a checkpointed layer's recomputation runs in the forward's mesh context (on
+a card autograd recomputes on a thread of its own).
 
 The vlm: ``patches`` ``[B, P, d_frontend]`` (the stubbed vision frontend's
 precomputed patch embeddings) go through ``patch_proj`` in the compute dtype
@@ -85,10 +86,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.ctx import (
     ashard,
+    cache_tensor,
     in_current_context,
     local_apply,
     merge_heads,
-    place_cache,
     replicate_like,
     split_heads,
 )
@@ -275,11 +276,13 @@ def _attn_kwargs(cfg: ArchConfig) -> dict:
 def _ffn(cfg: ArchConfig, p, x: torch.Tensor):
     """The block's second half: ``(x + ffn(ln2(x)), aux)``, aux None for a
     dense MLP."""
-    h = rms_norm(x, p["ln2"])
     if cfg.is_moe:
-        out, aux = moe_apply(p["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        out, aux = moe_apply(p["moe"], rms_norm(x, p["ln2"]), top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
         return x + out, aux
-    return x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"]), None
+    # no reference kept here: swiglu frees the normed input early
+    return x + swiglu(rms_norm(x, p["ln2"]), p["mlp"]["wg"], p["mlp"]["wi"],
+                      p["mlp"]["wo"]), None
 
 
 def _attn_block(cfg: ArchConfig, p, x: torch.Tensor, window: Optional[int],
@@ -448,15 +451,17 @@ def cache_len(cfg: ArchConfig, s_max: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.bfloat16, device="cuda"):
-    """An empty :class:`LMCache` (:class:`XLSTMCache` for xLSTM) on ``device``."""
+    """An empty :class:`LMCache` (:class:`XLSTMCache` for xLSTM) on ``device``;
+    inside :func:`~repro_torch.dist.ctx.activation_sharding` each leaf is
+    made in its shards (:func:`~repro_torch.dist.ctx.cache_tensor`)."""
     _check_ported(cfg)
     L, d, kw = cfg.num_layers, cfg.d_model, cfg.conv_width
 
     def zeros(*shape, dt=torch.float32):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return cache_tensor(shape, 0.0, dt, device, batch)
 
     def init_m(*shape):
-        return torch.full(shape, -1e30, dtype=torch.float32, device=device)
+        return cache_tensor(shape, -1e30, torch.float32, device, batch)
 
     if cfg.block_pattern == "xlstm":
         g, per = _xlstm_groups(cfg)
@@ -498,11 +503,14 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """``x @ head``; under a mesh the head's vocab split over "tp" (DTensor's
-    own choice for this product on a 16 × 16 mesh replicated both operands
-    and computed every row of the global batch on each rank)."""
+    """``x @ head``; under a mesh the head's vocab split over "tp", unevenly
+    where "tp" does not divide it (DTensor's own choice for this product on
+    a 16 × 16 mesh replicated both operands and computed every row of the
+    global batch on each rank), so the logits come out vocab-split.  x comes
+    in whole over "tp": a block that leaves a partial sum there (hymba's,
+    xLSTM's) is reduced first, or the product runs over the whole vocab."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ ashard(head, None, "tp").to(x.dtype)
+    return ashard(x, "dp") @ ashard(head, None, "tp", uneven=("tp",)).to(x.dtype)
 
 
 # ====================================================================== #
@@ -573,9 +581,7 @@ def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     "aux"})``.  batch: ``tokens`` and ``labels`` [B, S], and ``patches`` for
     a vlm."""
     logits, aux = forward_with_aux(params, cfg, batch["tokens"], batch.get("patches"))
-    # under a mesh: whole vocab rows (DTensor's gather of a vocab-split row
-    # gives a masked partial that its reduction mishandles)
-    ce = softmax_xent(ashard(logits, "dp"), ashard(batch["labels"], "dp"))
+    ce = softmax_xent(logits, ashard(batch["labels"], "dp"))
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -596,7 +602,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
     S); cache.index = P + S, and ``s_max`` counts the patches too."""
     x = _embed(params, cfg, tokens, patches)
     b, s, _ = x.shape
-    cache = place_cache(init_cache(cfg, b, s_max, cache_dtype, device=x.device), b)
+    cache = init_cache(cfg, b, s_max, cache_dtype, device=x.device)
     if cfg.block_pattern == "xlstm":
         groups, per = _xlstm_groups(cfg)
         for g in range(groups):
@@ -615,20 +621,25 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, s_max: int,
             slots = torch.from_numpy(ring_slots(s, cache.k.shape[3])).to(x.device)
         for l, w in enumerate(_windows(cfg)):
             p = _layer(params["blocks"], l)
-            h = rms_norm(x, p["ln1"])
-            out, k, v = attention_prefill_kv(p["attn"], h, **_attn_kwargs(cfg), causal=True,
-                                             window=w)
             if hymba:
+                h = rms_norm(x, p["ln1"])
+                out, k, v = attention_prefill_kv(p["attn"], h, **_attn_kwargs(cfg),
+                                                 causal=True, window=w)
                 x, cache.ssm[l], cache.conv[l] = _hymba_rest(cfg, p, x, h, out, None, None, False)
                 cache.k[l], cache.v[l] = local_apply(
                     lambda a, c: (a.index_select(2, slots), c.index_select(2, slots)),
                     (k, v), (_HEADS, _HEADS), (_HEADS, _HEADS))
             else:
-                x, _ = _ffn(cfg, p, x + out)
+                # the normed input is handed over, not kept, so the attention frees it
+                out, k, v = attention_prefill_kv(p["attn"], rms_norm(x, p["ln1"]),
+                                                 **_attn_kwargs(cfg), causal=True, window=w)
                 # in place into the preallocated cache; [S, s_max) stays 0, as the
                 # reference's padded copy
                 cache.k[l, :, :, :s] = k
                 cache.v[l, :, :, :s] = v
+                x = x + out
+                del out, k, v  # freed before the MLP's temporaries are made
+                x, _ = _ffn(cfg, p, x)
     x = rms_norm(x, params["final_norm"])
     return _logits(params, cfg, x[:, -1:]), cache._replace(index=s)
 

@@ -39,7 +39,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.ctx import ashard, local_apply, merge_heads, split_heads
+from repro_torch.dist.ctx import (
+    ashard,
+    axis_size,
+    local_apply,
+    merge_heads,
+    split_heads,
+    tp_rank,
+)
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import param as pm
 from repro_torch.nn.layers import apply_rope, rms_norm, rope_freqs
@@ -78,9 +85,25 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
     """q [B, Hq, Sq, Dh] over k, v [B, Hkv, Sk, Dh] → [B, Hq, Sq, Dh] in q's
     dtype.  Under a mesh each rank attends with its local batch rows and
     heads (:func:`repro_torch.dist.ctx.local_apply`; sequence and head dims
-    whole): the heads split only where Hq and Hkv both divide, so that local
-    q head j reads local KV head j // g as the kernel does."""
+    whole): the heads split where Hq and Hkv both divide, so that local q
+    head j reads local KV head j // g as the kernel does.  On the kernel's
+    path (Sq > 1), where "tp" divides Hq but not Hkv (8 KV heads over 16),
+    each rank reads the KV heads whole and takes the ones its Hq / tp q
+    heads read, repeated to one a q head: the reference's kernel wrapper
+    repeats the KV heads to Hq, and its heads split.  The selection's
+    backward sums each group's gradients into a partial sum over "tp".
+    Decode keeps its grouped path."""
+    hq, hkv, tp = q.shape[1], k.shape[1], axis_size("tp")
     heads = ("dp", "tp")
+    if q.shape[2] > 1 and tp > 1 and hkv % tp and not hq % tp:
+        local, first = hq // tp, tp_rank() * (hq // tp)
+
+        def attend(a, b, c):
+            idx = torch.arange(first, first + local, device=b.device) // (hq // hkv)
+            return _attend(a, b.index_select(1, idx), c.index_select(1, idx), causal, window,
+                           q_offset)
+
+        return local_apply(attend, (q, k, v), (heads, ("dp",), ("dp",)), (heads,))
     return local_apply(lambda a, b, c: _attend(a, b, c, causal, window, q_offset), (q, k, v),
                        (heads, heads, heads), (heads,))
 
@@ -180,6 +203,7 @@ def attention_prefill_kv(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads
     """Prefill that also returns the (rope-applied) full-length K/V so the
     caller can fill its cache."""
     q, k, v = _qkv(p, x, n_heads, n_kv, head_dim, rope_theta, 0)
+    del x  # a caller that keeps no reference frees the normed input here
     out = ashard(attention_core(q, k, v, causal, window, 0), "dp", "tp")
     return _merge_heads(out, p), k, v
 

@@ -77,13 +77,20 @@ def adamw_update(grads, state: OptState, params, cfg: OptConfig
     c2 = 1.0 - cfg.b2 ** count.float()
 
     def upd(g, m, v, p):
+        # the same operations in the same order as the reference's, each result
+        # written into a temporary of this leaf where it can be, so that at most
+        # two of the leaf's temporaries are alive beside the new state
         g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        step = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
+        m = (cfg.b1 * m).add_((1 - cfg.b1) * g)
+        v = (cfg.b2 * v).add_(((1 - cfg.b2) * g).mul_(g))
+        del g
+        den = (v / c2).sqrt_().add_(cfg.eps)
+        step = (m / c1).div_(den)
+        del den
         if p.ndim >= 2:  # decoupled weight decay on matrices only
-            step = step + cfg.weight_decay * p.float()
-        return (p.float() - lr * step).to(p.dtype), m, v
+            step.add_(cfg.weight_decay * p.float())
+        # p − lr · step, as −(step · lr) + p: the same rounding
+        return step.mul_(lr).neg_().add_(p.float()).to(p.dtype), m, v
 
     new_params, m, v = tree_unzip(tree_map(upd, grads, state.m, state.v, params), 3)
     return new_params, OptState(m=m, v=v, count=count), lr
