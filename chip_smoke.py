@@ -161,6 +161,33 @@ Phases, one JSON line each:
              with no mesh (loss within 1e-6 relative, each gradient leaf
              within 1e-5 of its largest entry), and whether the loss, the
              gradients and one AdamW step's weights are bitwise equal;
+5o′. lm_vlm_prod_prefill — pixtral-12b at the reference's production dtype
+             (``launch/dryrun.py`` ``production_cfg``: bf16 params, bf16
+             compute) at full width and depth (40 layers, 25.6 GB of bf16
+             weights) through the launch layer on the 1 × 1 NCCL mesh:
+             ``make_prefill_step`` on batch 2 of the prefill_32k cell's inputs
+             (256 patches + 32,768 tokens: 33,024 positions, s_max 33,032 for
+             the decode after it): a warm-up, two timed prefills (the first
+             counted: 40 ``flash_attention`` launches, each bf16 at dh 160 over
+             33,024 rows; its peak held by ``dryrun_check`` to the dry run's
+             estimate of the cell), a profiled one (matmuls / attention / the
+             rest), then 8 greedy steps of ``make_serve_step`` with finite
+             logits;
+5o″. lm_vlm_prod_train — the same dtype cut in depth to 4 layers (bf16 params
+             and gradients, fp32 AdamW moments), 3 steps of ``make_train_step``
+             on the 1 × 1 mesh on 2 × (256 patches + 4,096 tokens): exactly 2 ·
+             L · steps bf16 dh-160 forwards (remat) and L · steps of each
+             backward entry; finite losses, seconds a step, the peak (held by
+             ``dryrun_check`` too);
+5o‴. lm_vlm_prod_consistency — the same dtype cut to 2 layers, batch 1 of 256
+             patches + 300 tokens, the card against the CPU on the same bf16
+             weights: one training step's loss within 2^-7 relative, and each
+             gradient leaf and the prefill's last-token logits (bf16 here)
+             within 2^-5 of their largest entry (a few bf16 steps:
+             ``TOL_PROD_REL``), run after the two phases above (its ~40 s of
+             CPU products beside no timed run); exactly 3 bf16 dh-160
+             forwards a layer (prefill, loss, remat) and one of each backward
+             entry;
 5p–5s. lm_moe_mesh, lm_encdec_mesh, lm_hymba_mesh, lm_xlstm_mesh — the other
              four families through the launch layer (``MESH_PHASES``), each
              at full width, cut in depth (qwen3-moe-30b-a3b 48 → 2 layers,
@@ -188,8 +215,10 @@ Phases, one JSON line each:
 5q. dryrun_check — the dry run (``repro_torch.launch.dryrun``, fake process
              group, fake tensors) against the card: in a child process (a
              process holds one process group) it estimates the peak bytes of
-             ``lm_vlm_train``'s step and of a gcn ``full_forward`` at n over
-             the base graph, which this phase runs meanwhile (peak reset
+             ``lm_vlm_train``'s step, ``lm_vlm_prod_prefill``'s counted prefill
+             and ``lm_vlm_prod_train``'s steps (these two in its pool), and of a
+             gcn ``full_forward`` at n over the base graph, which this phase
+             runs meanwhile (peak reset
              around it); each estimate is held within ±15%
              (``TOL_DRYRUN_PEAK``) of ``max_memory_allocated()`` less what
              the process held that the call was not given.  Meanwhile, in
@@ -213,7 +242,10 @@ Phases, one JSON line each:
              first, timed beside the backward of
              ``scaled_dot_product_attention`` in the same dtype, and so at
              pixtral's training shape (B 2, Hq 32, Hkv 8, S 2,304, dh 160) in
-             fp32 and bf16 (variant rows);
+             fp32 and bf16 (variant rows); the bf16 forward also at
+             ``lm_vlm_prod_prefill``'s shape (B 2, S 33,024), held on the last
+             256 query rows of every head, and the bf16 forward and backward
+             at ``lm_vlm_prod_train``'s (B 2, S 4,352), held whole;
              row_linear ≤ 1e-5 at M = n, where the wrapper takes the tiled
              kernel, and bitwise the general kernel there, at gat's per-edge
              M = E and at the incremental step's row cap; rows of
@@ -408,6 +440,26 @@ VLM_ARCH, VLM_CONSIST_PROMPT = "pixtral-12b", 300
 #: of fp32 params, gradients and AdamW's two moments; all 40 would be 204 GB), 3 steps
 #: of 2 × (256 patches + 2,048 tokens) through make_train_step on the card's 1 × 1 mesh
 VLM_TRAIN_LAYERS, VLM_TRAIN_STEPS, VLM_TRAIN_BATCH = 4, 3, 2
+#: lm_vlm_prod_*: the vlm at the reference's production dtype (``launch/dryrun.py``
+#: ``production_cfg``: bf16 params, bf16 compute), where every attention call is the bf16
+#: instantiation at head dim 160.  The prefill at full width and depth (40 layers, 12.78B
+#: elements, 25.6 GB in bf16) on batch PROD_BATCH of the prefill_32k cell's inputs (256
+#: patches + 32,768 tokens), its cache PROD_DECODE positions longer than the cell's s_max
+#: 33,024 for the greedy decode steps after it; training cut in depth to PROD_TRAIN_LAYERS
+#: (2.44B elements: bf16 params and gradients, fp32 AdamW moments) on the train_4k cell's
+#: sequence (256 patches + 4,096 tokens); the consistency phase cut to PROD_CONSIST_LAYERS
+#: (batch 1 of 256 patches + VLM_CONSIST_PROMPT tokens), the card against the CPU
+PROD_BATCH, PROD_PREFILL_SEQ, PROD_DECODE = 2, 32_768, 8
+PROD_TRAIN_LAYERS, PROD_TRAIN_SEQ, PROD_TRAIN_STEPS, PROD_CONSIST_LAYERS = 4, 4096, 3, 2
+#: lm_vlm_prod_consistency: the loss, relative, and each gradient leaf's and the prefill's
+#: last-token logits' max |Δ| over their largest |entry|.  The gradients and the logits are
+#: bf16 (the params' dtype: the head's product too): at the largest entry, in [2^k,
+#: 2^(k+1)), one bf16 step is 2^(k−7), at most 2^-7 of it, and the two sides sum in other
+#: orders through two layers whose every product rounds its output to bf16, so an entry
+#: may land a few steps apart: 4 steps, 2^-5.  (TOL_TEACHER's 2e-2, which the
+#: fp32-param phases hold their fp32 logits to, is below one bf16 step of a logit in
+#: [4, 8).)  The loss is an fp32 mean over bf16 logits: two steps, 2^-7
+TOL_PROD_LOSS, TOL_PROD_REL = 2.0 ** -7, 2.0 ** -5
 #: lm_train's and lm_vlm_train's peaks on the H100 before the vocab-parallel loss and the
 #: AdamW update's in-place temporaries (PERF.md §6: 37.92 and 74.71 GB), recorded beside
 #: this run's; lm_train's must come in below its figure
@@ -491,7 +543,13 @@ ZIPF_EXPONENT, ZIPF_MAX_DEGREE = 1.97, 100_000  # the skewed kernel shape: zipf_
 SHARDS = 8  # logical shards of the sharded phases (the reference's CI mesh)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's row also gets the seconds since the script began."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1826,40 +1884,53 @@ def serving_data(n: int, seed: int) -> dict:
     return {"n": n, "x": x, "wl": wl, "wl_small": wl_small}
 
 
-def _device_split_ms(prof) -> dict:
-    """Device milliseconds of a ``torch.profiler`` trace by kernel kind."""
+def _device_split_ms(events) -> dict:
+    """Device milliseconds of a ``torch.profiler`` trace's ``key_averages()``
+    by kernel kind."""
     from torch.autograd import DeviceType
 
     split = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "matmul": 0.0,
              "segment_spmm": 0.0, "other": 0.0}
-    for e in prof.key_averages():
+    for e in events:
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
             continue
         name = e.key.lower()
         kind = ("flash_attention" if "flash_attention" in name else
                 "flash_attention_bwd" if "bwd_dq_" in name or "bwd_dkdv_" in name
                 else "segment_spmm" if "row_sum" in name  # the MoE combine on the LM path
-                else "matmul" if any(w in name for w in ("gemm", "gemv", "splitk")) else "other")
+                else "matmul" if any(w in name for w in ("gemm", "gemv", "splitk", "nvjet"))
+                else "other")
         split[kind] += e.self_device_time_total / 1e3
     return split
 
 
-def _profiled(fn) -> dict:
+def _profiled(fn, host: bool = True) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host wall, device time by
-    kind, and the device's idle share of the wall."""
+    kind, and the device's idle share of the wall.  ``host=False`` traces the
+    device alone (no host operator events: a host loop of ~10^5 launches
+    makes ~10^6 of them, whose averaging took minutes)."""
     import torch
 
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    split = _device_split_ms(prof)
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()  # one pass: a host-loop trace holds ~10^6 events
+    split = _device_split_ms(events)
     busy = sum(split.values())
+    top = sorted(((e.self_device_time_total / 1e3, e.key[:80]) for e in events
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                 reverse=True)[:5]
     return {"wall_ms": wall_ms, "device_ms": split,
-            "device_idle_share": 1.0 - busy / wall_ms if busy > 0 else None}
+            "device_idle_share": 1.0 - busy / wall_ms if busy > 0 else None,
+            "top_kernels_ms": [[name, ms] for ms, name in top]}
 
 
 def phase_lm_serve(seed: int, kernels: dict):
@@ -1986,7 +2057,9 @@ def phase_lm_recurrent_serve(arch: str, seed: int, kernels: dict):
     a prefill alone, counted the same way, with the window each
     ``flash_attention`` call was given (hymba) and the seconds spent in the
     sLSTM step loop (xlstm; synchronised around each loop); a profiled
-    prefill and decode.  Returns the row, the config and the weights."""
+    prefill and decode (xlstm's traced on the device alone: its host loop's
+    events took minutes to average).  Returns the row, the config and the
+    weights."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -2045,7 +2118,10 @@ def phase_lm_recurrent_serve(arch: str, seed: int, kernels: dict):
     slots = cache.k.shape[3] if hymba else None
     finite = bool(torch.isfinite(logits).all())
     del cache
-    pre = _profiled(lambda: prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN))
+    # xlstm's sLSTM host loop (~170,000 launches a prefill): traced on the device alone
+    host = cfg.block_pattern != "xlstm"
+    pre = _profiled(lambda: prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN),
+                    host)
     _, cache = prefill(params, cfg, {"tokens": tok_t}, s_max=LM_PROMPT + LM_GEN)
     first = out[:, :1]
 
@@ -2056,7 +2132,7 @@ def phase_lm_recurrent_serve(arch: str, seed: int, kernels: dict):
             step_logits, cache = decode_step(params, cfg, tok, cache)
             tok = step_logits[:, -1].argmax(-1, keepdim=True)
 
-    dec = _profiled(decode_steps)
+    dec = _profiled(decode_steps, host)
     dec["steps"] = 8
     del cache
     row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -2803,6 +2879,346 @@ def phase_lm_vlm_train(seed: int, kernels: dict) -> dict:
     return row
 
 
+def _reading_attention(calls: list, bwd_calls: list):
+    """Wrap ``flash_attention``'s forward and backward so that each call on
+    the card appends its (dtype, head dim, Sq) to ``calls`` / ``bwd_calls``
+    (the plain path's calls on the CPU are not read); returns the function
+    that restores them."""
+    from repro_torch.kernels import flash_attention as fmod
+
+    orig_fwd, orig_bwd = fmod._forward, fmod.flash_attention_bwd
+
+    def reading_fwd(q, *a, **kw):
+        if q.device.type == "cuda":
+            calls.append((str(q.dtype).removeprefix("torch."), q.shape[3], q.shape[2]))
+        return orig_fwd(q, *a, **kw)
+
+    def reading_bwd(q, *a, **kw):
+        if q.device.type == "cuda":
+            bwd_calls.append((str(q.dtype).removeprefix("torch."), q.shape[3], q.shape[2]))
+        return orig_bwd(q, *a, **kw)
+
+    fmod._forward, fmod.flash_attention_bwd = reading_fwd, reading_bwd
+
+    def restore():
+        fmod._forward, fmod.flash_attention_bwd = orig_fwd, orig_bwd
+
+    return restore
+
+
+def phase_lm_vlm_prod_prefill(seed: int, kernels: dict) -> dict:
+    """pixtral-12b at the reference's production dtype (``production_cfg``:
+    bf16 params and compute) at full width and depth, through the launch
+    layer on the card's 1 × 1 NCCL mesh: ``shardings_for_cell`` for the
+    prefill_32k cell at batch ``PROD_BATCH`` (256 patches + 32,768 tokens:
+    33,024 positions), params and inputs placed as DTensors, then
+    ``make_prefill_step`` inside ``activation_sharding``: one warm-up, two
+    timed prefills (the first counted: counts set to 0 just before it and
+    read just after, each ``flash_attention`` call's dtype, head dim and Sq
+    read, peak memory reset before it) and one profiled; then, from the
+    second timed prefill's cache, ``PROD_DECODE`` greedy steps through
+    ``make_serve_step``, whose logits must be finite.  The cache holds s_max = 33,024 + ``PROD_DECODE``
+    positions.  ``dryrun_check`` holds the counted prefill's peak to the dry
+    run's estimate of the cell."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import activation_sharding, distribute_tree
+    from repro_torch.launch.dryrun import production_cfg
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, shardings_for_cell
+    from repro_torch.models import init_model
+    from repro_torch.train.tree import tree_leaves
+
+    phase = "lm_vlm_prod_prefill"
+    cfg = production_cfg(VLM_ARCH)
+    B, S, P = PROD_BATCH, PROD_PREFILL_SEQ, cfg.num_patches
+    n_pos, s_max = P + S, P + S + PROD_DECODE
+    _free_cuda()
+    dist.init_process_group(DIST_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
+    calls, bwd_calls = [], []
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        sh = shardings_for_cell(cfg, ShapeConfig(phase, S, B, "prefill"), mesh)
+        t0 = time.perf_counter()
+        params = distribute_tree(init_model(torch.Generator(device="cuda").manual_seed(seed),
+                                            cfg), sh["params_sharding"])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_elems = sum(p.numel() for p in tree_leaves(params))
+        rng = np.random.default_rng(seed)
+        batch = distribute_tree({  # the cell's inputs: int32 tokens, bf16 patches
+            "tokens": torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).cuda(),
+            "patches": torch.from_numpy(rng.normal(size=(B, P, cfg.d_frontend)).astype(
+                np.float32)).cuda().to(torch.bfloat16)}, sh["batch_sharding"])
+        step, serve_step = make_prefill_step(cfg, s_max), make_serve_step(cfg)
+        prefill_s = []
+        with activation_sharding(mesh, sh["shcfg"]):
+            out = step(params, batch)  # warm-up
+            del out
+            _free_cuda()
+            for i in range(2):
+                torch.cuda.synchronize()
+                if i == 0:
+                    torch.cuda.reset_peak_memory_stats()
+                    mem_at_reset = torch.cuda.memory_allocated()
+                    input_bytes = _storage_bytes(params, batch)
+                    _zero_counts(kernels)
+                    restore = _reading_attention(calls, bwd_calls)
+                t0 = time.perf_counter()
+                try:
+                    logits, cache = step(params, batch)
+                    torch.cuda.synchronize()
+                finally:
+                    if i == 0:
+                        restore()
+                prefill_s.append(time.perf_counter() - t0)
+                if i == 0:
+                    launches, peak = _counts(kernels), torch.cuda.max_memory_allocated()
+                    cache_index = cache.index
+                    cache_shape = list(_local(cache.k).shape)
+                    del logits, cache
+            prof = _profiled(lambda: step(params, batch))
+            # the decode steps go on from the second timed prefill's cache
+            tok = _local(logits)[:, -1:].argmax(-1).to(torch.int32)
+            decode_ms, finite = [], bool(torch.isfinite(_local(logits)).all())
+            for _ in range(PROD_DECODE):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = serve_step(params, cache,
+                                           distribute_tree(tok, sh["token_sharding"]))
+                lg = _local(logits)
+                finite = finite and bool(torch.isfinite(lg).all())
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+                tok = lg[:, -1:].argmax(-1).to(torch.int32)
+            decode_index = cache.index
+        del logits, cache, params, batch, lg, tok
+        _free_cuda()
+    finally:
+        dist.destroy_process_group()
+    dh = cfg.resolved_head_dim
+    attn_flops = 4 * dh * B * cfg.num_heads * (n_pos * (n_pos + 1) // 2) * cfg.num_layers
+    row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": dh,
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "param_elements": n_elems, "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                                                "backend": DIST_BACKEND},
+           "batch": B, "tokens": S, "patches": P, "positions": n_pos, "s_max": s_max,
+           "init_s": init_s, "prefill_s": prefill_s,
+           "prefill_positions_per_s": B * n_pos / min(prefill_s),
+           "attention_flops": attn_flops, "peak_mem_bytes": peak, "peak_gb": peak / 1e9,
+           "mem_at_reset_bytes": mem_at_reset, "input_bytes": input_bytes,
+           "launches": launches, "attention_calls": sorted(set(calls)),
+           "attention_call_count": len(calls), "cache_index": cache_index,
+           "cache_k_shape": cache_shape, "profiled_prefill": prof,
+           "decode_ms": decode_ms, "decode_index": decode_index, "decode_logits_finite": finite}
+    emit(row)
+    if (launches["flash_attention"] != cfg.num_layers or len(calls) != cfg.num_layers
+            or set(calls) != {("bfloat16", dh, n_pos)} or bwd_calls):
+        raise AssertionError(f"{phase}: flash_attention launched {launches['flash_attention']} "
+                             f"times, calls {sorted(set(calls))} ({len(calls)}), expected "
+                             f"{cfg.num_layers}: one a layer, bf16 at dh {dh} over {n_pos}")
+    if cache_index != n_pos or decode_index != n_pos + PROD_DECODE or not finite:
+        raise AssertionError(f"{phase}: cache index {cache_index} → {decode_index}, decode "
+                             f"logits finite {finite}")
+    return row
+
+
+def phase_lm_vlm_prod_train(seed: int, kernels: dict) -> dict:
+    """pixtral-12b at ``production_cfg`` cut in depth to ``PROD_TRAIN_LAYERS``
+    (bf16 params and gradients, fp32 AdamW moments), ``PROD_TRAIN_STEPS``
+    AdamW steps of ``make_train_step`` on the card's 1 × 1 NCCL mesh (as
+    ``lm_vlm_train``) on ``PROD_BATCH`` × (256 patches + ``PROD_TRAIN_SEQ``
+    tokens) of the trainer's synthetic data; counts set to 0 just before the
+    steps and read just after, each attention call's dtype and head dim read:
+    2 · L · steps bf16 forwards at dh 160 (remat) and L · steps of each
+    backward entry; every loss finite; seconds a step and the peak."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import activation_sharding, distribute_tree
+    from repro_torch.launch.dryrun import production_cfg
+    from repro_torch.launch.steps import make_train_step, shardings_for_cell
+    from repro_torch.models import init_model
+    from repro_torch.train.optimizer import OptConfig, adamw_init
+    from repro_torch.train.trainer import TrainConfig, synthetic_batch
+    from repro_torch.train.tree import tree_leaves
+
+    phase = "lm_vlm_prod_train"
+    cfg = production_cfg(VLM_ARCH, PROD_TRAIN_LAYERS)
+    L, B, S, steps = cfg.num_layers, PROD_BATCH, PROD_TRAIN_SEQ, PROD_TRAIN_STEPS
+    n_pos = cfg.num_patches + S
+    tcfg = TrainConfig(steps=steps, batch=B, seq_len=S, seed=seed)
+    step = make_train_step(cfg, OptConfig(peak_lr=3e-3, warmup_steps=10, stable_steps=steps,
+                                          decay_steps=10))
+    _free_cuda()
+    dist.init_process_group(DIST_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
+    calls, bwd_calls = [], []
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        sh = shardings_for_cell(cfg, ShapeConfig(phase, S, B, "train"), mesh)
+        t0 = time.perf_counter()
+        params = distribute_tree(init_model(torch.Generator(device="cuda").manual_seed(seed),
+                                            cfg), sh["params_sharding"])
+        n_elems = sum(p.numel() for p in tree_leaves(params))
+        opt_state = distribute_tree(adamw_init(params), sh["opt_sharding"])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batches = [distribute_tree(synthetic_batch(cfg, tcfg, i, device="cuda"),
+                                   sh["batch_sharding"]) for i in range(steps)]
+        losses, step_s = [], []
+        torch.cuda.reset_peak_memory_stats()
+        mem_at_reset = torch.cuda.memory_allocated()
+        input_bytes = _storage_bytes(params, opt_state, *batches)
+        _zero_counts(kernels)
+        restore = _reading_attention(calls, bwd_calls)
+        try:
+            with activation_sharding(mesh, sh["shcfg"]):
+                for i in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    params, opt_state, metrics = step(params, opt_state, batches[i])
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    losses.append(float(metrics["loss"].full_tensor()))
+        finally:
+            restore()
+        launches, entries = _counts(kernels), _entries(kernels["flash_attention_bwd"])
+        peak = torch.cuda.max_memory_allocated()
+        dtypes = sorted({str(p.dtype).removeprefix("torch.") for p in tree_leaves(params)})
+        del params, opt_state, batches, metrics
+        _free_cuda()
+    finally:
+        dist.destroy_process_group()
+    dh = cfg.resolved_head_dim
+    tokens = B * n_pos
+    steady_s = sum(step_s[1:]) / len(step_s[1:])  # the first step pays the lazy set-up
+    attn_fwd = 4 * dh * B * cfg.num_heads * (n_pos * (n_pos + 1) // 2) * L
+    model_flops = 6 * cfg.param_count() * tokens + 3 * attn_fwd
+    row = {"phase": phase, "arch": cfg.name, "layers": L, "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "param_dtypes_after": dtypes,
+           "remat": cfg.remat, "param_elements": n_elems, "steps": steps, "batch": B,
+           "seq_len": S, "positions": n_pos, "init_s": init_s, "losses": losses,
+           "step_s": step_s, "steady_step_s": steady_s, "tokens_per_s": tokens / steady_s,
+           "model_flops_per_step": model_flops,
+           "model_flops_share_of_bf16_peak": model_flops / steady_s / BF16_FLOPS,
+           "peak_mem_bytes": peak, "peak_gb": peak / 1e9, "mem_at_reset_bytes": mem_at_reset,
+           "input_bytes": input_bytes, "launches": launches, "bwd_launches_by_entry": entries,
+           "attention_calls": sorted(set(calls)), "attention_call_count": len(calls),
+           "bwd_attention_calls": sorted(set(bwd_calls))}
+    emit(row)
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: losses {losses}")
+    want = {("bfloat16", dh, n_pos)}
+    if (len(calls) != 2 * L * steps or launches["flash_attention"] != 2 * L * steps
+            or set(calls) != want or set(bwd_calls) != want or len(bwd_calls) != L * steps
+            or any(n != L * steps for n in entries.values())):
+        raise AssertionError(f"{phase}: forwards {len(calls)} {sorted(set(calls))}, backward "
+                             f"entries {entries}, expected {2 * L * steps} and {L * steps} "
+                             f"each, bf16 at dh {dh} over {n_pos}")
+    return row
+
+
+def _prod_consistency_inputs(seed: int):
+    """``lm_vlm_prod_consistency``'s config, bf16 weights (made on the card from
+    the seed: the same bits in every call) and CPU batch."""
+    import torch
+
+    from repro_torch.launch.dryrun import production_cfg
+    from repro_torch.models import init_model
+
+    cfg = production_cfg(VLM_ARCH, PROD_CONSIST_LAYERS)
+    P, S = cfg.num_patches, VLM_CONSIST_PROMPT
+    params = init_model(torch.Generator(device="cuda").manual_seed(seed + 5), cfg)
+    rng = np.random.default_rng(seed + 6)
+    tokens = rng.integers(0, cfg.vocab_size, (1, S + 1))
+    batch = {"tokens": torch.from_numpy(tokens[:, :S]), "labels": torch.from_numpy(tokens[:, 1:]),
+             "patches": torch.from_numpy(rng.normal(size=(1, P, cfg.d_frontend)).astype(
+                 np.float32)).to(torch.bfloat16)}
+    return cfg, params, batch
+
+
+def _prod_consistency_side(cfg, params, batch) -> dict:
+    """The prefill's last-token logits over the prompt, then one training step's
+    loss and gradients, on the device ``params`` lie on."""
+    from repro_torch.models import prefill
+    from repro_torch.train.trainer import value_and_grad
+
+    P, S = cfg.num_patches, VLM_CONSIST_PROMPT
+    logits = prefill(params, cfg, {k: batch[k] for k in ("tokens", "patches")}, P + S)[0]
+    loss, _, grads = value_and_grad(params, cfg, batch)
+    return {"logits": logits, "loss": loss, "grads": grads}
+
+
+def phase_lm_vlm_prod_consistency(seed: int, kernels: dict) -> dict:
+    """pixtral-12b at ``production_cfg`` cut to ``PROD_CONSIST_LAYERS`` at full
+    width: the card (the kernels) against the port's plain path on the CPU,
+    the same bf16 weights (made on the card, copied) and inputs, batch 1 of
+    256 patches + ``VLM_CONSIST_PROMPT`` tokens: the prefill's last-token
+    logits and every gradient leaf of one training step within
+    ``TOL_PROD_REL`` of their largest |entry|, the loss within
+    ``TOL_PROD_LOSS`` (see there); counts set to 0 just before the card's
+    side and read just after, each attention call's dtype, head dim and Sq
+    read: 3 · L bf16 forwards at dh 160 over the 556 positions (prefill,
+    loss, remat) and L of each backward entry."""
+    import torch
+
+    from repro_torch.train.tree import tree_map, tree_paths
+
+    phase = "lm_vlm_prod_consistency"
+    _free_cuda()
+    cfg, params, batch = _prod_consistency_inputs(seed)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    calls, bwd_calls = [], []
+    _zero_counts(kernels)
+    restore = _reading_attention(calls, bwd_calls)
+    try:
+        card = _prod_consistency_side(cfg, params, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches, entries = _counts(kernels), _entries(kernels["flash_attention_bwd"])
+    t0 = time.perf_counter()
+    cpu = _prod_consistency_side(cfg, params_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    logit_err = _rel_err(card["logits"].float(), cpu["logits"].float())
+    rel = {key: _rel_err(a.float(), c.float())
+           for (key, a), (_, c) in zip(tree_paths(card["grads"]), tree_paths(cpu["grads"]))}
+    dtypes = sorted({str(g.dtype).removeprefix("torch.") for _, g in tree_paths(card["grads"])})
+    loss, loss_cpu = float(card["loss"]), float(cpu["loss"])
+    loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    worst = max(rel, key=rel.get)
+    row = {"phase": phase, "layers": PROD_CONSIST_LAYERS, "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "batch": 1, "patches": cfg.num_patches,
+           "tokens": VLM_CONSIST_PROMPT, "prefill_logit_rel_err": logit_err,
+           "logit_tol": TOL_PROD_REL, "max_abs_logit": float(cpu["logits"].float().abs().max()),
+           "loss": loss, "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
+           "loss_tol": TOL_PROD_LOSS, "grad_rel_err": rel, "grad_tol": TOL_PROD_REL,
+           "worst_leaf": worst, "grad_dtypes": dtypes, "cpu_s": cpu_s,
+           "launches": launches, "bwd_launches_by_entry": entries,
+           "attention_calls": sorted(set(calls)), "attention_call_count": len(calls),
+           "bwd_attention_calls": sorted(set(bwd_calls))}
+    emit(row)
+    del params, params_cpu, card, cpu
+    _free_cuda()
+    if not (np.isfinite(loss) and logit_err <= TOL_PROD_REL and loss_rel <= TOL_PROD_LOSS
+            and rel[worst] <= TOL_PROD_REL):
+        raise AssertionError(f"{phase}: logits {logit_err}, loss {loss_rel}, worst gradient "
+                             f"{rel[worst]} at {worst}")
+    L, want = PROD_CONSIST_LAYERS, {("bfloat16", cfg.resolved_head_dim,
+                                     cfg.num_patches + VLM_CONSIST_PROMPT)}
+    if (launches["flash_attention"] != 3 * L or len(calls) != 3 * L or set(calls) != want
+            or set(bwd_calls) != want or len(bwd_calls) != L
+            or any(n != L for n in entries.values())):
+        raise AssertionError(f"{phase}: forwards {len(calls)} {sorted(set(calls))}, backward "
+                             f"entries {entries}, expected {3 * L} and {L} each, {want}")
+    return row
+
+
 def _storage_bytes(*trees) -> int:
     """Bytes of the distinct storages under ``trees`` (a DTensor's local
     shard), each as the caching allocator rounds it (512 B)."""
@@ -3165,6 +3581,29 @@ def dryrun_task(module: str, argv: list) -> dict:
         return importlib.import_module(module).main(argv)
 
 
+def prod_estimate(name: str) -> dict:
+    """(A task of :func:`dryrun_estimates`' pool.)  The dry run's estimate, on a
+    fake 1 × 1 mesh, of ``lm_vlm_prod_prefill``'s counted prefill (the
+    prefill_32k cell at batch ``PROD_BATCH``; the card's cache holds
+    ``PROD_DECODE`` positions more, 3.3 MB) or of ``lm_vlm_prod_train``'s steps."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import OptConfig
+
+    if name == "lm_vlm_prod_prefill":
+        cfg, opt = dryrun.production_cfg(VLM_ARCH), None
+        shape = ShapeConfig(name, PROD_PREFILL_SEQ, PROD_BATCH, "prefill")
+    else:
+        cfg = dryrun.production_cfg(VLM_ARCH, PROD_TRAIN_LAYERS)
+        shape = ShapeConfig(name, PROD_TRAIN_SEQ, PROD_BATCH, "train")
+        opt = OptConfig(peak_lr=3e-3, warmup_steps=10, stable_steps=PROD_TRAIN_STEPS,
+                        decay_steps=10)
+    with contextlib.redirect_stdout(sys.stderr), dryrun.fake_world(1):
+        res = dryrun.estimate(cfg, shape, dryrun.fake_mesh((1, 1), ("data", "model")), "opt",
+                              opt)
+    return {**dryrun.memory_analysis(res), "trace_s": res["trace_s"]}
+
+
 def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
     """(Run in a child process: a fake process group is process-global, and
     this process's phases hold a real one.)  The dry run's estimates of the
@@ -3190,6 +3629,9 @@ def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
     out = {}
     t0 = time.perf_counter()
     pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    # the production dtype's two estimates first, each in a worker of its own
+    prod = {name: pool.apply_async(prod_estimate, (name,))
+            for name in ("lm_vlm_prod_prefill", "lm_vlm_prod_train")}
     cells = pool.starmap_async(dryrun_task, dryrun_uncut_tasks(f"{cells_dir}/uncut")
                                + dryrun_tasks(cells_dir), chunksize=1)
     cfg = dataclasses.replace(get_arch(VLM_ARCH), num_layers=VLM_TRAIN_LAYERS)
@@ -3214,6 +3656,7 @@ def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
 
         res = dryrun.analyse(call, (x, params), {"inputs": x, "params": params})
     out["gcn_full_forward"] = {**dryrun.memory_analysis(res), "trace_s": res["trace_s"]}
+    out.update({name: r.get() for name, r in prod.items()})
     out["estimates_s"] = time.perf_counter() - t0
     counts = cells.get()
     pool.close()
@@ -3223,11 +3666,13 @@ def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
     Path(out_path).write_text(json.dumps(out))
 
 
-def phase_dryrun_check(graph, seed: int, vlm_train: dict) -> dict:
+def phase_dryrun_check(graph, seed: int, vlm_train: dict, prod_prefill: dict,
+                       prod_train: dict) -> dict:
     """The dry run against the card: its peak estimates (``dryrun_estimates``,
     in a child process with a timeout) beside ``max_memory_allocated()`` of
     the same calls, less what the process held on the card that the call
-    was not given: ``lm_vlm_train``'s steps (read by that phase) and a gcn
+    was not given: ``lm_vlm_train``'s steps, ``lm_vlm_prod_prefill``'s counted
+    prefill and ``lm_vlm_prod_train``'s steps (read by those phases) and a gcn
     ``full_forward`` over ``graph`` run here (peak reset around it).  Each
     estimate must lie within ``TOL_DRYRUN_PEAK`` of its measured peak, and
     every cell of :func:`dryrun_tasks` must have run, each with its figures."""
@@ -3286,6 +3731,8 @@ def phase_dryrun_check(graph, seed: int, vlm_train: dict) -> dict:
         "lm_vlm_train": (vlm_train["peak_mem_bytes"],
                          vlm_train["mem_at_reset_bytes"] - vlm_train["input_bytes"]),
         "gcn_full_forward": (ff_peak, before - inputs),
+        **{row["phase"]: (row["peak_mem_bytes"], row["mem_at_reset_bytes"] - row["input_bytes"])
+           for row in (prod_prefill, prod_train)},
     }
     checks = {}
     for name, (peak, other) in measured.items():
@@ -3348,7 +3795,8 @@ def _block_err(x, ref, rows: int = 128):
 
 
 def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal: bool = True,
-                           sk: int = None, s: int = LM_PROMPT) -> dict:
+                           sk: int = None, s: int = LM_PROMPT, b: int = LM_BATCH,
+                           tail: int = 0) -> dict:
     """The prefill shape of ``cfg`` (GQA; causal, or not with ``causal=False``,
     as the encoder's self attention and the cross attention run; ``s`` query
     rows, the prompt's length unless given, and ``sk`` keys, ``s`` unless
@@ -3359,14 +3807,18 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
     product.  The library call is ``scaled_dot_product_attention``, causal or
     not, or with the band as a boolean mask.  A second launch must give the
     first's bits.  In bf16 each block of 128 query rows must also be within
-    ``TOL_ATTN_BF16_VS_LIBRARY`` times SDPA's max |Δ| in that block."""
+    ``TOL_ATTN_BF16_VS_LIBRARY`` times SDPA's max |Δ| in that block.  ``tail``:
+    the outputs are held on the last ``tail`` query rows of every head only,
+    against the plain version of those rows (``q_offset`` s − tail), which is
+    also what ``plain_ms`` times (the plain version of every row of the
+    production prefill would need ~280 GB of scores)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_lse
 
-    b, hq, hkv, dh = LM_BATCH, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     sk = s if sk is None else sk
     dt = getattr(torch, dtype)
     q = torch.randn(b, hq, s, dh, device="cuda", generator=gen).to(dt)
@@ -3377,8 +3829,11 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
     repeat = bool(torch.equal(out, flash_attention(q, k, v, **mask)))
     o_lse, lse = flash_attention_lse(q, k, v, **mask)
     lse_same_o = bool(torch.equal(o_lse, out))  # the lse output leaves o's bits alone
-    out = out.float()
-    ref, lse_ref = kref.flash_attention_lse_ref(q, k, v, **mask)
+    rows = slice(s - tail, s) if tail else slice(0, s)
+    q_ref = q[:, :, rows].contiguous() if tail else q
+    ref_mask = dict(mask, q_offset=s - tail) if tail else mask
+    out, lse = out[:, :, rows].float(), lse[:, :, rows]
+    ref, lse_ref = kref.flash_attention_lse_ref(q_ref, k, v, **ref_mask)
     ref = ref.float()
     if window is None:
         sdpa = dict(is_causal=causal)
@@ -3390,7 +3845,7 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
     def library():
         return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **sdpa)
 
-    lib = library().float()
+    lib = library()[:, :, rows].float()
     atol, rtol = TOL_ATTN if dtype == "float32" else TOL_ATTN_BF16
     lse_err = float((lse - lse_ref).abs().max())
     lse_ok = bool(((lse - lse_ref).abs() <= TOL_ATTN[0] + TOL_ATTN[1] * lse_ref.abs()).all())
@@ -3407,7 +3862,8 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
         within = within and scaled["block_err_over_library"] <= TOL_ATTN_BF16_VS_LIBRARY
     del out, ref, lib, o_lse, lse, lse_ref
     ms = cuda_time_ms(lambda: flash_attention(q, k, v, **mask), 20)
-    plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q, k, v, **mask), 3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: kref.flash_attention_ref(q_ref, k, v, **ref_mask), 3,
+                            warmup=1)
     lib_ms = cuda_time_ms(library, 10)
     if not causal:
         pairs = s * sk  # every key of every row
@@ -3428,6 +3884,8 @@ def kernel_flash_attention(cfg, gen, dtype: str = "float32", window=None, causal
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
            "library_ms": lib_ms, "flops": flops,
            "fp32_simt_bound_ms": flops / FP32_FLOPS * 1e3}
+    if tail:
+        row["held_rows"] = row["plain_rows"] = tail
     if dtype != "float32":
         row["variant"] = dtype  # a check beside the main path's dtype, not a summary row
     return row
@@ -3439,8 +3897,9 @@ def kernel_flash_attention_bwd(cfg, gen, dtype: str = "float32", b: int = TRAIN_
     """The backward kernels at a training shape of ``cfg`` (GQA; ``b`` rows of
     ``s`` query positions over ``sk`` keys, ``s`` unless given; causal, with a
     sliding ``window``, or not causal, as the encoder's self attention and the
-    cross attention) in fp32, the training step's dtype (fp32 params keep the
-    residual stream fp32), or in bf16, which no main path runs: against
+    cross attention) in fp32, the training step's dtype at fp32 params (they
+    keep the residual stream fp32), or in bf16, that of the step at bf16
+    params (``lm_vlm_prod_train``): against
     ``flash_attention_bwd_ref`` on the kernel's o and lse, a second launch
     bitwise the first, timed (both entries a call) beside the plain version
     and the backward of ``scaled_dot_product_attention`` in the same dtype
@@ -3855,6 +4314,11 @@ def _phases(args, kernels: dict) -> int:
     del vlm_params
     vlm_train = phase_lm_vlm_train(args.seed, kernels)
     _free_cuda()
+    # the vlm at the reference's production dtype (bf16 params): a full-depth prefill of
+    # the prefill_32k cell's inputs, training cut in depth, and the card against the CPU
+    prod_prefill = phase_lm_vlm_prod_prefill(args.seed, kernels)
+    prod_train = phase_lm_vlm_prod_train(args.seed, kernels)
+    prod_check = phase_lm_vlm_prod_consistency(args.seed, kernels)
     # the MoE, encoder-decoder, hymba and xLSTM families through the launch layer on the
     # 1 × 1 mesh, each trained at full width against the plain path (MoE's dispatch
     # backward inputs kept for its kernel row)
@@ -3867,12 +4331,13 @@ def _phases(args, kernels: dict) -> int:
     # every path's launches: the engine phases, the serving phases, the op, the LM
     path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe,
                                                              hymba, xlstm, encdec, vlm,
-                                                             vlm_train, *mesh_rows.values()]
+                                                             vlm_train, prod_prefill, prod_train,
+                                                             prod_check, *mesh_rows.values()]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on its path")
-    phase_dryrun_check(wl.base, args.seed, vlm_train)
+    phase_dryrun_check(wl.base, args.seed, vlm_train, prod_prefill, prod_train)
 
     # kernels at the shapes their paths used (GNN: largest layer caps over both runs)
     caps = {k: max(row["caps"][k] for row in engine_rows) for k in ("e", "r", "f", "fe")}
@@ -3922,6 +4387,15 @@ def _phases(args, kernels: dict) -> int:
          "variant": "vlm_prefill"},
         {**kernel_flash_attention(vlm_cfg, gen, "bfloat16", s=vlm_cfg.num_patches + LM_PROMPT),
          "variant": "vlm_prefill_bf16"},
+        # the production dtype's prefill (lm_vlm_prod_prefill's shape: B 2, 33,024
+        # positions), held on the last 256 query rows of every head
+        {**kernel_flash_attention(vlm_cfg, gen, "bfloat16", b=PROD_BATCH,
+                                  s=vlm_cfg.num_patches + PROD_PREFILL_SEQ, tail=256),
+         "variant": "vlm_prod_prefill_bf16"},
+        # and lm_vlm_prod_train's (B 2, 256 patches + 4,096 tokens), held whole
+        {**kernel_flash_attention(vlm_cfg, gen, "bfloat16", b=PROD_BATCH,
+                                  s=vlm_cfg.num_patches + PROD_TRAIN_SEQ),
+         "variant": "vlm_prod_train_bf16"},
         kernel_flash_attention_bwd(cfg, gen),
         kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
         # the vlm's training shape: 256 patches + 2,048 tokens at head dim 160
@@ -3929,6 +4403,10 @@ def _phases(args, kernels: dict) -> int:
                                          s=vlm_cfg.num_patches + TRAIN_SEQ),
            "variant": "vlm_train" + ("" if dt == "float32" else "_bf16")}
           for dt in ("float32", "bfloat16")),
+        # lm_vlm_prod_train's shape at the production dtype (B 2, S 4,352)
+        {**kernel_flash_attention_bwd(vlm_cfg, gen, "bfloat16", b=PROD_BATCH,
+                                      s=vlm_cfg.num_patches + PROD_TRAIN_SEQ),
+         "variant": "vlm_prod_train_bf16"},
         # the mesh phases' training shapes (B 2, S 2048): hymba's windowed layer (Hq 25 over
         # Hkv 5, window 1024), the encoder's self attention and the cross attention, here
         # over a ragged source (Sk 1,999)
@@ -3972,14 +4450,19 @@ def _phases(args, kernels: dict) -> int:
             entry["launches_lm_encdec_serve"] = encdec["launches"][name]
             entry["launches_lm_vlm_serve"] = vlm["launches"][name]
             entry["launches_lm_vlm_train"] = vlm_train["launches"][name]
+            entry["launches_lm_vlm_prod_prefill"] = prod_prefill["launches"][name]
+            entry["launches_lm_vlm_prod_train"] = prod_train["launches"][name]
+            entry["launches_lm_vlm_prod_consistency"] = prod_check["launches"][name]
             entry["launches_lm_encdec_serve_non_causal"] = encdec[
                 "prefill_attention_calls"]["non_causal"]
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
             entry["launches_by_entry"] = train["bwd_launches_by_entry"]
             entry["launches_by_path"] = {row["phase"]: row["launches"][name]
                                          for row in (train, train_check, vlm_train,
+                                                     prod_train, prod_check,
                                                      *mesh_rows.values())}
             entry["launches_by_entry_lm_vlm_train"] = vlm_train["bwd_launches_by_entry"]
+            entry["launches_by_entry_lm_vlm_prod_train"] = prod_train["bwd_launches_by_entry"]
         if name in ("segment_spmm", "flash_attention", "flash_attention_bwd"):
             for phase, row in mesh_rows.items():  # the mesh phases' four runs, and by kind
                 entry[f"launches_{phase}"] = row["launches"][name]
@@ -3991,6 +4474,7 @@ def _phases(args, kernels: dict) -> int:
         others = [{k: r[k] for k in ("variant", "shape", "max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "bound_share", "library_ms",
                                      "general_ms", "within_tol", "host_us_per_call",
+                                     "held_rows", "library_max_abs_err",
                                      "repeat_bitwise", "bitwise_repeat",
                                      "chunked_order_bitwise")
                    if k in r}

@@ -1,8 +1,12 @@
 """Time the serving path's fp32 ``flash_attention`` forward (no lse) of the
 checkout whose root is the current directory, at the llama3.2-1b prefill
-shape (B 8, Hq 32, Hkv 8, S 2048, dh 64, causal), and hash its output; then
+shape (B 8, Hq 32, Hkv 8, S 2048, dh 64, causal), and hash its output; time
+the bf16 instantiations at head dim 160 (pixtral-12b at bf16 params): the
+forward at the vlm prefill (B 8, Hq 32, Hkv 8, S 2,304, causal) and the
+backward, both entries a call, at the vlm training shape (B 2, S 2,304); then
 hash the forward's outputs at every head dim and dtype the checkout's wrapper
-takes, on a fixed set of shapes: o without ``lse``, o with it, and ``lse``.
+takes, on a fixed set of shapes (o without ``lse``, o with it, and ``lse``),
+and the backward's dq, dk and dv from that o and lse.
 
 Compare two checkouts on one card, one after the other in turns (parent,
 change, change, parent), each from its own root:
@@ -12,14 +16,17 @@ change, change, parent), each from its own root:
 A change that must leave some instantiations bit for bit as they were is
 checked by comparing the two checkouts' ``hashes`` at those head dims.
 
-Prints one JSON line: the checkout's directory name, the card, the mean ms
-of 50 launches in each of 5 repetitions (CUDA events; the first repetition
-warms up), the first 16 hex digits of the timed output's SHA-256, and for
-each ``dh/dtype/SqxSk`` those of the three outputs' SHA-256.
+Prints one JSON line: the checkout's directory name, the card and its power
+limit, the mean ms of 50 launches in each of 5 repetitions (CUDA events; the
+first repetition warms up), the first 16 hex digits of the timed output's
+SHA-256, the same repetitions for each bf16 dh-160 shape (``bf16_dh160``;
+10 launches a repetition for the backward), and for each ``dh/dtype/SqxSk``
+those of the six outputs' SHA-256 (``hashes``: o, o with lse, lse, dq, dk, dv).
 """
 import hashlib
 import json
 import os
+import subprocess
 import sys
 
 sys.path.insert(0, "src")
@@ -40,23 +47,40 @@ def _hash(t: torch.Tensor) -> str:
     return hashlib.sha256(raw).hexdigest()[:16]
 
 
-def _time() -> dict:
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(8, 32, 2048, 64, device="cuda", generator=g)
-    k = torch.randn(8, 8, 2048, 64, device="cuda", generator=g)
-    v = torch.randn(8, 8, 2048, 64, device="cuda", generator=g)
-    out = fmod.flash_attention(q, k, v)
+def _reps(fn, iters: int) -> list:
+    """Mean ms of ``iters`` launches of ``fn``, in each of 5 repetitions."""
     times = []
     for _ in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        for _ in range(50):
-            fmod.flash_attention(q, k, v)
+        for _ in range(iters):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 50)
-    return {"ms": times, "sha256": _hash(out)}
+        times.append(start.elapsed_time(end) / iters)
+    return times
+
+
+def _inputs(b, hq, hkv, sq, sk, dh, dt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, h, s, dh, device="cuda", generator=g).to(dt)
+            for h, s in ((hq, sq), (hkv, sk), (hkv, sk), (hq, sq))]  # q, k, v, dO
+
+
+def _time() -> dict:
+    q, k, v, _ = _inputs(8, 32, 8, 2048, 2048, 64, torch.float32, 0)
+    out = fmod.flash_attention(q, k, v)
+    return {"ms": _reps(lambda: fmod.flash_attention(q, k, v), 50), "sha256": _hash(out)}
+
+
+def _time_bf16_dh160() -> dict:
+    q, k, v, _ = _inputs(8, 32, 8, 2304, 2304, 160, torch.bfloat16, 1)
+    fwd = _reps(lambda: fmod.flash_attention(q, k, v), 50)
+    q, k, v, do = _inputs(2, 32, 8, 2304, 2304, 160, torch.bfloat16, 2)
+    o, lse = fmod.flash_attention_lse(q, k, v)
+    bwd = _reps(lambda: fmod.flash_attention_bwd(q, k, v, o, lse, do), 10)
+    return {"fwd_B8_S2304_ms": fwd, "bwd_B2_S2304_ms": bwd}
 
 
 def _hashes() -> dict:
@@ -64,22 +88,23 @@ def _hashes() -> dict:
     for dh in fmod.HEAD_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             for b, hq, hkv, sq, sk, causal, window, q_offset in SHAPES:
-                g = torch.Generator(device="cuda").manual_seed(sq + dh)
-                q = torch.randn(b, hq, sq, dh, device="cuda", generator=g).to(dt)
-                k = torch.randn(b, hkv, sk, dh, device="cuda", generator=g).to(dt)
-                v = torch.randn(b, hkv, sk, dh, device="cuda", generator=g).to(dt)
+                q, k, v, do = _inputs(b, hq, hkv, sq, sk, dh, dt, sq + dh)
                 o = fmod.flash_attention(q, k, v, causal=causal, window=window,
                                          q_offset=q_offset)
                 o_lse, lse = fmod.flash_attention_lse(q, k, v, causal, window, q_offset)
+                grads = fmod.flash_attention_bwd(q, k, v, o_lse, lse, do, causal, window,
+                                                 q_offset)
                 key = f"{dh}/{str(dt).removeprefix('torch.')}/{sq}x{sk}"
-                out[key] = [_hash(o), _hash(o_lse), _hash(lse)]
+                out[key] = [_hash(x) for x in (o, o_lse, lse, *grads)]
     return out
 
 
 def main() -> None:
-    print(json.dumps({"tree": os.path.basename(os.getcwd()),
-                      "device": torch.cuda.get_device_name(0), **_time(),
-                      "hashes": _hashes()}))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(json.dumps({"tree": os.path.basename(os.getcwd()), "card": card, **_time(),
+                      "bf16_dh160": _time_bf16_dh160(), "hashes": _hashes()}))
 
 
 if __name__ == "__main__":

@@ -66,14 +66,12 @@
 // the other's products: Q 81,920 + K and Vᵀ hi and lo of 32 keys 81,920 + one
 // raw K/V stage 40,960 + 8 = 204,808 B, one block an SM.  Its splits (Q, K, Vᵀ
 // and P) leave lo unrounded (hopper::split_tf32_fast): three ALU operations
-// where the rounded split takes five.  bf16 at dh 160 keeps Q
-// in the operand layout: Q 40,960 + K and Vᵀ 40,960 + two raw stages 81,920 +
-// 16 = 163,856 B.  O += P·V is one m64n160 wgmma a k step (80 fp32
-// accumulators a thread); ptxas -v gives 246 registers a thread in fp32 and
-// 197 in bf16 at dh 160, no spills.  Times against the bound: PERF.md §6.  The
-// split's bank spreading gives each group of 8 threads 8 distinct chunks; in
-// bf16 at dh 160 a raw row is 20 chunks, so some groups' shared reads of a K
-// tile meet 2-way conflicts (the fp32 row, 40 chunks, has none).  P never
+// where the rounded split takes five.  O += P·V is one m64n160 wgmma a k step
+// (80 fp32 accumulators a thread); ptxas -v gives 246 registers a thread in
+// fp32 at dh 160, no spills.  bf16 at dh 160 (pixtral-12b at bf16 params) runs
+// a kernel of its own, on TMA tensor copies and warp-specialised: the note
+// above flash_attention_ws_kernel.  Times against the bound: PERF.md §6.  The
+// split's bank spreading gives each group of 8 threads 8 distinct chunks.  P never
 // leaves the registers: the S accumulator gives a thread keys 2t, 2t+1 of each
 // 8-key group where the TF32 A fragment wants keys t, t+4, so the V split stores
 // each 8-key group in the order 0 2 4 6 1 3 5 7 and the product is unchanged.  (bf16 needs
@@ -91,6 +89,7 @@
 
 #include "error.cuh"
 #include "hopper.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -116,8 +115,9 @@ struct Cfg {
   // fp32 up to dh 64 keeps Q's hi and lo A fragments in registers and splits
   // tile t + 1 into a second operand buffer while tile t computes.  fp32 from
   // dh 128 (whose fragments would take 128 registers a thread or more) and
-  // bf16 read Q from shared memory and use one operand buffer; fp32 from dh
-  // 128 also shrinks the tiles to 32 keys and one raw stage to fit in 227 KB.
+  // bf16 up to dh 128 read Q from shared memory and use one operand buffer;
+  // fp32 from dh 128 also shrinks the tiles to 32 keys and one raw stage to fit
+  // in 227 KB.  (bf16 at dh 160 is flash_attention_ws_kernel's.)
   static constexpr bool kQRegs = kSplit && DH <= 64;
   // fp32 at dh 160 keeps Q raw in the A-fragment order of hopper.cuh (80 KB for
   // 128 rows, where its hi and lo would take 160 KB) and splits it into
@@ -525,6 +525,351 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --------------------------------------------------------------- bf16 at dh 160
+// pixtral-12b at the reference's production dtype (bf16 params, so bf16 q, k
+// and v): every prefill and training forward of the model runs here.  The
+// design above split each arrived K/V tile into the operand layout on all 256
+// threads between two barriers, beside no product, with 2-way bank conflicts
+// at dh 160 and V transposed element by element (a quarter of the bound, half
+// SDPA's rate on an H100).  Here no thread touches an operand:
+//   * TMA tensor copies (tma.cuh) land Q, K and V in the 64-byte swizzle that
+//     wgmma reads in place: Q and K K-major, V MN-major through the transpose
+//     bit of B (a 16-bit B may be either), so V needs no transpose.  The maps
+//     are 3-D (dh, S, B·H): keys past Sk and rows past Sq arrive as zeros, and
+//     a ragged tile needs no zeroing.  The host encodes them per call.
+//   * A block is three warpgroups.  Warpgroup 0 is the producer: one thread
+//     keeps a ring of kWsStages K and V tiles full, with a full and an empty
+//     mbarrier per tile and operand, and the warpgroup hands its registers
+//     to the consumers (setmaxnreg 24 / 240).  Warpgroups 1 and 2 own 64
+//     query rows each (128 a block) and run the same loop over the block's
+//     key tiles of kWsBK keys, the masks applied by select where a tile
+//     crosses the band or the end of Sk.
+//   * Each consumer overlaps its own softmax with its products (FA3's order):
+//     in step t it issues S_t = Q·K_tᵀ, rescales O to tile t − 1's maxima
+//     while S_t runs, issues O += P_{t−1}·V_{t−1}, waits for S_t alone and runs
+//     the softmax of tile t while the P·V product runs.  The two consumers take
+//     turns to issue (two named barriers, FA3's ping-pong), so that one's
+//     softmax runs beside the other's products.
+//   * The softmax is short chains: the rows' maxima and sums run as four
+//     partial chains each (with two consumer warps on an SM sub-partition, one
+//     chain of 64 dependent operations a row held each tile for its latency),
+//     p = 2^(s·scale − m) is one FFMA and one ex2, and the masks are 32-bit
+//     bounds per row (the 64-bit ones spilled).
+//   * Blocks go by KV head, then query tile, then the group's query heads, so
+//     the blocks in flight read the K/V of one or two KV heads from L2 (the
+//     production prefill's 338 MB of K/V would otherwise stream from HBM once
+//     per query head group in flight).  (A cluster of two blocks sharing each
+//     K/V tile by TMA multicast measured slower on an H100, and was dropped.)
+// fp32 (m, l, O) and the softmax in registers (O 80, S 64 and P's fragments
+// 32 a thread), causal rows heaviest first within a KV head, GQA read in place,
+// one owner for each output element (no atomics, the same bits on every run).
+// Shared memory: Q 40,960 + two stages of K and V 163,840 + barriers,
+// 1024-aligned.  What still bounds it (PERF.md §6): the K/V tiles' traffic from
+// L2, 128 operations a byte at 128 query rows a block.
+constexpr int kWsBQ = 128;     // query rows a block: two consumer warpgroups of 64
+constexpr int kWsBK = 128;     // keys a tile
+constexpr int kWsStages = 2;   // K/V tiles in flight
+constexpr int kWsDH = 160;
+constexpr int kWsQBytes = kWsBQ * kWsDH * 2;
+constexpr int kWsKBytes = kWsBK * kWsDH * 2;
+constexpr int kWsBars = 1 + 4 * kWsStages;  // Q; full and empty of K and of V per stage
+constexpr int kWsSmem = 1024 + kWsQBytes + 2 * kWsStages * kWsKBytes + 8 * kWsBars;
+static_assert(kWsSmem <= 232448, "a block may have at most 227 KB of shared memory");
+constexpr int kWsRegsProducer = 24, kWsRegsConsumer = 240;
+constexpr int kWsSchedBar = 1;  // named barriers 1 and 2: consumer 0's and consumer 1's turn
+
+template <bool kLse>
+__global__ void __launch_bounds__(384, 1)
+flash_attention_ws_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int hq, int g, long long sq, long long sk,
+                          float scale_log2, int causal, long long window, long long q_offset) {
+  constexpr int DH = kWsDH, BK = kWsBK, S = kWsStages, NS = BK / 2, NO = DH / 2;
+  constexpr int QK_STEPS = DH / 16, PV_STEPS = BK / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = tma::align1024(smem_raw);          // [box][128 rows][64 B]
+  unsigned char* ks = qs + kWsQBytes;                     // [stage][box][BK rows][64 B]
+  unsigned char* vs = ks + S * kWsKBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + S * kWsKBytes);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty_k = full_v + S;
+  uint64_t* empty_v = empty_k + S;
+
+  // Blocks go by KV head, then by query tile (the longest causal rows first), then
+  // by the g query heads of the group, so that the blocks in flight together read
+  // the K/V of one or two KV heads, which stay in L2.
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long n_qb = (sq + kWsBQ - 1) / kWsBQ, blk = blockIdx.x;
+  const long long bkv = blk / g / n_qb;  // b · Hkv + KV head
+  const long long q0 = (n_qb - 1 - (blk / g) % n_qb) * kWsBQ;
+  const long long bh = (bkv / (hq / g)) * hq + (bkv % (hq / g)) * g + blk % g;
+  const int kvh = static_cast<int>(bkv);
+
+  // the key tiles that some row of the block may see: [t0, t0 + BK · n_tiles)
+  long long k_lo = 0, k_hi = sk;
+  if (causal) k_hi = min(k_hi, min(q0 + kWsBQ, sq) - 1 + q_offset + 1);
+  if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
+  const long long t0 = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > t0 ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
+
+  if (tid == 0) {
+    hopper::mbar_init(full_q, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty_k[s], 8);  // one arrival from each consumer warp
+      hopper::mbar_init(&empty_v[s], 8);
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    tma::regs_dec<kWsRegsProducer>();
+    if (tid == 0 && n_tiles > 0) {
+      hopper::mbar_expect_tx(full_q, kWsQBytes);
+      tma::load_tile<DH, kWsBQ>(qs, &tq, static_cast<int>(q0), static_cast<int>(bh), full_q);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S, k0 = static_cast<int>(t0 + static_cast<long long>(t) * BK);
+        if (t >= S) hopper::mbar_wait(&empty_k[s], ((t / S) - 1) & 1);
+        hopper::mbar_expect_tx(&full_k[s], kWsKBytes);
+        tma::load_tile<DH, BK>(ks + s * kWsKBytes, &tk, k0, kvh, &full_k[s]);
+        if (t >= S) hopper::mbar_wait(&empty_v[s], ((t / S) - 1) & 1);
+        hopper::mbar_expect_tx(&full_v[s], kWsKBytes);
+        tma::load_tile<DH, BK>(vs + s * kWsKBytes, &tv, k0, kvh, &full_v[s]);
+      }
+    }
+    return;
+  }
+
+  tma::regs_inc<kWsRegsConsumer>();
+  const int cw = wg - 1, ct = tid & 127, warp = ct >> 5, lane = tid & 31;
+  const long long wq0 = q0 + cw * kWG;  // this warpgroup's rows
+  const int r0 = warp * 16 + (lane >> 2), tig = lane & 3;
+  const unsigned char* qw = qs + cw * kWG * tma::kBoxRowBytes;  // its 64 rows of each Q box
+  // The masks in 32 bits, keys counted from t0 (S < 2^30, which launch_ws checks): row
+  // q sees the keys j with w(q) ≤ j < c(q) and j < Sk − t0, where c(q) = q + q_offset + 1
+  // − t0 (causal) and w(q) = q + q_offset − window + 1 − t0 (window), clamped to
+  // [−1, 2^30]; per thread for its rows r0 and r0 + 8, and for the warpgroup's first
+  // row (the fewest keys under the causal mask) and last (the latest window start).
+  constexpr long long kCap = 1LL << 30;
+  auto rel = [&](long long x) { return static_cast<int>(max(min(x - t0, kCap), -1LL)); };
+  const long long qa_lo = wq0 + q_offset, qa_hi = min(wq0 + kWG, sq) - 1 + q_offset;
+  const int sk_r = rel(sk);
+  const int c_first = causal ? rel(qa_lo + 1) : static_cast<int>(kCap);
+  const int w_last = window > 0 ? rel(qa_hi - window + 1) : -1;
+  int c_row[2], w_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long qpos = qa_lo + r0 + 8 * h;
+    c_row[h] = min(sk_r, causal ? rel(qpos + 1) : static_cast<int>(kCap));
+    w_row[h] = window > 0 ? rel(qpos - window + 1) : -1;
+  }
+
+  float acc[NO], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+  uint32_t pf[4 * PV_STEPS];  // P of the last tile as bf16 A fragments
+
+  // S = Q · K_tᵀ of stage s, issued and committed
+  auto issue_s = [&](float (&s_acc)[NS], int s) {
+    const unsigned char* kt = ks + s * kWsKBytes;
+#pragma unroll
+    for (int i = 0; i < QK_STEPS; ++i)
+      Mma<Op::kBf16, Src::kSS, BK>::run(s_acc, tma::desc_k<kWsBQ>(qw, i),
+                                        tma::desc_k<BK>(kt, i), i > 0);
+    hopper::wgmma_commit();
+  };
+  // O += P · V of stage s, issued and committed
+  auto issue_pv = [&](int s) {
+    const unsigned char* vt = vs + s * kWsKBytes;
+#pragma unroll
+    for (int i = 0; i < PV_STEPS; ++i)
+      Mma<Op::kBf16, Src::kRST, DH>::run(acc, pf + 4 * i, tma::desc_mn<BK>(vt, i), 1);
+    hopper::wgmma_commit();
+  };
+  auto release = [&](uint64_t* bar) {  // this warp is done with a stage's operand
+    if (lane == 0) tma::arrive(bar);
+  };
+  // the online softmax of tile t's scores; s_acc[4i + 2h + e] is row r0 + 8h,
+  // key k0 + 8i + 2·tig + e.  Returns P in s_acc and each row's rescale of O.
+  // The maximum is taken over the raw scores (scale > 0), m is kept in log2
+  // units with the scale folded in, and p = 2^(s · scale − m) is one FFMA and
+  // one ex2.  The row's maximum and sum run as four partial chains each: with
+  // two consumer warps on an SM sub-partition, one chain of 64 dependent
+  // operations a row would hold each tile for ~4 × 64 cycles of latency.
+  auto softmax = [&](float (&s_acc)[NS], int t, float (&alpha)[2]) {
+    const int k0 = t * BK;  // from t0
+    const bool masked = k0 + BK > sk_r || c_first < k0 + BK || w_last > k0;
+    if (masked) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lo = w_row[h] - k0, hi = c_row[h] - k0;  // the tile's keys lo ≤ j < hi
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 8 * i + 2 * tig + e;
+            s_acc[4 * i + 2 * h + e] = j >= lo && j < hi ? s_acc[4 * i + 2 * h + e] : -INFINITY;
+          }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mx[(2 * i + e) & 3] = fmaxf(mx[(2 * i + e) & 3], s_acc[4 * i + 2 * h + e]);
+      float m_row = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+      m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, 1));
+      m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, 2));
+      const float m_new = fmaxf(m[h], m_row * scale_log2);
+      const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // nothing seen yet: p = 0
+      alpha[h] = hopper::exp2_approx(m[h] - m_use);
+      float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = hopper::exp2_approx(fmaf(s_acc[4 * i + 2 * h + e], scale_log2, -m_use));
+          s_acc[4 * i + 2 * h + e] = p;
+          sum[(2 * i + e) & 3] += p;
+        }
+      // this thread's share; the quad sums it at the end
+      l[h] = l[h] * alpha[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+      m[h] = m_new;
+    }
+  };
+  // O *= alpha by row (fp32 sums of the rows' last maximum → this tile's)
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * i + 2 * h] *= alpha[h];
+        acc[4 * i + 2 * h + 1] *= alpha[h];
+      }
+  };
+  // P (fp32) → pf, bf16 k16 fragments: pairs (r0, 2·tig), (r0 + 8, 2·tig), (r0,
+  // 2·tig + 8), (r0 + 8, 2·tig + 8) of each 16 keys
+  auto pack = [&](const float (&s_acc)[NS]) {
+#pragma unroll
+    for (int i = 0; i < PV_STEPS; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int src = 8 * i + 4 * (j >> 1) + 2 * (j & 1);
+        __nv_bfloat162 pr = __floats2bfloat162_rn(s_acc[src], s_acc[src + 1]);
+        pf[4 * i + j] = *reinterpret_cast<uint32_t*>(&pr);
+      }
+  };
+  // the turns: consumer cw issues after its own barrier and then opens the other's
+  auto my_turn = [&] { hopper::bar_sync(kWsSchedBar + cw, 256); };
+  auto your_turn = [&] { hopper::bar_arrive(kWsSchedBar + (cw ^ 1), 256); };
+
+  if (n_tiles > 0) {
+    if (cw == 1) your_turn();  // consumer 0 goes first
+    hopper::mbar_wait(full_q, 0);
+    float s_acc[NS], alpha[2];
+    hopper::mbar_wait(&full_k[0], 0);
+    my_turn();
+    hopper::wgmma_fence();
+    issue_s(s_acc, 0);
+    your_turn();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s_acc);
+    release(&empty_k[0]);
+    softmax(s_acc, 0, alpha);
+    pack(s_acc);
+    for (int t = 1; t < n_tiles; ++t) {
+      // O is rescaled to tile t − 1's maxima while S_t runs, and P_{t−1}·V_{t−1}
+      // is issued after it; the softmax of tile t runs while that product does
+      const int s = t % S, sp = (t - 1) % S;
+      hopper::mbar_wait(&full_k[s], (t / S) & 1);
+      hopper::mbar_wait(&full_v[sp], ((t - 1) / S) & 1);
+      my_turn();
+      hopper::fence_regs(pf);
+      hopper::wgmma_fence();
+      issue_s(s_acc, s);
+      rescale(alpha);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      issue_pv(sp);
+      your_turn();
+      hopper::wgmma_wait<1>();  // S_t is done; P_{t−1}·V_{t−1} runs on
+      hopper::fence_regs(s_acc);
+      release(&empty_k[s]);
+      softmax(s_acc, t, alpha);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pf);
+      release(&empty_v[sp]);
+      pack(s_acc);
+    }
+    const int sl = (n_tiles - 1) % S;
+    hopper::mbar_wait(&full_v[sl], ((n_tiles - 1) / S) & 1);
+    my_turn();
+    rescale(alpha);
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pf);
+    hopper::wgmma_fence();
+    issue_pv(sl);
+    if (cw == 0) your_turn();  // consumer 1's last turn is not waited for
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(pf);
+    release(&empty_v[sl]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const long long r = wq0 + r0 + 8 * h;
+    if (r >= sq) continue;
+    if constexpr (kLse) {
+      if (tig == 0)
+        lse[bh * sq + r] = lt > 0.0f ? (m[h] + log2f(lt)) * 0.6931471805599453f : -INFINITY;
+    }
+    __nv_bfloat16* out = o + (bh * sq + r) * DH + 2 * tig;
+    const float inv = lt > 0.0f ? 1.0f / lt : 0.0f;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
+  }
+}
+
+template <bool kLse>
+int launch_ws(const void* q, const void* k, const void* v, void* o, float* lse, long long b,
+              long long hq, long long hkv, long long sq, long long sk, float scale, int causal,
+              long long window, long long q_offset, cudaStream_t stream) {
+  if (b * hq * ((sq + kWsBQ - 1) / kWsBQ) > 0x7fffffffLL || sq >= (1LL << 30) ||
+      sk >= (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);  // grid.x; the kernel's 32-bit masks
+  CUtensorMap tq, tk, tv;
+  // Sk = 0 leaves no tile to load: the maps of k and v then describe q's first
+  // row, which is never read
+  const bool keys = sk > 0;
+  int err = tma::encode_rows(&tq, q, b * hq, sq, kWsDH, kWsBQ);
+  if (err == 0) err = tma::encode_rows(&tk, keys ? k : q, keys ? b * hkv : 1, keys ? sk : 1,
+                                       kWsDH, kWsBK);
+  if (err == 0) err = tma::encode_rows(&tv, keys ? v : q, keys ? b * hkv : 1, keys ? sk : 1,
+                                       kWsDH, kWsBK);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_ws_kernel<kLse>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(b * hq * ((sq + kWsBQ - 1) / kWsBQ)));
+  flash_attention_ws_kernel<kLse><<<grid, 384, kWsSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(hq),
+      static_cast<int>(hq / hkv), sq, sk, scale * 1.4426950408889634f, causal, window, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DH, bool kLse>
 int launch_kernel(const void* q, const void* k, const void* v, void* o, float* lse,
                   long long b, long long hq, long long hkv, long long sq, long long sk,
@@ -548,11 +893,17 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, long long b,
            long long hq, long long hkv, long long sq, long long sk, float scale, int causal,
            long long window, long long q_offset, cudaStream_t stream) {
-  return lse != nullptr
-             ? launch_kernel<T, DH, true>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
-                                          window, q_offset, stream)
-             : launch_kernel<T, DH, false>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
-                                           window, q_offset, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == kWsDH)  // TMA, warp-specialised
+    return lse != nullptr ? launch_ws<true>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
+                                            window, q_offset, stream)
+                          : launch_ws<false>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
+                                             window, q_offset, stream);
+  else
+    return lse != nullptr
+               ? launch_kernel<T, DH, true>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
+                                            window, q_offset, stream)
+               : launch_kernel<T, DH, false>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale,
+                                             causal, window, q_offset, stream);
 }
 
 template <typename T>

@@ -57,7 +57,9 @@
 // (the CUDA-core work of one warpgroup then runs beside the other's products),
 // one otherwise (Cfg).  fp32 at dh 160 (pixtral-12b's training) runs kernels of
 // its own, two warpgroups with a role each over the same 64 rows or keys (the
-// note above bwd_dq_roles_kernel).  Elsewhere P and dS never go to shared
+// note above bwd_dq_roles_kernel), and so does bf16 at dh 160, on TMA tensor
+// copies and warp-specialised (the note above bwd_dq_ws_kernel).  Elsewhere P
+// and dS never go to shared
 // memory: the accumulator
 // gives a thread columns 2t, 2t+1 of each 8-group where the TF32 A fragment
 // wants t, t+4, so the transposed operands (Kᵀ; Qᵀ, dOᵀ) store each 8-group of
@@ -94,6 +96,7 @@
 
 #include "error.cuh"
 #include "hopper.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -125,9 +128,7 @@ struct Cfg {
   // small enough to run several to an SM and whose two-warpgroup kernels took
   // more registers (fewer warps an SM, and spills at dh 128), take one.  The
   // loop tile (keys a step of the dQ kernel, query rows a step of the dK/dV
-  // kernel) is as large as fits in 227 KB.  bf16 at dh 160 takes 32-row tiles
-  // for its registers: the dK and dV sums of 64 × 160 are 160 a thread, and a
-  // 64-row tile's Pᵀ and dSᵀ with their fragments would add 96.
+  // kernel) is as large as fits in 227 KB.
   // fp32 at dh 160 (kRoles) runs the kernels of their own below
   // (bwd_dq_roles_kernel, bwd_dkdv_roles_kernel): 64 rows (keys) a block, two
   // warpgroups with a role each, the block operands raw in the A-fragment
@@ -137,8 +138,7 @@ struct Cfg {
   static constexpr int kWG = (kSplit && DH <= 64) || kRoles ? 2 : 1;
   static constexpr int kThreads = 128 * kWG;
   static constexpr int kRows = kRoles ? kWgRows : kWgRows * kWG;
-  static constexpr int kTile =
-      kRoles ? 16 : DH == 160 ? 32 : !kSplit || DH <= 32 ? 64 : DH == 64 ? 32 : 16;
+  static constexpr int kTile = kRoles ? 16 : !kSplit || DH <= 32 ? 64 : DH == 64 ? 32 : 16;
   static constexpr int kBlockPart = kRows * DH * kE;  // one part of a block operand
   static constexpr int kTilePart = kTile * DH * kE;   // one part of a loop-tile operand
   // operands of a loop tile: dQ: K, V (+ Kᵀ in fp32); dK/dV: Q, dO (+ Qᵀ, dOᵀ in fp32)
@@ -1159,44 +1159,499 @@ struct Args {
   long long window, q_offset;
 };
 
+// ------------------------------------------------------------- bf16 at dh 160
+// pixtral-12b's training at the reference's production dtype (bf16 params):
+// every layer's backward runs here.  The kernels above split each loop tile
+// into the operand layout on the block's CUDA cores between barriers, beside no
+// product, and at bf16 dh 160 ran one warpgroup a block on 32-row loop tiles
+// (the dK and dV sums of 64 × 160 take 160 registers a thread).  Here no thread
+// touches an operand, and the warpgroups specialise:
+//   * TMA tensor copies (tma.cuh) land every operand in the 64-byte swizzle
+//     that wgmma reads in place, K-major as the A or B of S and dP, MN-major
+//     through B's transpose bit as the B of dQ += dS·K, dV += Pᵀ·dO and dK +=
+//     dSᵀ·Q: one copy of each tile serves both products.  Rows past Sq or Sk
+//     arrive as zeros.
+//   * Warpgroup 0 is the producer: one warp keeps a ring of kBwdStages loop
+//     tiles full (full and empty mbarriers per stage; in the dK/dV kernel its
+//     lanes also write each tile's lse · log2 e and D into the stage) and gives
+//     its registers to the consumers (setmaxnreg 40 / 232).
+//   * dQ kernel: two consumer warpgroups of 64 query rows each (128 a block)
+//     over 64-key tiles: S = Q·Kᵀ (Q's A fragments in registers, 40 a thread),
+//     dP = dO·Vᵀ, P and dS = P ∘ (dP − D) in registers, dQ += dS·K (80 fp32
+//     sums a thread).  Each owns one sum, so two 64-row warpgroups fit beside
+//     S, dP and the fragments, and the two share each loop tile: half the tile
+//     bytes of one warpgroup a block.  D = rowsum(dO ∘ O) is computed by each
+//     row's four threads and written for the dK/dV kernel.
+//   * dK/dV kernel: 64 keys a block over 64-row query tiles, the two roles of the
+//     fp32 kernels at dh 160 (bwd_dkdv_roles_kernel):
+//     role 0 runs Sᵀ = K·Qᵀ, Pᵀ and dV += Pᵀ·dO, role 1 dPᵀ = V·dOᵀ, dSᵀ = Pᵀ ∘
+//     (dPᵀ − D) and dK += dSᵀ·Q, Pᵀ passing through shared memory (double
+//     buffered, two named barriers each way, so role 0 may run a tile ahead).
+//     Each role holds its block operand (K or V) as A fragments in registers,
+//     so Sᵀ and dPᵀ read only the loop tile from shared memory (an m64n64
+//     product from shared memory on both sides reads it at its full rate).
+//     Two 64-key warpgroups with both sums each would hold 160 fp32 sums a
+//     thread beside S, dP and the fragments of a 64-row tile (past 240
+//     registers); a role holds one sum.
+// The sums run as one wgmma chain over the loop (bf16 products of fp32 sums:
+// no fp32 tolerance to keep, unlike the split-TF32 kernels), each output
+// element has one owner (no atomics: the same bits on every run), masks by
+// select only on tiles that cross the band or the end of Sk, the heaviest blocks
+// first, GQA read in place.
+constexpr int kBwdDH = 160;
+constexpr int kBwdStages = 3;
+constexpr int kBwdRegsProducer = 40, kBwdRegsConsumer = 232;
+constexpr int kTileBytes64 = 64 * kBwdDH * 2;  // one operand tile of 64 rows: 20,480 B
+// dQ: 128 query rows a block; Q and dO 81,920 + three stages of K and V 122,880
+constexpr int kDqRows = 128, kDqKeys = 64;
+constexpr int kDqSmem = 1024 + 2 * 2 * kTileBytes64 + kBwdStages * 2 * kTileBytes64 +
+                        8 * (1 + 2 * kBwdStages);
+// dK/dV: 64 keys a block over 64-row query tiles; K and V 40,960 + three stages of
+// Q and dO 122,880 + their lse · log2 e and D 1,536 + the exchange of Pᵀ 32,768
+constexpr int kKvKeys = 64, kKvRows = 64;
+constexpr int kKvExchange = kKvKeys * kKvRows * 4;  // one buffer of Pᵀ, fp32
+constexpr int kKvSmem = 1024 + 2 * kTileBytes64 + kBwdStages * 2 * kTileBytes64 +
+                        kBwdStages * 2 * 4 * kKvRows + 2 * kKvExchange + 8 * (1 + 2 * kBwdStages);
+static_assert(kDqSmem <= kSmemMax && kKvSmem <= kSmemMax, "shared memory");
+
+__global__ void __launch_bounds__(384, 1)
+bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                 const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+                 float* __restrict__ delta, int hq, int g, long long sq, long long sk,
+                 float scale, int causal, long long window, long long q_offset) {
+  using T = __nv_bfloat16;
+  constexpr int DH = kBwdDH, BK = kDqKeys, S = kBwdStages, NS = BK / 2, NO = DH / 2;
+  constexpr int QK_STEPS = DH / 16, DQ_STEPS = BK / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = tma::align1024(smem_raw);  // [box][128 rows][64 B]
+  unsigned char* dos = qs + 2 * kTileBytes64;
+  unsigned char* kvs = dos + 2 * kTileBytes64;   // [stage][K tile, V tile]
+  uint64_t* full_qo = reinterpret_cast<uint64_t*>(kvs + S * 2 * kTileBytes64);
+  uint64_t* full = full_qo + 1;
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long bh = blockIdx.x, b = bh / hq;
+  const int kvh = static_cast<int>(b * (hq / g) + (bh % hq) / g);
+  // the last query tiles see the most keys under the causal mask: they go first
+  const long long q0 = (static_cast<long long>(gridDim.y) - 1 - blockIdx.y) * kDqRows;
+  const long long nq = min(static_cast<long long>(kDqRows), sq - q0);
+
+  // the key tiles that some row of the block may see: [t0, t0 + BK · n_tiles)
+  long long k_lo = 0, k_hi = sk;
+  if (causal) k_hi = min(k_hi, q0 + nq + q_offset);
+  if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
+  const long long t0 = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
+
+  if (tid == 0) {
+    hopper::mbar_init(full_qo, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    tma::regs_dec<kBwdRegsProducer>();
+    if (tid == 0 && n_tiles > 0) {
+      hopper::mbar_expect_tx(full_qo, 4 * kTileBytes64);
+      tma::load_tile<DH, kDqRows>(qs, &tq, static_cast<int>(q0), static_cast<int>(bh), full_qo);
+      tma::load_tile<DH, kDqRows>(dos, &tdo, static_cast<int>(q0), static_cast<int>(bh), full_qo);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S, k0 = static_cast<int>(t0 + static_cast<long long>(t) * BK);
+        if (t >= S) hopper::mbar_wait(&empty[s], ((t / S) - 1) & 1);
+        unsigned char* dst = kvs + s * 2 * kTileBytes64;
+        hopper::mbar_expect_tx(&full[s], 2 * kTileBytes64);
+        tma::load_tile<DH, BK>(dst, &tk, k0, kvh, &full[s]);
+        tma::load_tile<DH, BK>(dst + kTileBytes64, &tv, k0, kvh, &full[s]);
+      }
+    }
+    return;
+  }
+
+  tma::regs_inc<kBwdRegsConsumer>();
+  const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2), tig = lane & 3;
+  const long long wq0 = q0 + cw * kWgRows;  // this warpgroup's rows
+  const long long qa_lo = wq0 + q_offset, qa_hi = min(wq0 + kWgRows, sq) - 1 + q_offset;
+  const bool rows = wq0 < sq;
+  const unsigned char* dow = dos + cw * kWgRows * tma::kBoxRowBytes;  // its rows of dO
+  const float scale_log2 = scale * kLog2e;
+
+  // D = rowsum(dO ∘ O) and lse · log2 e of this thread's rows r0 and r0 + 8: each
+  // row's four threads take 40 columns each
+  float lse2[2], drw[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = wq0 + r0 + 8 * h, row = bh * sq + r;
+    float sum = 0.0f;
+    if (r < sq) {
+      const uint4* dr = reinterpret_cast<const uint4*>(dout + row * DH) + tig * 5;
+      const uint4* orow = reinterpret_cast<const uint4*>(o + row * DH) + tig * 5;
+#pragma unroll
+      for (int c = 0; c < 5; ++c) sum = dot_chunk<T>(__ldg(dr + c), __ldg(orow + c), sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    drw[h] = sum;
+    lse2[h] = r < sq ? lse[row] * kLog2e : 0.0f;
+    if (r < sq && tig == 0) delta[row] = sum;
+  }
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+  uint32_t qf[DH / 4];  // Q's A fragments: S = Q·Kᵀ reads only K from shared memory
+  if (n_tiles > 0) {
+    hopper::mbar_wait(full_qo, 0);
+    tma::load_a_frags<kDqRows, DH>(qs, cw * kWgRows, qf);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S;
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const unsigned char* kt = kvs + s * 2 * kTileBytes64;
+    const unsigned char* vt = kt + kTileBytes64;
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+    // does some row of this warpgroup see a key of this tile?
+    const bool active = rows && !(causal && k0 > qa_hi) &&
+                        !(window > 0 && k0 + BK - 1 <= qa_lo - window);
+    if (active) {
+      // S = Q · Kᵀ and dP = dO · Vᵀ
+      float x[NS], dp[NS];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < QK_STEPS; ++i)
+        Mma<Op::kBf16, Src::kRS, BK>::run(x, qf + 4 * i, tma::desc_k<BK>(kt, i), i > 0);
+#pragma unroll
+      for (int i = 0; i < QK_STEPS; ++i)
+        Mma<Op::kBf16, Src::kSS, BK>::run(dp, tma::desc_k<kDqRows>(dow, i),
+                                          tma::desc_k<BK>(vt, i), i > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(x);
+      hopper::fence_regs(dp);
+
+      // P and dS = P ∘ (dP − D); x[4i + 2h + e] is row r0 + 8h, key k0 + 8i + 2·tig + e
+      const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
+                          (window > 0 && k0 <= qa_hi - window);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long qpos = qa_lo + r0 + 8 * h;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * i + 2 * h + e;
+            float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -lse2[h]));
+            if (masked) p = visible(qpos, k0 + 8 * i + 2 * tig + e, sk, causal, window) ? p : 0.0f;
+            dp[j] = p * (dp[j] - drw[h]);
+          }
+      }
+
+      // dQ += dS · K, dS from registers, K read MN-major
+      uint32_t f[4 * DQ_STEPS];
+      to_frags<T, BK>(dp, f, nullptr);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < DQ_STEPS; ++i)
+        Mma<Op::kBf16, Src::kRST, DH>::run(acc, f + 4 * i, tma::desc_mn<BK>(kt, i), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(f);
+    }
+    if (lane == 0) tma::arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = wq0 + r0 + 8 * h;
+    if (r >= sq) continue;
+    T* out = dq + (bh * sq + r) * DH + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, acc[4 * i + 2 * h] * scale, acc[4 * i + 2 * h + 1] * scale);
+  }
+}
+
+__global__ void __launch_bounds__(384, 1)
+bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int hq, int g, long long sq, long long sk,
+                   float scale, int causal, long long window, long long q_offset) {
+  using T = __nv_bfloat16;
+  constexpr int DH = kBwdDH, BQ = kKvRows, S = kBwdStages, NS = BQ / 2, NO = DH / 2;
+  constexpr int QK_STEPS = DH / 16, KV_STEPS = BQ / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = tma::align1024(smem_raw);   // K, then V: [box][64 keys][64 B]
+  unsigned char* vs = ks + kTileBytes64;
+  unsigned char* qds = vs + kTileBytes64;         // [stage][Q tile, dO tile]
+  float* lse2s = reinterpret_cast<float*>(qds + S * 2 * kTileBytes64);  // [stage][64]
+  float* ds_ = lse2s + S * BQ;                                         // [stage][64]: D
+  float* xs = ds_ + S * BQ;                                            // [2][Pᵀ]
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(xs + 2 * (kKvExchange / 4));
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long bkv = blockIdx.x;  // b · Hkv + KV head
+  const long long hkv = hq / g, b = bkv / hkv;
+  const long long h0 = b * hq + (bkv % hkv) * g;  // b · Hq + the group's first q head
+  // the first key tiles are seen by the most rows under the causal mask: they go first
+  const long long k0 = static_cast<long long>(blockIdx.y) * kKvKeys;
+  const long long nk = min(static_cast<long long>(kKvKeys), sk - k0);
+
+  // the query tiles that see some key of the block, for each of the g heads
+  long long i_lo = 0, i_hi = sq;
+  if (causal) i_lo = max(i_lo, k0 - q_offset);
+  if (window > 0) i_hi = min(i_hi, k0 + nk - 1 + window - q_offset);
+  const long long qt0 = (i_lo / BQ) * BQ;
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - qt0 + BQ - 1) / BQ) : 0;
+  const int n_tiles = g * n_qt;
+  auto tile_q0 = [&](int t) { return qt0 + static_cast<long long>(t % n_qt) * BQ; };
+  auto tile_bh = [&](int t) { return h0 + t / n_qt; };
+
+  if (tid == 0) {
+    hopper::mbar_init(full_kv, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp: the copies and lse, D
+      hopper::mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: its first warp
+    tma::regs_dec<kBwdRegsProducer>();
+    if (tid < 32 && n_tiles > 0) {
+      const int lane = tid;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full_kv, 2 * kTileBytes64);
+        tma::load_tile<DH, kKvKeys>(ks, &tk, static_cast<int>(k0), static_cast<int>(bkv), full_kv);
+        tma::load_tile<DH, kKvKeys>(vs, &tv, static_cast<int>(k0), static_cast<int>(bkv), full_kv);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        const long long q0 = tile_q0(t), bh = tile_bh(t);
+        if (t >= S) hopper::mbar_wait(&empty[s], ((t / S) - 1) & 1);
+#pragma unroll
+        for (int u = 0; u < BQ / 32; ++u) {  // the tile's lse · log2 e and D, 0 past Sq
+          const int r = lane + 32 * u;
+          const bool in = q0 + r < sq;
+          lse2s[s * BQ + r] = in ? lse[bh * sq + q0 + r] * kLog2e : 0.0f;
+          ds_[s * BQ + r] = in ? delta[bh * sq + q0 + r] : 0.0f;
+        }
+        if (lane == 0) {
+          unsigned char* dst = qds + s * 2 * kTileBytes64;
+          hopper::mbar_expect_tx(&full[s], 2 * kTileBytes64);
+          tma::load_tile<DH, BQ>(dst, &tq, static_cast<int>(q0), static_cast<int>(bh), &full[s]);
+          tma::load_tile<DH, BQ>(dst + kTileBytes64, &tdo, static_cast<int>(q0),
+                                 static_cast<int>(bh), &full[s]);
+        } else {
+          tma::arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  tma::regs_inc<kBwdRegsConsumer>();
+  const int role = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2), tig = lane & 3;
+  const float scale_log2 = scale * kLog2e;
+  constexpr int kPReady = 1, kPFree = 3;  // named barriers 1, 2 and 3, 4: one a buffer
+  float acc[NO];  // role 0's dV, role 1's dK
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+  uint32_t kvf[DH / 4];  // role 0's K, role 1's V as A fragments
+  if (n_tiles > 0) {
+    hopper::mbar_wait(full_kv, 0);
+    tma::load_a_frags<kKvKeys, DH>(role ? vs : ks, 0, kvf);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S, buf = t & 1;
+    const long long q0 = tile_q0(t);
+    const unsigned char* qt = qds + s * 2 * kTileBytes64;
+    const unsigned char* dot = qt + kTileBytes64;
+    float* xb = xs + buf * (kKvExchange / 4);
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+
+    // role 0: Sᵀ = K · Qᵀ; role 1: dPᵀ = V · dOᵀ (keys as M).  x[4i + 2h + e] is
+    // key k0 + r0 + 8h, query row q0 + 8i + 2·tig + e
+    float x[NS];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < QK_STEPS; ++i)
+      Mma<Op::kBf16, Src::kRS, BQ>::run(x, kvf + 4 * i, tma::desc_k<BQ>(role ? dot : qt, i),
+                                        i > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(x);
+    if (role == 0) {  // Pᵀ, to role 1
+      const bool masked = k0 + kKvKeys > sk || (causal && k0 + kKvKeys - 1 > q0 + q_offset) ||
+                          (window > 0 && k0 <= q0 + BQ - 1 + q_offset - window);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const int c = 8 * i + 2 * tig;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2s + s * BQ + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * i + 2 * h + e;
+            const float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -(e ? l2.y : l2.x)));
+            x[j] = !masked || visible(q0 + c + e + q_offset, k0 + r0 + 8 * h, sk, causal, window)
+                       ? p
+                       : 0.0f;
+          }
+      }
+      if (t >= 2) hopper::bar_sync(kPFree + buf, 256);  // role 1 has read tile t − 2's
+      put_exchange(xb, x);
+      hopper::bar_arrive(kPReady + buf, 256);
+    } else {  // dSᵀ = Pᵀ ∘ (dPᵀ − D)
+      float p[NS];
+      hopper::bar_sync(kPReady + buf, 256);
+      get_exchange(xb, p);
+      if (t + 2 < n_tiles) hopper::bar_arrive(kPFree + buf, 256);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const float2 dd = *reinterpret_cast<const float2*>(ds_ + s * BQ + 8 * i + 2 * tig);
+#pragma unroll
+        for (int j = 4 * i; j < 4 * i + 4; ++j) x[j] = p[j] * (x[j] - (j & 1 ? dd.y : dd.x));
+      }
+    }
+
+    // role 0: dV += Pᵀ · dO; role 1: dK += dSᵀ · Q; the A from registers, the B
+    // read MN-major
+    uint32_t f[4 * KV_STEPS];
+    to_frags<T, BQ>(x, f, nullptr);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < KV_STEPS; ++i)
+      Mma<Op::kBf16, Src::kRST, DH>::run(acc, f + 4 * i, tma::desc_mn<BQ>(role ? qt : dot, i), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(f);
+    if (lane == 0) tma::arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= nk) continue;
+    T* out = (role ? dk : dv) + (bkv * sk + k0 + r) * DH + 2 * tig;
+    const float f = role ? scale : 1.0f;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, acc[4 * i + 2 * h] * f, acc[4 * i + 2 * h + 1] * f);
+  }
+}
+
+// the four maps of a backward call: q and dO with boxes of q_rows rows, k and v
+// of kv_rows (Sk = 0: k's and v's describe q's first row, which is never read)
+int encode_bwd_maps(CUtensorMap* m, const void* q, const void* dout, const void* k,
+                    const void* v, const Args& a, int q_rows, int kv_rows) {
+  const bool keys = a.sk > 0;
+  int err = tma::encode_rows(&m[0], q, a.b * a.hq, a.sq, kBwdDH, q_rows);
+  if (err == 0) err = tma::encode_rows(&m[1], dout, a.b * a.hq, a.sq, kBwdDH, q_rows);
+  if (err == 0) err = tma::encode_rows(&m[2], keys ? k : q, keys ? a.b * a.hkv : 1,
+                                       keys ? a.sk : 1, kBwdDH, kv_rows);
+  if (err == 0) err = tma::encode_rows(&m[3], keys ? v : q, keys ? a.b * a.hkv : 1,
+                                       keys ? a.sk : 1, kBwdDH, kv_rows);
+  return err;
+}
+
+int launch_dq_ws(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                 const void* dout, void* dq, void* delta, const Args& a, cudaStream_t stream) {
+  CUtensorMap m[4];
+  int err = encode_bwd_maps(m, q, dout, k, v, a, kDqRows, kDqKeys);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(bwd_dq_ws_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(a.b * a.hq),
+                  static_cast<unsigned>((a.sq + kDqRows - 1) / kDqRows));
+  bwd_dq_ws_kernel<<<grid, 384, kDqSmem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<__nv_bfloat16*>(dq), static_cast<float*>(delta), static_cast<int>(a.hq),
+      static_cast<int>(a.hq / a.hkv), a.sq, a.sk, a.scale, a.causal, a.window, a.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkdv_ws(const void* q, const void* k, const void* v, const void* lse,
+                   const void* dout, const void* delta, void* dk, void* dv, const Args& a,
+                   cudaStream_t stream) {
+  CUtensorMap m[4];
+  int err = encode_bwd_maps(m, q, dout, k, v, a, kKvRows, kKvKeys);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(bwd_dkdv_ws_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(a.b * a.hkv),
+                  static_cast<unsigned>((a.sk + kKvKeys - 1) / kKvKeys));
+  bwd_dkdv_ws_kernel<<<grid, 384, kKvSmem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), static_cast<int>(a.hq),
+      static_cast<int>(a.hq / a.hkv), a.sq, a.sk, a.scale, a.causal, a.window, a.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* lse,
               const void* dout, void* dq, void* delta, const Args& a, cudaStream_t stream) {
-  using C = Cfg<T, DH>;
-  constexpr int smem = C::kSmemDq;
-  constexpr auto kernel = dq_kernel<T, DH>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(a.b * a.hq),
-                  static_cast<unsigned>((a.sq + C::kRows - 1) / C::kRows));
-  kernel<<<grid, C::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<float*>(delta), static_cast<int>(a.hq),
-      static_cast<int>(a.hq / a.hkv), a.sq, a.sk, a.scale, a.causal, a.window, a.q_offset);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == kBwdDH)  // TMA, warp-specialised
+    return launch_dq_ws(q, k, v, o, lse, dout, dq, delta, a, stream);
+  else {
+    using C = Cfg<T, DH>;
+    constexpr int smem = C::kSmemDq;
+    constexpr auto kernel = dq_kernel<T, DH>();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(a.b * a.hq),
+                    static_cast<unsigned>((a.sq + C::kRows - 1) / C::kRows));
+    kernel<<<grid, C::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(o), static_cast<const float*>(lse), static_cast<const T*>(dout),
+        static_cast<T*>(dq), static_cast<float*>(delta), static_cast<int>(a.hq),
+        static_cast<int>(a.hq / a.hkv), a.sq, a.sk, a.scale, a.causal, a.window, a.q_offset);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, int DH>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
                 const void* dout, const void* delta, void* dk, void* dv, const Args& a,
                 cudaStream_t stream) {
-  using C = Cfg<T, DH>;
-  constexpr int smem = C::kSmemDkdv;
-  constexpr auto kernel = dkdv_kernel<T, DH>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(a.b * a.hkv),
-                  static_cast<unsigned>((a.sk + C::kRows - 1) / C::kRows));
-  kernel<<<grid, C::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(lse), static_cast<const T*>(dout),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<int>(a.hq), static_cast<int>(a.hq / a.hkv), a.sq, a.sk, a.scale, a.causal,
-      a.window, a.q_offset);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == kBwdDH)  // TMA, warp-specialised
+    return launch_dkdv_ws(q, k, v, lse, dout, delta, dk, dv, a, stream);
+  else {
+    using C = Cfg<T, DH>;
+    constexpr int smem = C::kSmemDkdv;
+    constexpr auto kernel = dkdv_kernel<T, DH>();
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(a.b * a.hkv),
+                    static_cast<unsigned>((a.sk + C::kRows - 1) / C::kRows));
+    kernel<<<grid, C::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(lse), static_cast<const T*>(dout),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<int>(a.hq), static_cast<int>(a.hq / a.hkv), a.sq, a.sk, a.scale, a.causal,
+        a.window, a.q_offset);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>

@@ -68,7 +68,8 @@ BWD_HEAD_DIMS = HEAD_DIMS  # the backward kernels'
 _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _BWD_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: the fewest query rows (dQ) or keys (dK/dV) a block of the backward kernels owns
-#: (64; 128 in fp32 up to dh 64): the grid's second dimension holds S / 64 ≤ 65535
+#: (64; 128 in fp32 up to dh 64 and in the bf16 dQ kernel at dh 160): the grid's
+#: second dimension holds S / 64 ≤ 65535
 _BWD_TILE = 64
 
 

@@ -4,7 +4,8 @@ port's parameters.
     tree = jax.tree.map(np.asarray, repro.models.init_model(key, cfg)[0])
     params = lm_params_from_numpy(tree, "cuda")
 
-Leaf by leaf, same names, shapes and dtypes.  The leaves a tree must have
+Leaf by leaf, same names, shapes and dtypes (bf16 too: the reference's bf16
+leaves, ``ml_dtypes``' bfloat16 in numpy, keep their bits).  The leaves a tree must have
 depend on its family, which the tree shows: ``enc_blocks``/``dec_blocks``
 (the encoder-decoder: ``frame_proj``, ``lm_head``, both final norms, the
 encoder's self attention and MLP, the decoder's self and cross attention and
@@ -106,5 +107,16 @@ def lm_params_from_numpy(tree: Mapping, device="cuda") -> dict:
         node = out
         for key in path:
             node = node.setdefault(key, {})
-        node[last] = torch.from_numpy(np.array(leaf, copy=True)).to(dev)
+        node[last] = _tensor(leaf).to(dev)
     return out
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """A numpy leaf as a CPU tensor of its dtype.  numpy has no bf16 of its
+    own: the JAX package's bf16 leaves (bf16 params) come as the 2-byte
+    ``bfloat16`` of ``ml_dtypes``, which ``torch.from_numpy`` refuses; its
+    bits are carried over as they are."""
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)

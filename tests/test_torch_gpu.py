@@ -319,7 +319,8 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, sq, sk, causal, 
 
 
 #: around the forward's 128-row query tiles and its key tiles: 64 keys, 32 in fp32
-#: from dh 128 (fp32 at dh 160 too); and the backward's 64-row blocks
+#: from dh 128 (fp32 at dh 160 too), 128 in bf16 at dh 160 (TMA boxes of 128 rows); and
+#: the backward's 64-row blocks and tiles (bf16 at dh 160: boxes of 64 and 128 rows)
 _EDGES = (31, 32, 33, 63, 64, 65, 127, 128, 129)
 #: Sq ≠ Sk without the causal mask: an edge against one from the other end
 _CROSS_EDGES = ((63, 129), (64, 128), (65, 127), (127, 65), (128, 64), (129, 63),
@@ -404,9 +405,9 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, b, hq, hkv, sq, sk, causa
     _bwd_check(*_attn_inputs(b, hq, hkv, sq, sk, dh, dtype), causal, window, q_offset)
 
 
-#: the backward's loop steps: 64 keys or query rows, 32 in fp32 at dh 64 and in
-#: bf16 at dh 160, 16 in fp32 from dh 128 (dh 160 too); those of 32 and 64 are in
-#: ``_EDGES`` (its blocks: 128 query rows or keys in fp32 up to dh 64, else 64)
+#: the backward's loop steps: 64 keys or query rows, 32 in fp32 at dh 64, 16 in fp32
+#: from dh 128 (dh 160 too); those of 32 and 64 are in ``_EDGES`` (its blocks: 128 query
+#: rows or keys in fp32 up to dh 64 and in the bf16 dQ kernel at dh 160, else 64)
 _BWD_STEP_EDGES = (15, 16, 17)
 
 
@@ -421,6 +422,41 @@ def test_flash_attention_bwd_kernels_match_plain_at_tile_edges(cuda, sq, sk, cau
     """Sq and Sk at a tile − 1, the tile and the tile + 1 of the backward's
     blocks and loop steps (and the forward's tiles)."""
     _bwd_check(*_attn_inputs(1, 4, 2, sq, sk, dh, dtype, seed=sq * 1000 + sk), causal)
+
+
+#: the bf16 kernels at dh 160 (TMA tensor copies, warp-specialised): Sk one below, at
+#: and one above two of the forward's 128-key tiles; pixtral's 32/8 heads; a window
+#: across tiles and blocks; q_offset (rows that see no key, a few rows at a cache's end
+#: over one KV head); Sq ≠ Sk without the causal mask; MHA, and a group of 3
+_TMA_CASES = ([(1, 4, 2, n, n, True, None, 0) for n in (255, 256, 257)]
+              + [(1, 32, 8, 300, 300, True, None, 0), (2, 8, 2, 700, 700, True, 200, 0),
+                 (1, 4, 2, 100, 600, True, None, 500), (1, 4, 2, 150, 150, True, None, -40),
+                 (2, 4, 1, 5, 300, True, None, 295), (1, 4, 2, 130, 257, False, None, 0),
+                 (1, 4, 2, 257, 65, False, None, 0), (1, 4, 4, 200, 200, True, None, 0),
+                 (1, 6, 2, 150, 150, False, None, 0)])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal,window,q_offset", _TMA_CASES)
+def test_flash_attention_bf16_dh160_kernels_at_their_edges(cuda, b, hq, hkv, sq, sk, causal,
+                                                           window, q_offset):
+    """The forward against the plain version (3e-2) and bitwise on a second
+    launch, then its lse and the two backward kernels (``_bwd_check``)."""
+    q, k, v = _attn_inputs(b, hq, hkv, sq, sk, 160, torch.bfloat16, seed=sq * 1000 + sk)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = fmod.flash_attention(q, k, v, **kw)
+    ref = kref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
+    assert torch.equal(out, fmod.flash_attention(q, k, v, **kw))
+    _bwd_check(q, k, v, causal, window, q_offset)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64), (torch.bfloat16, 160)])
+def test_flash_attention_without_keys_gives_zero_rows(cuda, dtype, dh):
+    """Sk = 0 (no key tile to load; the bf16 dh-160 kernel's K/V tensor maps
+    then describe q and are never read): every row is 0 and its lse −inf."""
+    q, k, v = _attn_inputs(1, 4, 2, 70, 0, dh, dtype)
+    o, lse = fmod.flash_attention_lse(q, k, v, causal=False)
+    assert torch.equal(o, torch.zeros_like(q)) and bool(torch.isneginf(lse).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
