@@ -8,7 +8,8 @@
 Phases, one JSON line each:
 
 1. build   — compile the six CUDA kernel libraries (``src/repro_torch/csrc``),
-             one ``nvcc`` per source, started together; count the tensor-core
+             one ``nvcc`` per source, started together on a thread of their own
+             while the graph data are made on the host; count the tensor-core
              instructions (``HGMMA``) in each library's SASS
              (``cuobjdump --dump-sass``): ``flash_attention`` and
              ``flash_attention_bwd`` must have some, and ptxas must report no
@@ -84,8 +85,9 @@ Phases, one JSON line each:
 5e. lm_moe_consistency — the same weights at dropless capacity
              (``capacity_factor = E / top_k``: which tokens overflow depends
              on the context): teacher-forced as in phase 5, within 2e-2;
-5f. lm_hymba_serve — the serving path on hymba-1.5b at full width and depth
-             (32 layers, d_model 1600, 25/5 heads of 64, 25 SSD heads of
+5f. lm_hymba_serve — the serving path on hymba-1.5b at full width, cut in
+             depth for the script's time (``SERVE_LAYERS``: 32 → 16 layers,
+             global layers 0 and 15; d_model 1600, 25/5 heads of 64, 25 SSD heads of
              state 16, expand 2, window 1024 with global layers 0/15/31,
              vocab 32,001; 1.72B parameters; fp32 params, bf16 compute and
              cache; random weights from a seeded CUDA generator; the MoE
@@ -93,8 +95,8 @@ Phases, one JSON line each:
              through ``serve`` (s_max 2080 > 1024: the KV cache is a
              1024-slot ring), counts zeroed before and read after; then a
              prefill alone, counted the same way: ``flash_attention`` must
-             launch once a layer, 29 times at window 1024 and 3 times
-             unmasked; a profiled prefill and decode;
+             launch once a layer, at window 1024 but on the global layers
+             (unmasked); a profiled prefill and decode;
 5g. lm_hymba_consistency — the same weights in fp32 compute, as the
              reference's own check runs (its reduced configs), teacher-forced
              as in phase 5 (s_max 260 < the window: no ring wrap), within
@@ -106,9 +108,9 @@ Phases, one JSON line each:
              teacher-forced steps into an fp32 cache of 1,024 slots, so the
              ring wraps in the prefill and in decode; the ring decode's logits
              against the windowed kernel's forward, within 2e-2;
-5i. lm_xlstm_serve — xlstm-1.3b at full width and depth (48 layers: 6 groups
-             of an sLSTM and 7 mLSTM blocks, d_model 2048, 4 heads of 512,
-             vocab 50,304; 1.39B parameters), as phase 5f; no TPU kernel on
+5i. lm_xlstm_serve — xlstm-1.3b at full width, cut in depth for the script's
+             time (48 → 16 layers: 2 of its 6 groups of an sLSTM and 7 mLSTM
+             blocks; d_model 2048, 4 heads of 512, vocab 50,304), as phase 5f; no TPU kernel on
              its path; the counted prefill also times the sLSTM step loops
              (synchronised) and gives their share of the prefill;
 5j. lm_xlstm_consistency — its weights, teacher-forced as in phase 5 in fp32
@@ -132,8 +134,9 @@ Phases, one JSON line each:
              over a source of 300 frames (the cross attention Sq 256 over a
              ragged Sk, non-causal), within 2e-2 in fp32 compute and in the
              config's bf16 compute;
-5m. lm_vlm_serve — the serving path on the vlm, pixtral-12b, at full width
-             and depth (40 layers, d_model 5120, 32/8 heads of 160, d_ff
+5m. lm_vlm_serve — the serving path on the vlm, pixtral-12b, at full width,
+             cut in depth for the script's time (40 → 20 layers; d_model 5120,
+             32/8 heads of 160, d_ff
              14,336, vocab 131,072, 256 patches of 1,024 before the prompt,
              the stubbed vision frontend; fp32 params, bf16 compute and
              cache): batch 8, prompt 2048, 32 greedy steps through ``serve``,
@@ -179,15 +182,31 @@ Phases, one JSON line each:
              L · steps bf16 dh-160 forwards (remat) and L · steps of each
              backward entry; finite losses, seconds a step, the peak (held by
              ``dryrun_check`` too);
-5o‴. lm_vlm_prod_consistency — the same dtype cut to 2 layers, batch 1 of 256
-             patches + 300 tokens, the card against the CPU on the same bf16
-             weights: one training step's loss within 2^-7 relative, and each
-             gradient leaf and the prefill's last-token logits (bf16 here)
-             within 2^-5 of their largest entry (a few bf16 steps:
-             ``TOL_PROD_REL``), run after the two phases above (its ~40 s of
-             CPU products beside no timed run); exactly 3 bf16 dh-160
-             forwards a layer (prefill, loss, remat) and one of each backward
-             entry;
+5o‴. lm_prod_prefill, lm_moe_prod_prefill — the same for llama3.2-1b (16
+             layers, 2 × 32,768 tokens: 16 bf16 dh-64 launches) and
+             qwen3-moe-30b-a3b (48 layers, 61.09 GB of bf16 weights, at batch
+             1: the dry run's estimate at batch 2 is over the card; 48 bf16
+             dh-128 launches, Hq 32 over Hkv 4); lm_prod_train (llama, 16
+             layers) and lm_moe_prod_train (qwen3-moe cut 48 → 3 layers) as
+             lm_vlm_prod_train on 2 × 4,096 tokens (``PROD_PREFILLS``,
+             ``PROD_TRAINS``).  On the one-rank mesh ``distribute_tree`` wraps
+             the weights as they were made (``distribute_tensor`` copied each
+             leaf, and the MoE's weights and a copy of their largest leaf did
+             not fit);
+5o⁗. lm_vlm_prod_consistency, lm_prod_consistency, lm_moe_prod_consistency,
+             lm_hymba_prod_consistency, lm_encdec_prod_consistency
+             (``PROD_CONSISTENCY``) — the same dtype cut to 2 layers (seamless
+             2 + 2), batch 1 of 300 tokens (after pixtral's 256 patches;
+             hymba's 1,100, past its window: layer 0 global, layer 1 windowed
+             at 1024; seamless over 300 frames, so the cross attention runs Sq
+             ≠ Sk over a ragged source; qwen3-moe dropless), the card against
+             the CPU on the same bf16 weights: one training step's loss within
+             2^-7 relative, and each gradient leaf and the prefill's last-token
+             logits (bf16 here) within 2^-5 of their largest entry (a few bf16
+             steps: ``TOL_PROD_REL``), run after the timed phases above (the
+             CPU's products beside no timed run); exactly 3 passes of bf16
+             forwards (prefill, loss, remat) and one of each backward entry, at
+             dh 160, 64, 128, 64 and 64;
 5p–5s. lm_moe_mesh, lm_encdec_mesh, lm_hymba_mesh, lm_xlstm_mesh — the other
              four families through the launch layer (``MESH_PHASES``), each
              at full width, cut in depth (qwen3-moe-30b-a3b 48 → 2 layers,
@@ -215,9 +234,9 @@ Phases, one JSON line each:
 5q. dryrun_check — the dry run (``repro_torch.launch.dryrun``, fake process
              group, fake tensors) against the card: in a child process (a
              process holds one process group) it estimates the peak bytes of
-             ``lm_vlm_train``'s step, ``lm_vlm_prod_prefill``'s counted prefill
-             and ``lm_vlm_prod_train``'s steps (these two in its pool), and of a
-             gcn ``full_forward`` at n over the base graph, which this phase
+             ``lm_vlm_train``'s step, each production prefill's counted prefill
+             and each production training phase's steps (these six in its
+             pool), and of a gcn ``full_forward`` at n over the base graph, which this phase
              runs meanwhile (peak reset
              around it); each estimate is held within ±15%
              (``TOL_DRYRUN_PEAK``) of ``max_memory_allocated()`` less what
@@ -245,7 +264,14 @@ Phases, one JSON line each:
              fp32 and bf16 (variant rows); the bf16 forward also at
              ``lm_vlm_prod_prefill``'s shape (B 2, S 33,024), held on the last
              256 query rows of every head, and the bf16 forward and backward
-             at ``lm_vlm_prod_train``'s (B 2, S 4,352), held whole;
+             at ``lm_vlm_prod_train``'s (B 2, S 4,352), held whole; the bf16
+             forward at ``lm_prod_prefill``'s shape (B 2, S 32,768, dh 64; its
+             last 256 rows), at ``lm_prod_train``'s (B 2, S 4,096), at the MoE
+             prefill's (dh 128, Hq 32 over Hkv 4), at hymba's band and the
+             encoder's and the ragged cross attention's shapes, and the bf16
+             backward at ``lm_prod_train``'s and ``lm_moe_prod_train``'s shapes
+             (B 2, S 4,096; dh 64 and 128) and the mesh phases' hymba,
+             encoder and cross shapes;
              row_linear ≤ 1e-5 at M = n, where the wrapper takes the tiled
              kernel, and bitwise the general kernel there, at gat's per-edge
              M = E and at the incremental step's row cap; rows of
@@ -425,6 +451,10 @@ CONSIST_LAYERS, CONSIST_SEQ = 2, 512  # lm_train_consistency: 2 layers, batch 1 
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-30b-a3b", 12
 #: the recurrent families at full width and depth (hymba 1.72B parameters, xlstm 1.39B)
 HYMBA_ARCH, XLSTM_ARCH = "hymba-1.5b", "xlstm-1.3b"
+#: the serve phases cut in depth for the script's time (full width): xlstm 48 → 16 layers
+#: (two groups of an sLSTM and 7 mLSTM blocks), hymba 32 → 16 (global layers 0 and 15),
+#: pixtral 40 → 20
+SERVE_LAYERS = {"xlstm-1.3b": 16, "hymba-1.5b": 16, "pixtral-12b": 20}
 #: lm_hymba_ring: a prompt past hymba's 1024-slot window, then teacher-forced steps
 RING_PROMPT, RING_STEPS = 1100, 8
 #: the encoder-decoder at full width and depth (24 + 24 layers, 2.03B parameters); its
@@ -460,6 +490,36 @@ PROD_TRAIN_LAYERS, PROD_TRAIN_SEQ, PROD_TRAIN_STEPS, PROD_CONSIST_LAYERS = 4, 40
 #: fp32-param phases hold their fp32 logits to, is below one bf16 step of a logit in
 #: [4, 8).)  The loss is an fp32 mean over bf16 logits: two steps, 2^-7
 TOL_PROD_LOSS, TOL_PROD_REL = 2.0 ** -7, 2.0 ** -5
+#: a MoE consistency phase replays the card's expert choices on the CPU (``_expert_choice``);
+#: in each routing at most this share of the tokens may choose otherwise on the CPU (11 and
+#: 21 of 300 did on an H100, between experts whose router logits were near-tied), each
+#: within one bf16 step of the router's input of a tie
+MOE_FLIP_SHARE = 1 / 8
+#: llama3.2-1b and qwen3-moe-30b-a3b at the production dtype too, where every attention call
+#: is the bf16 instantiation at head dim 64 (llama; hymba and seamless in their consistency
+#: phases) or 128 (qwen3-moe).  llama's prefill and training run uncut (16 layers, 2.47 GB
+#: of bf16 weights); qwen3-moe's prefill at full depth (48 layers, 61.09 GB of weights) at
+#: batch PROD_MOE_BATCH (the dry run's estimate of the prefill_32k inputs at batch 2 is
+#: 80.55 GB, over the 76 GB the card leaves; at batch 1 70.82 GB) and its training cut in
+#: depth to PROD_MOE_TRAIN_LAYERS (estimated 60.86 GB at 3 layers, 76.59 GB at 4)
+PROD_MOE_BATCH, PROD_MOE_TRAIN_LAYERS, PROD_CONSIST_PROMPT = 1, 3, 300
+#: the production dtype's phases: prefill → (arch, depth cut (0: none), batch); training →
+#: (arch, depth cut); consistency → (arch, prompt tokens, source frames), each cut to
+#: PROD_CONSIST_LAYERS at batch 1: the last key tile ragged at every head dim; hymba's prompt
+#: past its window of 1,024 (layer 0 global, layer 1 windowed: the band cut), seamless's
+#: cross attention over a ragged source; qwen3-moe dropless, as lm_moe_consistency
+PROD_PREFILLS = {"lm_vlm_prod_prefill": (VLM_ARCH, 0, PROD_BATCH),
+                 "lm_prod_prefill": (LM_ARCH, 0, PROD_BATCH),
+                 "lm_moe_prod_prefill": (MOE_ARCH, 0, PROD_MOE_BATCH)}
+PROD_TRAINS = {"lm_vlm_prod_train": (VLM_ARCH, PROD_TRAIN_LAYERS),
+               "lm_prod_train": (LM_ARCH, 0),
+               "lm_moe_prod_train": (MOE_ARCH, PROD_MOE_TRAIN_LAYERS)}
+PROD_CONSISTENCY = {"lm_vlm_prod_consistency": (VLM_ARCH, VLM_CONSIST_PROMPT, 0),
+                    "lm_prod_consistency": (LM_ARCH, PROD_CONSIST_PROMPT, 0),
+                    "lm_moe_prod_consistency": (MOE_ARCH, PROD_CONSIST_PROMPT, 0),
+                    "lm_hymba_prod_consistency": (HYMBA_ARCH, RING_PROMPT, 0),
+                    "lm_encdec_prod_consistency": (ENCDEC_ARCH, PROD_CONSIST_PROMPT,
+                                                   ENCDEC_CONSIST_FRAMES)}
 #: lm_train's and lm_vlm_train's peaks on the H100 before the vocab-parallel loss and the
 #: AdamW update's in-place temporaries (PERF.md §6: 37.92 and 74.71 GB), recorded beside
 #: this run's; lm_train's must come in below its figure
@@ -547,10 +607,12 @@ _T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
-    """One JSON line; a phase's row also gets the seconds since the script began."""
+    """One JSON line (one write: the build's thread emits too); a phase's row
+    also gets the seconds since the script began."""
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
-    print(json.dumps(obj), flush=True)
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2051,6 +2113,16 @@ def phase_lm_consistency(cfg, params, seed: int, phase: str = "lm_consistency",
     return row
 
 
+def _serve_depth(cfg):
+    """``cfg`` cut in depth to its ``SERVE_LAYERS`` entry (global-attention layers
+    below the cut kept), else as it is."""
+    n = SERVE_LAYERS.get(cfg.name)
+    if not n:
+        return cfg
+    return dataclasses.replace(cfg, num_layers=n,
+                               full_attn_layers=tuple(i for i in cfg.full_attn_layers if i < n))
+
+
 def phase_lm_recurrent_serve(arch: str, seed: int, kernels: dict):
     """The serving path on a recurrent family at full width and depth:
     ``serve`` with counts set to 0 just before it and read just after; then
@@ -2069,7 +2141,7 @@ def phase_lm_recurrent_serve(arch: str, seed: int, kernels: dict):
     from repro_torch.models import lm as lm_mod
     from repro_torch.train.tree import tree_leaves
 
-    cfg = get_arch(arch)
+    cfg = _serve_depth(get_arch(arch))
     hymba = cfg.block_pattern == "hymba"
     phase = f"lm_{'hymba' if hymba else 'xlstm'}_serve"
     _free_cuda()
@@ -2297,7 +2369,7 @@ def phase_lm_vlm_serve(seed: int, kernels: dict):
     from repro_torch.train.tree import tree_leaves
 
     phase = "lm_vlm_serve"
-    cfg = get_arch(VLM_ARCH)
+    cfg = _serve_depth(get_arch(VLM_ARCH))
     n_pos = cfg.num_patches + LM_PROMPT  # the prefill's positions
     s_max = n_pos + LM_GEN
     _free_cuda()
@@ -2906,20 +2978,20 @@ def _reading_attention(calls: list, bwd_calls: list):
     return restore
 
 
-def phase_lm_vlm_prod_prefill(seed: int, kernels: dict) -> dict:
-    """pixtral-12b at the reference's production dtype (``production_cfg``:
-    bf16 params and compute) at full width and depth, through the launch
-    layer on the card's 1 × 1 NCCL mesh: ``shardings_for_cell`` for the
-    prefill_32k cell at batch ``PROD_BATCH`` (256 patches + 32,768 tokens:
-    33,024 positions), params and inputs placed as DTensors, then
-    ``make_prefill_step`` inside ``activation_sharding``: one warm-up, two
-    timed prefills (the first counted: counts set to 0 just before it and
-    read just after, each ``flash_attention`` call's dtype, head dim and Sq
-    read, peak memory reset before it) and one profiled; then, from the
+def phase_prod_prefill(phase: str, seed: int, kernels: dict) -> dict:
+    """A model of ``PROD_PREFILLS`` at the reference's production dtype
+    (``production_cfg``: bf16 params and compute) at full width and depth,
+    through the launch layer on the card's 1 × 1 NCCL mesh:
+    ``shardings_for_cell`` for the prefill_32k cell at the phase's batch
+    (32,768 tokens, after pixtral's 256 patches), params and inputs placed as
+    DTensors, then ``make_prefill_step`` inside ``activation_sharding``: one
+    warm-up, two timed prefills (the first counted: counts set to 0 just before
+    it and read just after, each ``flash_attention`` call's dtype, head dim and
+    Sq read, peak memory reset before it) and one profiled; then, from the
     second timed prefill's cache, ``PROD_DECODE`` greedy steps through
-    ``make_serve_step``, whose logits must be finite.  The cache holds s_max = 33,024 + ``PROD_DECODE``
-    positions.  ``dryrun_check`` holds the counted prefill's peak to the dry
-    run's estimate of the cell."""
+    ``make_serve_step``, whose logits must be finite.  The cache holds s_max =
+    positions + ``PROD_DECODE``.  ``dryrun_check`` holds the counted prefill's
+    peak to the dry run's estimate of the cell."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2931,9 +3003,9 @@ def phase_lm_vlm_prod_prefill(seed: int, kernels: dict) -> dict:
     from repro_torch.models import init_model
     from repro_torch.train.tree import tree_leaves
 
-    phase = "lm_vlm_prod_prefill"
-    cfg = production_cfg(VLM_ARCH)
-    B, S, P = PROD_BATCH, PROD_PREFILL_SEQ, cfg.num_patches
+    arch, layers, B = PROD_PREFILLS[phase]
+    cfg = production_cfg(arch, layers)
+    S, P = PROD_PREFILL_SEQ, cfg.num_patches or 0
     n_pos, s_max = P + S, P + S + PROD_DECODE
     _free_cuda()
     dist.init_process_group(DIST_BACKEND, store=dist.HashStore(), rank=0, world_size=1)
@@ -2942,17 +3014,18 @@ def phase_lm_vlm_prod_prefill(seed: int, kernels: dict) -> dict:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
         sh = shardings_for_cell(cfg, ShapeConfig(phase, S, B, "prefill"), mesh)
         t0 = time.perf_counter()
-        params = distribute_tree(init_model(torch.Generator(device="cuda").manual_seed(seed),
-                                            cfg), sh["params_sharding"])
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = distribute_tree(init_model(gen, cfg), sh["params_sharding"])
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_elems = sum(p.numel() for p in tree_leaves(params))
         rng = np.random.default_rng(seed)
-        batch = distribute_tree({  # the cell's inputs: int32 tokens, bf16 patches
-            "tokens": torch.from_numpy(
-                rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).cuda(),
-            "patches": torch.from_numpy(rng.normal(size=(B, P, cfg.d_frontend)).astype(
-                np.float32)).cuda().to(torch.bfloat16)}, sh["batch_sharding"])
+        inputs = {"tokens": torch.from_numpy(  # the cell's inputs: int32 tokens, bf16 patches
+            rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)).cuda()}
+        if P:
+            inputs["patches"] = torch.from_numpy(rng.normal(size=(B, P, cfg.d_frontend)).astype(
+                np.float32)).cuda().to(torch.bfloat16)
+        batch = distribute_tree(inputs, sh["batch_sharding"])
         step, serve_step = make_prefill_step(cfg, s_max), make_serve_step(cfg)
         prefill_s = []
         with activation_sharding(mesh, sh["shcfg"]):
@@ -3026,15 +3099,16 @@ def phase_lm_vlm_prod_prefill(seed: int, kernels: dict) -> dict:
     return row
 
 
-def phase_lm_vlm_prod_train(seed: int, kernels: dict) -> dict:
-    """pixtral-12b at ``production_cfg`` cut in depth to ``PROD_TRAIN_LAYERS``
-    (bf16 params and gradients, fp32 AdamW moments), ``PROD_TRAIN_STEPS``
-    AdamW steps of ``make_train_step`` on the card's 1 × 1 NCCL mesh (as
-    ``lm_vlm_train``) on ``PROD_BATCH`` × (256 patches + ``PROD_TRAIN_SEQ``
-    tokens) of the trainer's synthetic data; counts set to 0 just before the
-    steps and read just after, each attention call's dtype and head dim read:
-    2 · L · steps bf16 forwards at dh 160 (remat) and L · steps of each
-    backward entry; every loss finite; seconds a step and the peak."""
+def phase_prod_train(phase: str, seed: int, kernels: dict) -> dict:
+    """A model of ``PROD_TRAINS`` at ``production_cfg``, cut in depth where the
+    table says (bf16 params and gradients, fp32 AdamW moments),
+    ``PROD_TRAIN_STEPS`` AdamW steps of ``make_train_step`` on the card's 1 × 1
+    NCCL mesh (as ``lm_vlm_train``) on ``PROD_BATCH`` × ``PROD_TRAIN_SEQ``
+    tokens (after pixtral's 256 patches) of the trainer's synthetic data; counts
+    set to 0 just before the steps and read just after, each attention call's
+    dtype and head dim read: 2 · L · steps bf16 forwards at the model's head dim
+    (remat) and L · steps of each backward entry; every loss finite; seconds a
+    step and the peak; then one more step, profiled (device time by kind)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -3048,10 +3122,10 @@ def phase_lm_vlm_prod_train(seed: int, kernels: dict) -> dict:
     from repro_torch.train.trainer import TrainConfig, synthetic_batch
     from repro_torch.train.tree import tree_leaves
 
-    phase = "lm_vlm_prod_train"
-    cfg = production_cfg(VLM_ARCH, PROD_TRAIN_LAYERS)
+    arch, layers = PROD_TRAINS[phase]
+    cfg = production_cfg(arch, layers)
     L, B, S, steps = cfg.num_layers, PROD_BATCH, PROD_TRAIN_SEQ, PROD_TRAIN_STEPS
-    n_pos = cfg.num_patches + S
+    n_pos = (cfg.num_patches or 0) + S
     tcfg = TrainConfig(steps=steps, batch=B, seq_len=S, seed=seed)
     step = make_train_step(cfg, OptConfig(peak_lr=3e-3, warmup_steps=10, stable_steps=steps,
                                           decay_steps=10))
@@ -3062,8 +3136,8 @@ def phase_lm_vlm_prod_train(seed: int, kernels: dict) -> dict:
         mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
         sh = shardings_for_cell(cfg, ShapeConfig(phase, S, B, "train"), mesh)
         t0 = time.perf_counter()
-        params = distribute_tree(init_model(torch.Generator(device="cuda").manual_seed(seed),
-                                            cfg), sh["params_sharding"])
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = distribute_tree(init_model(gen, cfg), sh["params_sharding"])
         n_elems = sum(p.numel() for p in tree_leaves(params))
         opt_state = distribute_tree(adamw_init(params), sh["opt_sharding"])
         torch.cuda.synchronize()
@@ -3090,7 +3164,17 @@ def phase_lm_vlm_prod_train(seed: int, kernels: dict) -> dict:
         launches, entries = _counts(kernels), _entries(kernels["flash_attention_bwd"])
         peak = torch.cuda.max_memory_allocated()
         dtypes = sorted({str(p.dtype).removeprefix("torch.") for p in tree_leaves(params)})
-        del params, opt_state, batches, metrics
+        # one more step, profiled (matmuls / attention forward and backward / the rest);
+        # the state lives in a list, so that no step's params stay referenced
+        state = [params, opt_state]
+        del params, opt_state, metrics
+
+        def profiled_step():
+            with activation_sharding(mesh, sh["shcfg"]):
+                state[0], state[1], _ = step(state[0], state[1], batches[0])
+
+        prof = _profiled(profiled_step)
+        del state, batches
         _free_cuda()
     finally:
         dist.destroy_process_group()
@@ -3109,7 +3193,7 @@ def phase_lm_vlm_prod_train(seed: int, kernels: dict) -> dict:
            "peak_mem_bytes": peak, "peak_gb": peak / 1e9, "mem_at_reset_bytes": mem_at_reset,
            "input_bytes": input_bytes, "launches": launches, "bwd_launches_by_entry": entries,
            "attention_calls": sorted(set(calls)), "attention_call_count": len(calls),
-           "bwd_attention_calls": sorted(set(bwd_calls))}
+           "bwd_attention_calls": sorted(set(bwd_calls)), "profiled_step": prof}
     emit(row)
     if len(losses) != steps or not all(np.isfinite(losses)):
         raise AssertionError(f"{phase}: losses {losses}")
@@ -3123,22 +3207,29 @@ def phase_lm_vlm_prod_train(seed: int, kernels: dict) -> dict:
     return row
 
 
-def _prod_consistency_inputs(seed: int):
-    """``lm_vlm_prod_consistency``'s config, bf16 weights (made on the card from
-    the seed: the same bits in every call) and CPU batch."""
+def _prod_consistency_inputs(phase: str, seed: int):
+    """A ``PROD_CONSISTENCY`` phase's config, bf16 weights (made on the card from
+    the seed: the same bits in every call) and CPU batch (tokens and labels,
+    then pixtral's bf16 patches or seamless's frames)."""
     import torch
 
     from repro_torch.launch.dryrun import production_cfg
     from repro_torch.models import init_model
 
-    cfg = production_cfg(VLM_ARCH, PROD_CONSIST_LAYERS)
-    P, S = cfg.num_patches, VLM_CONSIST_PROMPT
+    arch, S, frames = PROD_CONSISTENCY[phase]
+    cfg = production_cfg(arch, PROD_CONSIST_LAYERS)
+    if cfg.is_moe:  # dropless: which tokens overflow would depend on the summation order
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
     params = init_model(torch.Generator(device="cuda").manual_seed(seed + 5), cfg)
     rng = np.random.default_rng(seed + 6)
     tokens = rng.integers(0, cfg.vocab_size, (1, S + 1))
-    batch = {"tokens": torch.from_numpy(tokens[:, :S]), "labels": torch.from_numpy(tokens[:, 1:]),
-             "patches": torch.from_numpy(rng.normal(size=(1, P, cfg.d_frontend)).astype(
-                 np.float32)).to(torch.bfloat16)}
+    batch = {"tokens": torch.from_numpy(tokens[:, :S]), "labels": torch.from_numpy(tokens[:, 1:])}
+    if cfg.num_patches:
+        batch["patches"] = torch.from_numpy(rng.normal(size=(1, cfg.num_patches, cfg.d_frontend))
+                                            .astype(np.float32)).to(torch.bfloat16)
+    if cfg.encdec:
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(1, frames, cfg.d_frontend)).astype(np.float32))
     return cfg, params, batch
 
 
@@ -3148,42 +3239,118 @@ def _prod_consistency_side(cfg, params, batch) -> dict:
     from repro_torch.models import prefill
     from repro_torch.train.trainer import value_and_grad
 
-    P, S = cfg.num_patches, VLM_CONSIST_PROMPT
-    logits = prefill(params, cfg, {k: batch[k] for k in ("tokens", "patches")}, P + S)[0]
+    s_max = (cfg.num_patches or 0) + batch["tokens"].shape[1]
+    logits = prefill(params, cfg, {k: v for k, v in batch.items() if k != "labels"}, s_max)[0]
     loss, _, grads = value_and_grad(params, cfg, batch)
     return {"logits": logits, "loss": loss, "grads": grads}
 
 
-def phase_lm_vlm_prod_consistency(seed: int, kernels: dict) -> dict:
-    """pixtral-12b at ``production_cfg`` cut to ``PROD_CONSIST_LAYERS`` at full
-    width: the card (the kernels) against the port's plain path on the CPU,
-    the same bf16 weights (made on the card, copied) and inputs, batch 1 of
-    256 patches + ``VLM_CONSIST_PROMPT`` tokens: the prefill's last-token
-    logits and every gradient leaf of one training step within
-    ``TOL_PROD_REL`` of their largest |entry|, the loss within
-    ``TOL_PROD_LOSS`` (see there); counts set to 0 just before the card's
-    side and read just after, each attention call's dtype, head dim and Sq
-    read: 3 · L bf16 forwards at dh 160 over the 556 positions (prefill,
-    loss, remat) and L of each backward entry."""
+def _prod_attention_calls(cfg, batch) -> dict:
+    """``flash_attention`` calls of one pass over ``batch`` (a prefill, or a
+    training forward): (dtype, head dim, Sq) → count."""
+    dh, S = cfg.resolved_head_dim, batch["tokens"].shape[1]
+    calls = collections.Counter()
+    if cfg.encdec:  # the encoder over the frames, the decoder's self and cross attention
+        calls[("bfloat16", dh, batch["frames"].shape[1])] += cfg.enc_layers
+        calls[("bfloat16", dh, S)] += 2 * cfg.num_layers
+    else:
+        calls[("bfloat16", dh, (cfg.num_patches or 0) + S)] += cfg.num_layers
+    return dict(calls)
+
+
+@contextlib.contextmanager
+def _expert_choice(record: list = None, replay: list = None):
+    """While open, each MoE routing's choice of a token's top-k experts (the
+    first of the two ``nn/moe.py`` ``_top`` calls of a ``_route_rows``) is
+    appended to ``record`` (on the card) or, with ``replay``, taken from it in
+    call order (on the CPU): the gate values are then the call's own
+    probabilities at the recorded experts, every other step the port's own.
+    (A choice between two experts whose router logits lie closer than the
+    card's and the CPU's router inputs differ is a coin toss between them; one
+    flipped expert moves a token's MoE output by an eighth.)  Yields a list
+    that gets, per replayed call, ``(flips, gap, over)``: the tokens whose own
+    top-k set differs from the recorded one; over those, the largest gap in
+    router logits between this side's k-th expert and the recorded expert it
+    ranks lowest; and the largest ratio of such a gap to what one bf16 step of
+    each element of the router's input (2^-7 |h_i|, every sign against) could
+    move the two logits apart.  A ratio above 1 is no near-tie: the card chose
+    an expert this side ranks well below its k-th."""
+    import torch
+
+    from repro_torch.nn import moe
+
+    orig_top, orig_rows, calls, out, inputs = moe._top, moe._route_rows, [0], [], [None]
+    replayed = iter(replay) if replay is not None else None
+
+    def route_rows(router, x, top_k, cap):
+        inputs[0] = (router, x)
+        return orig_rows(router, x, top_k, cap)
+
+    def top(x, k):
+        gate = calls[0] % 2 == 0  # _route_rows: the gate's top-k, then the capacity's
+        calls[0] += 1
+        vals, idx = orig_top(x, k)
+        if not gate:
+            return vals, idx
+        if replayed is None:
+            record.append(idx.cpu())
+            return vals, idx
+        want = next(replayed).to(idx.device)
+        flipped = (torch.sort(want, -1)[0] != torch.sort(idx, -1)[0]).any(-1)
+        gap = over = 0.0
+        if flipped.any():
+            router, h = (t.detach() for t in inputs[0])
+            hf = h.float()[flipped]                       # [n, D]: the flipped tokens' inputs
+            logits = hf @ router                          # [n, E]
+            kth = idx[flipped][:, -1]                     # this side's k-th expert
+            at = logits.gather(-1, want[flipped])         # the recorded experts' logits
+            low = want[flipped].gather(-1, at.argmin(-1, keepdim=True))[:, 0]
+            gaps = logits.gather(-1, kth[:, None])[:, 0] - at.min(-1).values
+            step = (hf.abs() * 2.0 ** -7 * (router[:, kth] - router[:, low]).abs().T).sum(-1)
+            gap, over = float(gaps.max()), float((gaps / step.clamp_min(1e-30)).max())
+        out.append((int(flipped.sum()), gap, over))
+        return x.gather(-1, want), want
+
+    moe._top, moe._route_rows = top, route_rows
+    try:
+        yield out
+    finally:
+        moe._top, moe._route_rows = orig_top, orig_rows
+
+
+def phase_prod_consistency(phase: str, seed: int, kernels: dict) -> dict:
+    """A model of ``PROD_CONSISTENCY`` at ``production_cfg`` cut to
+    ``PROD_CONSIST_LAYERS`` at full width: the card (the kernels) against the
+    port's plain path on the CPU, the same bf16 weights (made on the card,
+    copied) and inputs, batch 1 of the table's tokens (after pixtral's 256
+    patches; over seamless's frames): the prefill's last-token logits and every
+    gradient leaf of one training step within ``TOL_PROD_REL`` of their largest
+    |entry|, the loss within ``TOL_PROD_LOSS`` (see there); counts set to 0 just
+    before the card's side and read just after, each attention call's dtype,
+    head dim and Sq read: 3 passes of bf16 forwards (prefill, loss, remat) and
+    one of each backward entry, every call at the model's head dim."""
     import torch
 
     from repro_torch.train.tree import tree_map, tree_paths
 
-    phase = "lm_vlm_prod_consistency"
     _free_cuda()
-    cfg, params, batch = _prod_consistency_inputs(seed)
+    cfg, params, batch = _prod_consistency_inputs(phase, seed)
     params_cpu = tree_map(lambda t: t.cpu(), params)
-    calls, bwd_calls = [], []
+    calls, bwd_calls, choices = [], [], []
     _zero_counts(kernels)
     restore = _reading_attention(calls, bwd_calls)
     try:
-        card = _prod_consistency_side(cfg, params, {k: v.cuda() for k, v in batch.items()})
+        with _expert_choice(record=choices) if cfg.is_moe else contextlib.nullcontext():
+            card = _prod_consistency_side(cfg, params, {k: v.cuda() for k, v in batch.items()})
         torch.cuda.synchronize()
     finally:
         restore()
     launches, entries = _counts(kernels), _entries(kernels["flash_attention_bwd"])
     t0 = time.perf_counter()
-    cpu = _prod_consistency_side(cfg, params_cpu, batch)
+    # a MoE's CPU side takes the card's expert choices (the gates its own): see
+    # _expert_choice; the tokens whose own choice differs are counted
+    with _expert_choice(replay=choices) if cfg.is_moe else contextlib.nullcontext() as flips:
+        cpu = _prod_consistency_side(cfg, params_cpu, batch)
     cpu_s = time.perf_counter() - t0
     logit_err = _rel_err(card["logits"].float(), cpu["logits"].float())
     rel = {key: _rel_err(a.float(), c.float())
@@ -3192,9 +3359,11 @@ def phase_lm_vlm_prod_consistency(seed: int, kernels: dict) -> dict:
     loss, loss_cpu = float(card["loss"]), float(cpu["loss"])
     loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
     worst = max(rel, key=rel.get)
-    row = {"phase": phase, "layers": PROD_CONSIST_LAYERS, "param_dtype": cfg.param_dtype,
-           "compute_dtype": cfg.compute_dtype, "batch": 1, "patches": cfg.num_patches,
-           "tokens": VLM_CONSIST_PROMPT, "prefill_logit_rel_err": logit_err,
+    row = {"phase": phase, "arch": cfg.name, "layers": PROD_CONSIST_LAYERS,
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype, "batch": 1,
+           "patches": cfg.num_patches, "tokens": batch["tokens"].shape[1],
+           "frames": batch["frames"].shape[1] if cfg.encdec else 0,
+           "prefill_logit_rel_err": logit_err,
            "logit_tol": TOL_PROD_REL, "max_abs_logit": float(cpu["logits"].float().abs().max()),
            "loss": loss, "loss_cpu": loss_cpu, "loss_rel_err": loss_rel,
            "loss_tol": TOL_PROD_LOSS, "grad_rel_err": rel, "grad_tol": TOL_PROD_REL,
@@ -3202,20 +3371,33 @@ def phase_lm_vlm_prod_consistency(seed: int, kernels: dict) -> dict:
            "launches": launches, "bwd_launches_by_entry": entries,
            "attention_calls": sorted(set(calls)), "attention_call_count": len(calls),
            "bwd_attention_calls": sorted(set(bwd_calls))}
+    if cfg.is_moe:  # routings replayed, and the tokens a side chose otherwise in each
+        row.update(routings=len(choices), tokens_a_routing=int(batch["tokens"].numel()),
+                   expert_choice_flips=[f for f, _, _ in flips],
+                   expert_flip_max_logit_gap=max(g for _, g, _ in flips),
+                   expert_flip_max_gap_over_bf16_step=max(o for _, _, o in flips),
+                   expert_flip_share_tol=MOE_FLIP_SHARE)
     emit(row)
     del params, params_cpu, card, cpu
     _free_cuda()
+    if cfg.is_moe and (len(flips) != len(choices)
+                       or max(f for f, _, _ in flips) > MOE_FLIP_SHARE * row["tokens_a_routing"]
+                       or row["expert_flip_max_gap_over_bf16_step"] > 1.0):
+        raise AssertionError(f"{phase}: the card's expert choices are no near-ties: {flips} "
+                             f"(flipped tokens, largest logit gap, gap over a bf16 step) of "
+                             f"{len(choices)} routings")
     if not (np.isfinite(loss) and logit_err <= TOL_PROD_REL and loss_rel <= TOL_PROD_LOSS
             and rel[worst] <= TOL_PROD_REL):
         raise AssertionError(f"{phase}: logits {logit_err}, loss {loss_rel}, worst gradient "
                              f"{rel[worst]} at {worst}")
-    L, want = PROD_CONSIST_LAYERS, {("bfloat16", cfg.resolved_head_dim,
-                                     cfg.num_patches + VLM_CONSIST_PROMPT)}
-    if (launches["flash_attention"] != 3 * L or len(calls) != 3 * L or set(calls) != want
-            or set(bwd_calls) != want or len(bwd_calls) != L
-            or any(n != L for n in entries.values())):
-        raise AssertionError(f"{phase}: forwards {len(calls)} {sorted(set(calls))}, backward "
-                             f"entries {entries}, expected {3 * L} and {L} each, {want}")
+    per_pass = _prod_attention_calls(cfg, batch)
+    n = sum(per_pass.values())
+    want = {c: 3 * k for c, k in per_pass.items()}
+    got, got_bwd = collections.Counter(calls), collections.Counter(bwd_calls)
+    if (launches["flash_attention"] != 3 * n or dict(got) != want or dict(got_bwd) != per_pass
+            or any(m != n for m in entries.values())):
+        raise AssertionError(f"{phase}: forwards {dict(got)}, backward {dict(got_bwd)}, "
+                             f"entries {entries}, expected {want} and {per_pass}, {n} each entry")
     return row
 
 
@@ -3583,18 +3765,20 @@ def dryrun_task(module: str, argv: list) -> dict:
 
 def prod_estimate(name: str) -> dict:
     """(A task of :func:`dryrun_estimates`' pool.)  The dry run's estimate, on a
-    fake 1 × 1 mesh, of ``lm_vlm_prod_prefill``'s counted prefill (the
-    prefill_32k cell at batch ``PROD_BATCH``; the card's cache holds
-    ``PROD_DECODE`` positions more, 3.3 MB) or of ``lm_vlm_prod_train``'s steps."""
+    fake 1 × 1 mesh, of a ``PROD_PREFILLS`` phase's counted prefill (the
+    prefill_32k cell at the phase's batch; the card's cache holds
+    ``PROD_DECODE`` positions more) or of a ``PROD_TRAINS`` phase's steps."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.train.optimizer import OptConfig
 
-    if name == "lm_vlm_prod_prefill":
-        cfg, opt = dryrun.production_cfg(VLM_ARCH), None
-        shape = ShapeConfig(name, PROD_PREFILL_SEQ, PROD_BATCH, "prefill")
+    if name in PROD_PREFILLS:
+        arch, layers, batch = PROD_PREFILLS[name]
+        cfg, opt = dryrun.production_cfg(arch, layers), None
+        shape = ShapeConfig(name, PROD_PREFILL_SEQ, batch, "prefill")
     else:
-        cfg = dryrun.production_cfg(VLM_ARCH, PROD_TRAIN_LAYERS)
+        arch, layers = PROD_TRAINS[name]
+        cfg = dryrun.production_cfg(arch, layers)
         shape = ShapeConfig(name, PROD_TRAIN_SEQ, PROD_BATCH, "train")
         opt = OptConfig(peak_lr=3e-3, warmup_steps=10, stable_steps=PROD_TRAIN_STEPS,
                         decay_steps=10)
@@ -3629,9 +3813,9 @@ def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
     out = {}
     t0 = time.perf_counter()
     pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
-    # the production dtype's two estimates first, each in a worker of its own
-    prod = {name: pool.apply_async(prod_estimate, (name,))
-            for name in ("lm_vlm_prod_prefill", "lm_vlm_prod_train")}
+    # the production dtype's estimates first, each in a worker of its own
+    prod = {name: pool.apply_async(prod_estimate, (name,)) for name in (*PROD_PREFILLS,
+                                                                         *PROD_TRAINS)}
     cells = pool.starmap_async(dryrun_task, dryrun_uncut_tasks(f"{cells_dir}/uncut")
                                + dryrun_tasks(cells_dir), chunksize=1)
     cfg = dataclasses.replace(get_arch(VLM_ARCH), num_layers=VLM_TRAIN_LAYERS)
@@ -3666,14 +3850,14 @@ def dryrun_estimates(n: int, e: int, out_path: str, cells_dir: str) -> None:
     Path(out_path).write_text(json.dumps(out))
 
 
-def phase_dryrun_check(graph, seed: int, vlm_train: dict, prod_prefill: dict,
-                       prod_train: dict) -> dict:
+def phase_dryrun_check(graph, seed: int, vlm_train: dict, prod_rows: list) -> dict:
     """The dry run against the card: its peak estimates (``dryrun_estimates``,
     in a child process with a timeout) beside ``max_memory_allocated()`` of
     the same calls, less what the process held on the card that the call
-    was not given: ``lm_vlm_train``'s steps, ``lm_vlm_prod_prefill``'s counted
-    prefill and ``lm_vlm_prod_train``'s steps (read by those phases) and a gcn
-    ``full_forward`` over ``graph`` run here (peak reset around it).  Each
+    was not given: ``lm_vlm_train``'s steps, each ``PROD_PREFILLS`` phase's
+    counted prefill and each ``PROD_TRAINS`` phase's steps (``prod_rows``, read
+    by those phases) and a gcn ``full_forward`` over ``graph`` run here (peak
+    reset around it).  Each
     estimate must lie within ``TOL_DRYRUN_PEAK`` of its measured peak, and
     every cell of :func:`dryrun_tasks` must have run, each with its figures."""
     import tempfile
@@ -3732,7 +3916,7 @@ def phase_dryrun_check(graph, seed: int, vlm_train: dict, prod_prefill: dict,
                          vlm_train["mem_at_reset_bytes"] - vlm_train["input_bytes"]),
         "gcn_full_forward": (ff_peak, before - inputs),
         **{row["phase"]: (row["peak_mem_bytes"], row["mem_at_reset_bytes"] - row["input_bytes"])
-           for row in (prod_prefill, prod_train)},
+           for row in prod_rows},
     }
     checks = {}
     for name, (peak, other) in measured.items():
@@ -4229,12 +4413,37 @@ def main(argv=None) -> int:
                "flash_attention": fmod.KERNEL, "flash_attention_bwd": fmod.BWD_KERNEL,
                "edge_softmax_normalize": emod.KERNEL, "row_linear": rmod.KERNEL}
 
-    phase_build()
-    return _phases(args, kernels)
+    build = _InThread(phase_build)  # nvcc's processes run beside the graph's host work
+    return _phases(args, kernels, build)
 
 
-def _phases(args, kernels: dict) -> int:
-    """Every phase after the build, then the kernel rows and the last lines."""
+class _InThread:
+    """``fn()`` on a thread of its own; ``result()`` waits for it and raises
+    what it raised."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.exc = None
+
+        def run():
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 - re-raised by result()
+                self.exc = exc
+
+        self.thread = threading.Thread(target=run)
+        self.thread.start()
+
+    def result(self) -> None:
+        self.thread.join()
+        if self.exc is not None:
+            raise self.exc
+
+
+def _phases(args, kernels: dict, build: _InThread) -> int:
+    """Every phase after the build (which ``build`` runs meanwhile: the data
+    are made on the host beside it), then the kernel rows and the last lines."""
     import torch
 
     from repro_torch.core.full import next_bucket
@@ -4247,6 +4456,7 @@ def _phases(args, kernels: dict) -> int:
                      feature_dim=WIDTH, feature_frac=1e-4, seed=args.seed + 1)
     emit({"phase": "data", "n": args.n, "edges": graph.num_edges,
           "base_edges": wl.base.num_edges, "setup_s": time.perf_counter() - t0})
+    build.result()
 
     # each path: counts set to 0 just before it is driven, read just after
     engine_rows = [phase_engine(m, x, wl, args.seed, kernels) for m in ("gcn", "gat")]
@@ -4314,11 +4524,14 @@ def _phases(args, kernels: dict) -> int:
     del vlm_params
     vlm_train = phase_lm_vlm_train(args.seed, kernels)
     _free_cuda()
-    # the vlm at the reference's production dtype (bf16 params): a full-depth prefill of
-    # the prefill_32k cell's inputs, training cut in depth, and the card against the CPU
-    prod_prefill = phase_lm_vlm_prod_prefill(args.seed, kernels)
-    prod_train = phase_lm_vlm_prod_train(args.seed, kernels)
-    prod_check = phase_lm_vlm_prod_consistency(args.seed, kernels)
+    # the reference's production dtype (bf16 params): pixtral, llama3.2-1b and qwen3-moe,
+    # each a full-depth prefill of the prefill_32k cell's inputs and training (cut in depth
+    # where the state needs it); then five families at 2 layers, the card against the CPU
+    # (the CPU sides after the timed phases)
+    prod = {phase: phase_prod_prefill(phase, args.seed, kernels) for phase in PROD_PREFILLS}
+    prod.update({phase: phase_prod_train(phase, args.seed, kernels) for phase in PROD_TRAINS})
+    prod_checks = {phase: phase_prod_consistency(phase, args.seed, kernels)
+                   for phase in PROD_CONSISTENCY}
     # the MoE, encoder-decoder, hymba and xLSTM families through the launch layer on the
     # 1 × 1 mesh, each trained at full width against the plain path (MoE's dispatch
     # backward inputs kept for its kernel row)
@@ -4331,13 +4544,14 @@ def _phases(args, kernels: dict) -> int:
     # every path's launches: the engine phases, the serving phases, the op, the LM
     path_rows = engine_rows + [skewed_row] + serving_rows + [es, lm, train, train_check, moe,
                                                              hymba, xlstm, encdec, vlm,
-                                                             vlm_train, prod_prefill, prod_train,
-                                                             prod_check, *mesh_rows.values()]
+                                                             vlm_train, *prod.values(),
+                                                             *prod_checks.values(),
+                                                             *mesh_rows.values()]
     launches = {name: sum(row["launches"][name] for row in path_rows) for name in kernels}
     for name, cnt in launches.items():
         if cnt <= 0:
             raise AssertionError(f"{name} was not launched on its path")
-    phase_dryrun_check(wl.base, args.seed, vlm_train, prod_prefill, prod_train)
+    phase_dryrun_check(wl.base, args.seed, vlm_train, list(prod.values()))
 
     # kernels at the shapes their paths used (GNN: largest layer caps over both runs)
     caps = {k: max(row["caps"][k] for row in engine_rows) for k in ("e", "r", "f", "fe")}
@@ -4396,6 +4610,21 @@ def _phases(args, kernels: dict) -> int:
         {**kernel_flash_attention(vlm_cfg, gen, "bfloat16", b=PROD_BATCH,
                                   s=vlm_cfg.num_patches + PROD_TRAIN_SEQ),
          "variant": "vlm_prod_train_bf16"},
+        # the production dtype's dh-64 and dh-128 kernels: lm_prod_prefill's shape (B 2,
+        # 32,768 positions) held on the last 256 query rows of every head, lm_prod_train's
+        # (B 2, 4,096), qwen3-moe's prefill (Hq 32 over Hkv 4, dh 128), hymba's band, the
+        # encoder's self attention and a cross attention over a ragged source
+        {**kernel_flash_attention(cfg, gen, "bfloat16", b=PROD_BATCH, s=PROD_PREFILL_SEQ,
+                                  tail=256), "variant": "lm_prod_prefill_bf16"},
+        {**kernel_flash_attention(cfg, gen, "bfloat16", b=PROD_BATCH, s=PROD_TRAIN_SEQ),
+         "variant": "lm_prod_train_bf16"},
+        {**kernel_flash_attention(moe_cfg, gen, "bfloat16"), "variant": "moe_prefill_bf16"},
+        {**kernel_flash_attention(hymba_cfg, gen, "bfloat16", window=hymba_cfg.window),
+         "variant": "hymba_prefill_bf16"},
+        {**kernel_flash_attention(encdec_cfg, gen, "bfloat16", causal=False),
+         "variant": "encdec_encoder_bf16"},
+        {**kernel_flash_attention(encdec_cfg, gen, "bfloat16", causal=False, sk=ENCDEC_CROSS_SK),
+         "variant": "encdec_cross_bf16"},
         kernel_flash_attention_bwd(cfg, gen),
         kernel_flash_attention_bwd(cfg, gen, "bfloat16"),
         # the vlm's training shape: 256 patches + 2,048 tokens at head dim 160
@@ -4416,6 +4645,20 @@ def _phases(args, kernels: dict) -> int:
          "variant": "encdec_encoder_train"},
         {**kernel_flash_attention_bwd(encdec_cfg, gen, b=MESH_BATCH, s=MESH_SEQ, causal=False,
                                       sk=ENCDEC_CROSS_SK), "variant": "encdec_cross_train"},
+        # the production dtype's training: lm_prod_train's shape (B 2, S 4,096, dh 64),
+        # lm_moe_prod_train's (Hq 32 over Hkv 4, dh 128), and hymba's band, the encoder's
+        # self attention and the ragged cross attention at the mesh phases' shapes, in bf16
+        {**kernel_flash_attention_bwd(cfg, gen, "bfloat16", b=PROD_BATCH, s=PROD_TRAIN_SEQ),
+         "variant": "lm_prod_train_bf16"},
+        {**kernel_flash_attention_bwd(moe_cfg, gen, "bfloat16", b=PROD_BATCH, s=PROD_TRAIN_SEQ),
+         "variant": "moe_prod_train_bf16"},
+        {**kernel_flash_attention_bwd(hymba_cfg, gen, "bfloat16", b=MESH_BATCH, s=MESH_SEQ,
+                                      window=hymba_cfg.window), "variant": "hymba_train_bf16"},
+        {**kernel_flash_attention_bwd(encdec_cfg, gen, "bfloat16", b=MESH_BATCH, s=MESH_SEQ,
+                                      causal=False), "variant": "encdec_encoder_train_bf16"},
+        {**kernel_flash_attention_bwd(encdec_cfg, gen, "bfloat16", b=MESH_BATCH, s=MESH_SEQ,
+                                      causal=False, sk=ENCDEC_CROSS_SK),
+         "variant": "encdec_cross_train_bf16"},
         # the MoE dispatch gather's backward: its records' gradients summed per token
         {**kernel_moe_combine(*dispatch_in), "variant": "moe_dispatch_backward"},
         kernel_edge_softmax(wl.base, gen),
@@ -4450,19 +4693,20 @@ def _phases(args, kernels: dict) -> int:
             entry["launches_lm_encdec_serve"] = encdec["launches"][name]
             entry["launches_lm_vlm_serve"] = vlm["launches"][name]
             entry["launches_lm_vlm_train"] = vlm_train["launches"][name]
-            entry["launches_lm_vlm_prod_prefill"] = prod_prefill["launches"][name]
-            entry["launches_lm_vlm_prod_train"] = prod_train["launches"][name]
-            entry["launches_lm_vlm_prod_consistency"] = prod_check["launches"][name]
+            for phase, row in {**prod, **prod_checks}.items():
+                entry[f"launches_{phase}"] = row["launches"][name]
             entry["launches_lm_encdec_serve_non_causal"] = encdec[
                 "prefill_attention_calls"]["non_causal"]
         if name == "flash_attention_bwd":  # two entries a backward, and the paths that ran it
             entry["launches_by_entry"] = train["bwd_launches_by_entry"]
             entry["launches_by_path"] = {row["phase"]: row["launches"][name]
                                          for row in (train, train_check, vlm_train,
-                                                     prod_train, prod_check,
+                                                     *(prod[p] for p in PROD_TRAINS),
+                                                     *prod_checks.values(),
                                                      *mesh_rows.values())}
             entry["launches_by_entry_lm_vlm_train"] = vlm_train["bwd_launches_by_entry"]
-            entry["launches_by_entry_lm_vlm_prod_train"] = prod_train["bwd_launches_by_entry"]
+            for phase in PROD_TRAINS:
+                entry[f"launches_by_entry_{phase}"] = prod[phase]["bwd_launches_by_entry"]
         if name in ("segment_spmm", "flash_attention", "flash_attention_bwd"):
             for phase, row in mesh_rows.items():  # the mesh phases' four runs, and by kind
                 entry[f"launches_{phase}"] = row["launches"][name]

@@ -1,12 +1,17 @@
 """Time the serving path's fp32 ``flash_attention`` forward (no lse) of the
 checkout whose root is the current directory, at the llama3.2-1b prefill
 shape (B 8, Hq 32, Hkv 8, S 2048, dh 64, causal), and hash its output; time
-the bf16 instantiations at head dim 160 (pixtral-12b at bf16 params): the
-forward at the vlm prefill (B 8, Hq 32, Hkv 8, S 2,304, causal) and the
-backward, both entries a call, at the vlm training shape (B 2, S 2,304); then
-hash the forward's outputs at every head dim and dtype the checkout's wrapper
-takes, on a fixed set of shapes (o without ``lse``, o with it, and ``lse``),
-and the backward's dq, dk and dv from that o and lse.
+the bf16 instantiations of the production dtype's path (bf16 params), each
+beside ``scaled_dot_product_attention`` (forward, or its backward, on the same
+inputs): at dh 64 the llama3.2-1b prefill (B 8, S 2048) and train_4k (B 2, S
+4,096) forwards and the training backwards (B 4, S 2048, and B 2, S 4,096); at
+dh 128 qwen3-moe-30b-a3b's prefill forward (B 8, Hq 32, Hkv 4, S 2048) and its
+training backward (B 2, S 4,096); at dh 160 pixtral-12b's vlm prefill forward
+(B 8, Hq 32, Hkv 8, S 2,304) and training backward (B 2, S 2,304); all causal,
+each backward both entries a call.  Then hash the forward's outputs at every
+head dim and dtype the checkout's wrapper takes, on a fixed set of shapes (o
+without ``lse``, o with it, and ``lse``), and the backward's dq, dk and dv
+from that o and lse.
 
 Compare two checkouts on one card, one after the other in turns (parent,
 change, change, parent), each from its own root:
@@ -19,9 +24,10 @@ checked by comparing the two checkouts' ``hashes`` at those head dims.
 Prints one JSON line: the checkout's directory name, the card and its power
 limit, the mean ms of 50 launches in each of 5 repetitions (CUDA events; the
 first repetition warms up), the first 16 hex digits of the timed output's
-SHA-256, the same repetitions for each bf16 dh-160 shape (``bf16_dh160``;
-10 launches a repetition for the backward), and for each ``dh/dtype/SqxSk``
-those of the six outputs' SHA-256 (``hashes``: o, o with lse, lse, dq, dk, dv).
+SHA-256, the same repetitions for each bf16 shape (``bf16``: 20 launches a
+repetition for a forward, 10 for a backward; SDPA's under ``sdpa``), and for
+each ``dh/dtype/SqxSk`` those of the six outputs' SHA-256 (``hashes``: o, o
+with lse, lse, dq, dk, dv).
 """
 import hashlib
 import json
@@ -74,13 +80,37 @@ def _time() -> dict:
     return {"ms": _reps(lambda: fmod.flash_attention(q, k, v), 50), "sha256": _hash(out)}
 
 
-def _time_bf16_dh160() -> dict:
-    q, k, v, _ = _inputs(8, 32, 8, 2304, 2304, 160, torch.bfloat16, 1)
-    fwd = _reps(lambda: fmod.flash_attention(q, k, v), 50)
-    q, k, v, do = _inputs(2, 32, 8, 2304, 2304, 160, torch.bfloat16, 2)
-    o, lse = fmod.flash_attention_lse(q, k, v)
-    bwd = _reps(lambda: fmod.flash_attention_bwd(q, k, v, o, lse, do), 10)
-    return {"fwd_B8_S2304_ms": fwd, "bwd_B2_S2304_ms": bwd}
+#: the bf16 shapes: name → (B, Hq, Hkv, S, dh, backward?)
+BF16_SHAPES = {
+    "fwd_dh64_B8_S2048": (8, 32, 8, 2048, 64, False),  # llama3.2-1b prefill
+    "fwd_dh64_B2_S4096": (2, 32, 8, 4096, 64, False),  # llama3.2-1b train_4k
+    "fwd_dh128_B8_S2048": (8, 32, 4, 2048, 128, False),  # qwen3-moe-30b-a3b prefill
+    "fwd_dh160_B8_S2304": (8, 32, 8, 2304, 160, False),  # pixtral-12b vlm prefill
+    "bwd_dh64_B4_S2048": (4, 32, 8, 2048, 64, True),  # llama3.2-1b training
+    "bwd_dh64_B2_S4096": (2, 32, 8, 4096, 64, True),  # llama3.2-1b train_4k
+    "bwd_dh128_B2_S4096": (2, 32, 4, 4096, 128, True),  # qwen3-moe-30b-a3b train_4k
+    "bwd_dh160_B2_S2304": (2, 32, 8, 2304, 160, True),  # pixtral-12b vlm training
+}
+
+
+def _time_bf16() -> dict:
+    import torch.nn.functional as F
+
+    out, sdpa = {}, {}
+    for i, (name, (b, hq, hkv, s, dh, bwd)) in enumerate(BF16_SHAPES.items()):
+        q, k, v, do = _inputs(b, hq, hkv, s, s, dh, torch.bfloat16, i + 1)
+        if not bwd:
+            out[name] = _reps(lambda: fmod.flash_attention(q, k, v), 20)
+            sdpa[name] = _reps(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 20)
+            continue
+        o, lse = fmod.flash_attention_lse(q, k, v)
+        out[name] = _reps(lambda: fmod.flash_attention_bwd(q, k, v, o, lse, do), 10)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        y = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+        sdpa[name] = _reps(lambda: torch.autograd.grad(y, leaves, do, retain_graph=True), 10)
+        del y, leaves
+    return {**out, "sdpa": sdpa}
 
 
 def _hashes() -> dict:
@@ -104,7 +134,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(json.dumps({"tree": os.path.basename(os.getcwd()), "card": card, **_time(),
-                      "bf16_dh160": _time_bf16_dh160(), "hashes": _hashes()}))
+                      "bf16": _time_bf16(), "hashes": _hashes()}))
 
 
 if __name__ == "__main__":

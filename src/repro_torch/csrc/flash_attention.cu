@@ -53,8 +53,8 @@
 // splits tile t + 1 into one while the tensor cores run tile t's S from the
 // other, so the split (CUDA cores, shared memory) hides behind the products.
 // fp32 at dh 128 (whose Q fragments would take 128 registers a thread) and bf16
-// read Q from shared memory and use one buffer; fp32 at dh 128 also takes
-// 32-key tiles and one raw stage to fit in 227 KB.  dh 160 (pixtral-12b, whose
+// at dh 16 and 32 read Q from shared memory and use one buffer; fp32 at dh 128
+// also takes 32-key tiles and one raw stage to fit in 227 KB.  dh 160 (pixtral-12b, whose
 // prefill and training run it causal over 2,304 rows in fp32): Q's hi and lo
 // for 128 rows would take 163,840 B.  But Q is only ever the A of S = Q·Kᵀ,
 // and wgmma may read A from registers, so fp32 at dh 160 (kQFrag) keeps Q raw
@@ -68,9 +68,9 @@
 // and P) leave lo unrounded (hopper::split_tf32_fast): three ALU operations
 // where the rounded split takes five.  O += P·V is one m64n160 wgmma a k step
 // (80 fp32 accumulators a thread); ptxas -v gives 246 registers a thread in
-// fp32 at dh 160, no spills.  bf16 at dh 160 (pixtral-12b at bf16 params) runs
-// a kernel of its own, on TMA tensor copies and warp-specialised: the note
-// above flash_attention_ws_kernel.  Times against the bound: PERF.md §6.  The
+// fp32 at dh 160, no spills.  bf16 at dh 64, 128 and 160 (the production
+// dtype's path: bf16 params) runs a kernel of its own, on TMA tensor copies and
+// warp-specialised: the note above flash_attention_ws_kernel.  Times against the bound: PERF.md §6.  The
 // split's bank spreading gives each group of 8 threads 8 distinct chunks.  P never
 // leaves the registers: the S accumulator gives a thread keys 2t, 2t+1 of each
 // 8-key group where the TF32 A fragment wants keys t, t+4, so the V split stores
@@ -85,7 +85,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 #include "error.cuh"
 #include "hopper.cuh"
@@ -115,9 +117,9 @@ struct Cfg {
   // fp32 up to dh 64 keeps Q's hi and lo A fragments in registers and splits
   // tile t + 1 into a second operand buffer while tile t computes.  fp32 from
   // dh 128 (whose fragments would take 128 registers a thread or more) and
-  // bf16 up to dh 128 read Q from shared memory and use one operand buffer;
+  // bf16 at dh 16 and 32 read Q from shared memory and use one operand buffer;
   // fp32 from dh 128 also shrinks the tiles to 32 keys and one raw stage to fit
-  // in 227 KB.  (bf16 at dh 160 is flash_attention_ws_kernel's.)
+  // in 227 KB.  (bf16 at dh 64, 128 and 160 is flash_attention_ws_kernel's.)
   static constexpr bool kQRegs = kSplit && DH <= 64;
   // fp32 at dh 160 keeps Q raw in the A-fragment order of hopper.cuh (80 KB for
   // 128 rows, where its hi and lo would take 160 KB) and splits it into
@@ -525,120 +527,180 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------- bf16 at dh 160
-// pixtral-12b at the reference's production dtype (bf16 params, so bf16 q, k
-// and v): every prefill and training forward of the model runs here.  The
-// design above split each arrived K/V tile into the operand layout on all 256
-// threads between two barriers, beside no product, with 2-way bank conflicts
-// at dh 160 and V transposed element by element (a quarter of the bound, half
-// SDPA's rate on an H100).  Here no thread touches an operand:
+// ------------------------------------------------------- bf16 at dh 64, 128, 160
+// The production dtype's path (bf16 params, so bf16 q, k and v): pixtral-12b at
+// dh 160, llama3.2-1b, hymba-1.5b and seamless-m4t at dh 64, qwen3-moe-30b-a3b
+// at dh 128.  The design above split each arrived K/V tile into the operand
+// layout on all 256 threads between two barriers, beside no product, and read
+// bf16 Q from shared memory with one operand buffer (at dh 64 21% of the bound,
+// half SDPA's rate on an H100; at dh 160 a quarter, with 2-way bank conflicts and
+// V transposed element by element).  Here no thread touches an operand:
 //   * TMA tensor copies (tma.cuh) land Q, K and V in the 64-byte swizzle that
-//     wgmma reads in place: Q and K K-major, V MN-major through the transpose
-//     bit of B (a 16-bit B may be either), so V needs no transpose.  The maps
-//     are 3-D (dh, S, B·H): keys past Sk and rows past Sq arrive as zeros, and
-//     a ragged tile needs no zeroing.  The host encodes them per call.
+//     wgmma reads in place (dh / 32 boxes a tile): Q and K K-major, V MN-major
+//     through the transpose bit of B (a 16-bit B may be either), so V needs no
+//     transpose.  The maps are 3-D (dh, S, B·H): keys past Sk and rows past Sq
+//     arrive as zeros, and a ragged tile needs no zeroing.  The host encodes
+//     them per call.
 //   * A block is three warpgroups.  Warpgroup 0 is the producer: one thread
-//     keeps a ring of kWsStages K and V tiles full, with a full and an empty
-//     mbarrier per tile and operand, and the warpgroup hands its registers
-//     to the consumers (setmaxnreg 24 / 240).  Warpgroups 1 and 2 own 64
-//     query rows each (128 a block) and run the same loop over the block's
-//     key tiles of kWsBK keys, the masks applied by select where a tile
-//     crosses the band or the end of Sk.
+//     hands each unit of work (128 query rows of one head) to the consumers as
+//     a record in shared memory with its Q, then keeps a ring of Ws<DH>::kStages
+//     K and V tiles full (a full and an empty mbarrier per tile and operand);
+//     the warpgroup gives its registers to the consumers (setmaxnreg 24 /
+//     240).  Warpgroups 1 and 2 own 64 query rows each and run the same loop
+//     over the unit's key tiles of 128 keys, the masks applied by select where
+//     a tile crosses the band or the end of Sk.
 //   * Each consumer overlaps its own softmax with its products (FA3's order):
 //     in step t it issues S_t = Q·K_tᵀ, rescales O to tile t − 1's maxima
 //     while S_t runs, issues O += P_{t−1}·V_{t−1}, waits for S_t alone and runs
 //     the softmax of tile t while the P·V product runs.  The two consumers take
 //     turns to issue (two named barriers, FA3's ping-pong), so that one's
-//     softmax runs beside the other's products.
+//     softmax runs beside the other's products.  At dh 64 the softmax is as
+//     long as the products: a 64 × 128 tile's 8,192 ex2 take a consumer's four
+//     warps 512 cycles of the SM's 16-a-cycle special-function units, as long
+//     as the tile's two products take the tensor cores (≈ 0.138 ms against
+//     0.139 ms of products at the llama3.2-1b prefill shape).  (Three consumers
+//     of 160 registers, FA3's 192 rows at dh 64, spilled.)
 //   * The softmax is short chains: the rows' maxima and sums run as four
 //     partial chains each (with two consumer warps on an SM sub-partition, one
 //     chain of 64 dependent operations a row held each tile for its latency),
 //     p = 2^(s·scale − m) is one FFMA and one ex2, and the masks are 32-bit
-//     bounds per row (the 64-bit ones spilled).
-//   * Blocks go by KV head, then query tile, then the group's query heads, so
-//     the blocks in flight read the K/V of one or two KV heads from L2 (the
-//     production prefill's 338 MB of K/V would otherwise stream from HBM once
-//     per query head group in flight).  (A cluster of two blocks sharing each
-//     K/V tile by TMA multicast measured slower on an H100, and was dropped.)
-// fp32 (m, l, O) and the softmax in registers (O 80, S 64 and P's fragments
+//     bounds per row (the 64-bit ones spilled at dh 160).
+//   * Units go by KV head, then query tile (the longest causal rows first),
+//     then the group's query heads, so that the units in flight read the K/V
+//     of one or two KV heads from L2 (the production prefill's K/V would
+//     otherwise stream from HBM once per query head group in flight).  At dh
+//     64 and 128 the grid is persistent (Ws::kPersistent): a block an SM, its
+//     producer fetching the next unit from a counter (an int32 atomic of the
+//     device and stream, unit_counter, zeroed on the call's stream before the
+//     launch; which block takes a unit changes no bit) and loading its
+//     Q and first K/V tiles while the consumers finish the last unit's
+//     softmax, products and stores; the ring and the turns run on across
+//     units.  A block a unit filled and drained its pipeline once a unit
+//     (scripts/flash_variants.py times both grids), and a fixed round-robin of
+//     units over the blocks handed the heaviest causal units to the same blocks
+//     at B 2 × S 4,096, so units are fetched.  dh 160 keeps a block a unit: its
+//     persistent loop spilled.  (A
+//     cluster of two blocks sharing each K/V tile by TMA multicast measured
+//     slower at dh 160 on an H100, and was dropped.)
+// fp32 (m, l, O) and the softmax in registers (O dh / 2, S 64 and P's fragments
 // 32 a thread), causal rows heaviest first within a KV head, GQA read in place,
-// one owner for each output element (no atomics, the same bits on every run).
-// Shared memory: Q 40,960 + two stages of K and V 163,840 + barriers,
-// 1024-aligned.  What still bounds it (PERF.md §6): the K/V tiles' traffic from
-// L2, 128 operations a byte at 128 query rows a block.
-constexpr int kWsBQ = 128;     // query rows a block: two consumer warpgroups of 64
+// one owner for each output element (no atomics on data, the same bits on
+// every run).  Shared memory (1024-aligned): kQBufs buffers of Q, 128 · dh · 2 B,
+// and kStages stages of K and V of 128 keys: at dh 160 40,960 + 2 · 81,920; at
+// dh 128 2 · 32,768 + 2 · 65,536; at dh 64, where a stage is 32 KB, 2 · 16,384
+// + 6 · 32,768.
+// What still bounds it (PERF.md §6): the K/V tiles' traffic from L2, 128
+// operations a byte at 128 query rows a unit, and at dh 64 the exponentials.
+constexpr int kWsBQ = 128;     // query rows a unit: two consumer warpgroups of 64
 constexpr int kWsBK = 128;     // keys a tile
-constexpr int kWsStages = 2;   // K/V tiles in flight
-constexpr int kWsDH = 160;
-constexpr int kWsQBytes = kWsBQ * kWsDH * 2;
-constexpr int kWsKBytes = kWsBK * kWsDH * 2;
-constexpr int kWsBars = 1 + 4 * kWsStages;  // Q; full and empty of K and of V per stage
-constexpr int kWsSmem = 1024 + kWsQBytes + 2 * kWsStages * kWsKBytes + 8 * kWsBars;
-static_assert(kWsSmem <= 232448, "a block may have at most 227 KB of shared memory");
+template <int DH>
+struct Ws {
+  static constexpr bool kPersistent = DH < 160;       // a block an SM, units fetched
+  // Q buffers: persistent, the next unit's Q lands while the consumers finish the last
+  static constexpr int kQBufs = kPersistent ? 2 : 1;
+  static constexpr int kStages = DH == 64 ? 6 : 2;  // K/V tiles in flight
+  static constexpr int kQBytes = kWsBQ * DH * 2;
+  static constexpr int kKBytes = kWsBK * DH * 2;
+  // full and empty of each Q buffer, and of K and of V a stage
+  static constexpr int kBars = 2 * kQBufs + 4 * kStages;
+  // + two unit records of 16 bytes
+  static constexpr int kSmem =
+      1024 + kQBufs * kQBytes + 2 * kStages * kKBytes + 8 * kBars + 32;
+  static_assert(DH % tma::kBoxCols == 0, "a tile is whole 32-column boxes");
+  static_assert(kSmem <= 232448, "a block may have at most 227 KB of shared memory");
+};
+// the head dims the warp-specialised kernels take in bf16
+template <typename T, int DH>
+constexpr bool kWsPath = std::is_same<T, __nv_bfloat16>::value && (DH == 64 || DH == 128 ||
+                                                                   DH == 160);
+// the registers a thread of the producer and of a consumer (setmaxnreg): together
+// 24 · 128 + 240 · 256 = 64,512, what the block is launched with (384 · 168)
 constexpr int kWsRegsProducer = 24, kWsRegsConsumer = 240;
 constexpr int kWsSchedBar = 1;  // named barriers 1 and 2: consumer 0's and consumer 1's turn
 
-template <bool kLse>
+template <int DH, bool kLse>
 __global__ void __launch_bounds__(384, 1)
 flash_attention_ws_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int hq, int g, long long sq, long long sk,
-                          float scale_log2, int causal, long long window, long long q_offset) {
-  constexpr int DH = kWsDH, BK = kWsBK, S = kWsStages, NS = BK / 2, NO = DH / 2;
+                          float scale_log2, int causal, long long window, long long q_offset,
+                          int n_units, int* __restrict__ next_unit) {
+  using W = Ws<DH>;
+  constexpr int BK = kWsBK, BQ = kWsBQ, S = W::kStages, NS = BK / 2, NO = DH / 2;
   constexpr int QK_STEPS = DH / 16, PV_STEPS = BK / 16;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* qs = tma::align1024(smem_raw);          // [box][128 rows][64 B]
-  unsigned char* ks = qs + kWsQBytes;                     // [stage][box][BK rows][64 B]
-  unsigned char* vs = ks + S * kWsKBytes;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + S * kWsKBytes);
-  uint64_t* full_k = full_q + 1;
+  constexpr int QB = W::kQBufs;
+  unsigned char* qs = tma::align1024(smem_raw);          // [buffer][box][128 rows][64 B]
+  unsigned char* ks = qs + QB * W::kQBytes;               // [stage][box][BK rows][64 B]
+  unsigned char* vs = ks + S * W::kKBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + S * W::kKBytes);  // [buffer]
+  uint64_t* empty_q = full_q + QB;                                      // [buffer]
+  uint64_t* full_k = empty_q + QB;
   uint64_t* full_v = full_k + S;
   uint64_t* empty_k = full_v + S;
   uint64_t* empty_v = empty_k + S;
+  int4* rec = reinterpret_cast<int4*>(empty_v + S);  // [2]: a unit's q0, b · Hq + head, t0, tiles
 
-  // Blocks go by KV head, then by query tile (the longest causal rows first), then
-  // by the g query heads of the group, so that the blocks in flight together read
-  // the K/V of one or two KV heads, which stay in L2.
   const int tid = threadIdx.x, wg = tid >> 7;
-  const long long n_qb = (sq + kWsBQ - 1) / kWsBQ, blk = blockIdx.x;
-  const long long bkv = blk / g / n_qb;  // b · Hkv + KV head
-  const long long q0 = (n_qb - 1 - (blk / g) % n_qb) * kWsBQ;
-  const long long bh = (bkv / (hq / g)) * hq + (bkv % (hq / g)) * g + blk % g;
-  const int kvh = static_cast<int>(bkv);
-
-  // the key tiles that some row of the block may see: [t0, t0 + BK · n_tiles)
-  long long k_lo = 0, k_hi = sk;
-  if (causal) k_hi = min(k_hi, min(q0 + kWsBQ, sq) - 1 + q_offset + 1);
-  if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
-  const long long t0 = (k_lo / BK) * BK;
-  const int n_tiles = k_hi > t0 ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
-
   if (tid == 0) {
-    hopper::mbar_init(full_q, 1);
+    for (int b = 0; b < QB; ++b) {
+      hopper::mbar_init(&full_q[b], 1);
+      hopper::mbar_init(&empty_q[b], 8);  // one arrival from each consumer warp
+    }
     for (int s = 0; s < S; ++s) {
       hopper::mbar_init(&full_k[s], 1);
       hopper::mbar_init(&full_v[s], 1);
-      hopper::mbar_init(&empty_k[s], 8);  // one arrival from each consumer warp
+      hopper::mbar_init(&empty_k[s], 8);
       hopper::mbar_init(&empty_v[s], 8);
     }
     hopper::fence_mbar_init();
   }
   __syncthreads();
 
-  if (wg == 0) {  // the producer
+  if (wg == 0) {  // the producer: a unit's record and Q, then its K/V tiles into the ring
     tma::regs_dec<kWsRegsProducer>();
-    if (tid == 0 && n_tiles > 0) {
-      hopper::mbar_expect_tx(full_q, kWsQBytes);
-      tma::load_tile<DH, kWsBQ>(qs, &tq, static_cast<int>(q0), static_cast<int>(bh), full_q);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % S, k0 = static_cast<int>(t0 + static_cast<long long>(t) * BK);
-        if (t >= S) hopper::mbar_wait(&empty_k[s], ((t / S) - 1) & 1);
-        hopper::mbar_expect_tx(&full_k[s], kWsKBytes);
-        tma::load_tile<DH, BK>(ks + s * kWsKBytes, &tk, k0, kvh, &full_k[s]);
-        if (t >= S) hopper::mbar_wait(&empty_v[s], ((t / S) - 1) & 1);
-        hopper::mbar_expect_tx(&full_v[s], kWsKBytes);
-        tma::load_tile<DH, BK>(vs + s * kWsKBytes, &tv, k0, kvh, &full_v[s]);
+    if (tid == 0) {
+      const int n_qb = static_cast<int>((sq + BQ - 1) / BQ);
+      int tiles = 0;  // K/V tiles loaded so far: the ring's position
+      // unit j of the block: its first is blockIdx.x; persistent, the next from the
+      // counter; one a block, a record of −1 tiles after it (see the consumers)
+      for (int j = 0, u = blockIdx.x;; ++j) {
+        // unit j − QB's S products done: its Q buffer and record are free
+        const int qb = j % QB;
+        if (j >= QB) hopper::mbar_wait(&empty_q[qb], ((j / QB) - 1) & 1);
+        if (u >= n_units) {  // no unit left: a record of −1 tiles ends the consumers' loop
+          rec[j & 1] = make_int4(0, 0, 0, -1);
+          tma::arrive(&full_q[qb]);
+          break;
+        }
+        // the next unit, fetched now and read at the loop's end
+        const int fetched = W::kPersistent ? atomicAdd(next_unit, 1) : 0;
+        const int bkv = u / g / n_qb;  // b · Hkv + KV head
+        const int q0 = (n_qb - 1 - (u / g) % n_qb) * BQ;
+        const int bh = (bkv / (hq / g)) * hq + (bkv % (hq / g)) * g + u % g;
+        long long k_lo = 0, k_hi = sk;  // the keys [t0, t0 + BK · n) that some row may see
+        if (causal) k_hi = min(k_hi, min(static_cast<long long>(q0) + BQ, sq) - 1 + q_offset + 1);
+        if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
+        const int t0 = static_cast<int>((k_lo / BK) * BK);
+        const int n = k_hi > t0 ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
+        rec[j & 1] = make_int4(q0, bh, t0, n);
+        if (n > 0) {
+          hopper::mbar_expect_tx(&full_q[qb], W::kQBytes);
+          tma::load_tile<DH, BQ>(qs + qb * W::kQBytes, &tq, q0, bh, &full_q[qb]);
+        } else {
+          tma::arrive(&full_q[qb]);
+        }
+        for (int t = 0; t < n; ++t, ++tiles) {
+          const int s = tiles % S, k0 = t0 + t * BK;
+          if (tiles >= S) hopper::mbar_wait(&empty_k[s], ((tiles / S) - 1) & 1);
+          hopper::mbar_expect_tx(&full_k[s], W::kKBytes);
+          tma::load_tile<DH, BK>(ks + s * W::kKBytes, &tk, k0, bkv, &full_k[s]);
+          if (tiles >= S) hopper::mbar_wait(&empty_v[s], ((tiles / S) - 1) & 1);
+          hopper::mbar_expect_tx(&full_v[s], W::kKBytes);
+          tma::load_tile<DH, BK>(vs + s * W::kKBytes, &tv, k0, bkv, &full_v[s]);
+        }
+        u = W::kPersistent ? static_cast<int>(gridDim.x) + fetched : n_units;
       }
     }
     return;
@@ -646,103 +708,30 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap tq,
 
   tma::regs_inc<kWsRegsConsumer>();
   const int cw = wg - 1, ct = tid & 127, warp = ct >> 5, lane = tid & 31;
-  const long long wq0 = q0 + cw * kWG;  // this warpgroup's rows
   const int r0 = warp * 16 + (lane >> 2), tig = lane & 3;
-  const unsigned char* qw = qs + cw * kWG * tma::kBoxRowBytes;  // its 64 rows of each Q box
-  // The masks in 32 bits, keys counted from t0 (S < 2^30, which launch_ws checks): row
-  // q sees the keys j with w(q) ≤ j < c(q) and j < Sk − t0, where c(q) = q + q_offset + 1
-  // − t0 (causal) and w(q) = q + q_offset − window + 1 − t0 (window), clamped to
-  // [−1, 2^30]; per thread for its rows r0 and r0 + 8, and for the warpgroup's first
-  // row (the fewest keys under the causal mask) and last (the latest window start).
-  constexpr long long kCap = 1LL << 30;
-  auto rel = [&](long long x) { return static_cast<int>(max(min(x - t0, kCap), -1LL)); };
-  const long long qa_lo = wq0 + q_offset, qa_hi = min(wq0 + kWG, sq) - 1 + q_offset;
-  const int sk_r = rel(sk);
-  const int c_first = causal ? rel(qa_lo + 1) : static_cast<int>(kCap);
-  const int w_last = window > 0 ? rel(qa_hi - window + 1) : -1;
-  int c_row[2], w_row[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long qpos = qa_lo + r0 + 8 * h;
-    c_row[h] = min(sk_r, causal ? rel(qpos + 1) : static_cast<int>(kCap));
-    w_row[h] = window > 0 ? rel(qpos - window + 1) : -1;
-  }
-
-  float acc[NO], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+  float acc[NO], m[2], l[2];
   uint32_t pf[4 * PV_STEPS];  // P of the last tile as bf16 A fragments
 
-  // S = Q · K_tᵀ of stage s, issued and committed
-  auto issue_s = [&](float (&s_acc)[NS], int s) {
-    const unsigned char* kt = ks + s * kWsKBytes;
+  // S = Q · K_tᵀ of stage s from Q buffer qb, issued and committed
+  auto issue_s = [&](float (&s_acc)[NS], int s, int qb) {
+    const unsigned char* qw = qs + qb * W::kQBytes + cw * kWG * tma::kBoxRowBytes;  // its rows
+    const unsigned char* kt = ks + s * W::kKBytes;
 #pragma unroll
     for (int i = 0; i < QK_STEPS; ++i)
-      Mma<Op::kBf16, Src::kSS, BK>::run(s_acc, tma::desc_k<kWsBQ>(qw, i),
+      Mma<Op::kBf16, Src::kSS, BK>::run(s_acc, tma::desc_k<BQ>(qw, i),
                                         tma::desc_k<BK>(kt, i), i > 0);
     hopper::wgmma_commit();
   };
   // O += P · V of stage s, issued and committed
   auto issue_pv = [&](int s) {
-    const unsigned char* vt = vs + s * kWsKBytes;
+    const unsigned char* vt = vs + s * W::kKBytes;
 #pragma unroll
     for (int i = 0; i < PV_STEPS; ++i)
-      Mma<Op::kBf16, Src::kRST, DH>::run(acc, pf + 4 * i, tma::desc_mn<BK>(vt, i), 1);
+      tma::mma_mn<BK, DH>(acc, pf + 4 * i, vt, i);
     hopper::wgmma_commit();
   };
   auto release = [&](uint64_t* bar) {  // this warp is done with a stage's operand
     if (lane == 0) tma::arrive(bar);
-  };
-  // the online softmax of tile t's scores; s_acc[4i + 2h + e] is row r0 + 8h,
-  // key k0 + 8i + 2·tig + e.  Returns P in s_acc and each row's rescale of O.
-  // The maximum is taken over the raw scores (scale > 0), m is kept in log2
-  // units with the scale folded in, and p = 2^(s · scale − m) is one FFMA and
-  // one ex2.  The row's maximum and sum run as four partial chains each: with
-  // two consumer warps on an SM sub-partition, one chain of 64 dependent
-  // operations a row would hold each tile for ~4 × 64 cycles of latency.
-  auto softmax = [&](float (&s_acc)[NS], int t, float (&alpha)[2]) {
-    const int k0 = t * BK;  // from t0
-    const bool masked = k0 + BK > sk_r || c_first < k0 + BK || w_last > k0;
-    if (masked) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int lo = w_row[h] - k0, hi = c_row[h] - k0;  // the tile's keys lo ≤ j < hi
-#pragma unroll
-        for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = 8 * i + 2 * tig + e;
-            s_acc[4 * i + 2 * h + e] = j >= lo && j < hi ? s_acc[4 * i + 2 * h + e] : -INFINITY;
-          }
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          mx[(2 * i + e) & 3] = fmaxf(mx[(2 * i + e) & 3], s_acc[4 * i + 2 * h + e]);
-      float m_row = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
-      m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, 1));
-      m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, 2));
-      const float m_new = fmaxf(m[h], m_row * scale_log2);
-      const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // nothing seen yet: p = 0
-      alpha[h] = hopper::exp2_approx(m[h] - m_use);
-      float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = hopper::exp2_approx(fmaf(s_acc[4 * i + 2 * h + e], scale_log2, -m_use));
-          s_acc[4 * i + 2 * h + e] = p;
-          sum[(2 * i + e) & 3] += p;
-        }
-      // this thread's share; the quad sums it at the end
-      l[h] = l[h] * alpha[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
-      m[h] = m_new;
-    }
   };
   // O *= alpha by row (fp32 sums of the rows' last maximum → this tile's)
   auto rescale = [&](const float (&alpha)[2]) {
@@ -770,103 +759,251 @@ flash_attention_ws_kernel(const __grid_constant__ CUtensorMap tq,
   auto my_turn = [&] { hopper::bar_sync(kWsSchedBar + cw, 256); };
   auto your_turn = [&] { hopper::bar_arrive(kWsSchedBar + (cw ^ 1), 256); };
 
-  if (n_tiles > 0) {
-    if (cw == 1) your_turn();  // consumer 0 goes first
-    hopper::mbar_wait(full_q, 0);
-    float s_acc[NS], alpha[2];
-    hopper::mbar_wait(&full_k[0], 0);
-    my_turn();
-    hopper::wgmma_fence();
-    issue_s(s_acc, 0);
-    your_turn();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(s_acc);
-    release(&empty_k[0]);
-    softmax(s_acc, 0, alpha);
-    pack(s_acc);
-    for (int t = 1; t < n_tiles; ++t) {
-      // O is rescaled to tile t − 1's maxima while S_t runs, and P_{t−1}·V_{t−1}
-      // is issued after it; the softmax of tile t runs while that product does
-      const int s = t % S, sp = (t - 1) % S;
-      hopper::mbar_wait(&full_k[s], (t / S) & 1);
-      hopper::mbar_wait(&full_v[sp], ((t - 1) / S) & 1);
+  int tiles = 0;  // K/V tiles consumed so far: the ring's position
+  // unit j of the block; false once the producer's record ends the block's units
+  auto run_unit = [&](int j) {
+    const int qb = j % QB;
+    hopper::mbar_wait(&full_q[qb], (j / QB) & 1);
+    const int4 w = rec[j & 1];  // q0, b · Hq + head, t0, tiles
+    const int n_tiles = w.w;
+    if (n_tiles < 0) return false;
+    const long long wq0 = w.x + cw * kWG;  // this warpgroup's rows
+    // The masks in 32 bits, keys counted from t0 (S < 2^30, which launch_ws checks):
+    // row q sees the keys j with w(q) ≤ j < c(q) and j < Sk − t0, where c(q) = q +
+    // q_offset + 1 − t0 (causal) and w(q) = q + q_offset − window + 1 − t0 (window),
+    // clamped to [−1, 2^30]; per thread for its rows r0 and r0 + 8, and for the
+    // warpgroup's first row (the fewest keys under the causal mask) and last (the
+    // latest window start).
+    constexpr long long kCap = 1LL << 30;
+    auto rel = [&](long long x) { return static_cast<int>(max(min(x - w.z, kCap), -1LL)); };
+    const long long qa_lo = wq0 + q_offset, qa_hi = min(wq0 + kWG, sq) - 1 + q_offset;
+    const int sk_r = rel(sk);
+    const int c_first = causal ? rel(qa_lo + 1) : static_cast<int>(kCap);
+    const int w_last = window > 0 ? rel(qa_hi - window + 1) : -1;
+    int c_row[2], w_row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long qpos = qa_lo + r0 + 8 * h;
+      c_row[h] = min(sk_r, causal ? rel(qpos + 1) : static_cast<int>(kCap));
+      w_row[h] = window > 0 ? rel(qpos - window + 1) : -1;
+      m[h] = -INFINITY;
+      l[h] = 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+
+    // the online softmax of tile t's scores; s_acc[4i + 2h + e] is row r0 + 8h,
+    // key k0 + 8i + 2·tig + e.  Returns P in s_acc and each row's rescale of O.
+    // The maximum is taken over the raw scores (scale > 0), m is kept in log2
+    // units with the scale folded in, and p = 2^(s · scale − m) is one FFMA and
+    // one ex2.  The row's maximum and sum run as four partial chains each: with
+    // two consumer warps on an SM sub-partition, one chain of 64 dependent
+    // operations a row would hold each tile for ~4 × 64 cycles of latency.
+    auto softmax = [&](float (&s_acc)[NS], int t, float (&alpha)[2]) {
+      const int k0 = t * BK;  // from t0
+      const bool masked = k0 + BK > sk_r || c_first < k0 + BK || w_last > k0;
+      if (masked) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int lo = w_row[h] - k0, hi = c_row[h] - k0;  // the tile's keys lo ≤ j < hi
+#pragma unroll
+          for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 8 * i + 2 * tig + e;
+              s_acc[4 * i + 2 * h + e] =
+                  j >= lo && j < hi ? s_acc[4 * i + 2 * h + e] : -INFINITY;
+            }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            mx[(2 * i + e) & 3] = fmaxf(mx[(2 * i + e) & 3], s_acc[4 * i + 2 * h + e]);
+        float m_row = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+        m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, 1));
+        m_row = fmaxf(m_row, __shfl_xor_sync(0xffffffffu, m_row, 2));
+        const float m_new = fmaxf(m[h], m_row * scale_log2);
+        const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // nothing seen yet: p = 0
+        alpha[h] = hopper::exp2_approx(m[h] - m_use);
+        float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p =
+                hopper::exp2_approx(fmaf(s_acc[4 * i + 2 * h + e], scale_log2, -m_use));
+            s_acc[4 * i + 2 * h + e] = p;
+            sum[(2 * i + e) & 3] += p;
+          }
+        // this thread's share; the quad sums it at the end
+        l[h] = l[h] * alpha[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+        m[h] = m_new;
+      }
+    };
+
+    if (n_tiles == 0) {
+      release(&empty_q[qb]);
+    } else {
+      // tile t of the unit is tile `tiles + t` of the block's ring
+      auto stage = [&](int t) { return (tiles + t) % S; };
+      auto phase = [&](int t) { return static_cast<uint32_t>(((tiles + t) / S) & 1); };
+      float s_acc[NS], alpha[2];
+      hopper::mbar_wait(&full_k[stage(0)], phase(0));
       my_turn();
-      hopper::fence_regs(pf);
       hopper::wgmma_fence();
-      issue_s(s_acc, s);
+      issue_s(s_acc, stage(0), qb);
+      your_turn();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s_acc);
+      release(&empty_k[stage(0)]);
+      softmax(s_acc, 0, alpha);
+      pack(s_acc);
+      for (int t = 1; t < n_tiles; ++t) {
+        // O is rescaled to tile t − 1's maxima while S_t runs, and P_{t−1}·V_{t−1}
+        // is issued after it; the softmax of tile t runs while that product does
+        const int s = stage(t), sp = stage(t - 1);
+        hopper::mbar_wait(&full_k[s], phase(t));
+        hopper::mbar_wait(&full_v[sp], phase(t - 1));
+        my_turn();
+        hopper::fence_regs(pf);
+        hopper::wgmma_fence();
+        issue_s(s_acc, s, qb);
+        rescale(alpha);
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+        issue_pv(sp);
+        your_turn();
+        hopper::wgmma_wait<1>();  // S_t is done; P_{t−1}·V_{t−1} runs on
+        hopper::fence_regs(s_acc);
+        release(&empty_k[s]);
+        softmax(s_acc, t, alpha);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        hopper::fence_regs(pf);
+        release(&empty_v[sp]);
+        pack(s_acc);
+      }
+      release(&empty_q[qb]);  // every S of the unit is done: its Q buffer is free
+      const int sl = stage(n_tiles - 1);
+      hopper::mbar_wait(&full_v[sl], phase(n_tiles - 1));
+      my_turn();
       rescale(alpha);
       hopper::fence_regs(acc);
+      hopper::fence_regs(pf);
       hopper::wgmma_fence();
-      issue_pv(sp);
+      issue_pv(sl);
       your_turn();
-      hopper::wgmma_wait<1>();  // S_t is done; P_{t−1}·V_{t−1} runs on
-      hopper::fence_regs(s_acc);
-      release(&empty_k[s]);
-      softmax(s_acc, t, alpha);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
       hopper::fence_regs(pf);
-      release(&empty_v[sp]);
-      pack(s_acc);
+      release(&empty_v[sl]);
+      tiles += n_tiles;
     }
-    const int sl = (n_tiles - 1) % S;
-    hopper::mbar_wait(&full_v[sl], ((n_tiles - 1) / S) & 1);
-    my_turn();
-    rescale(alpha);
-    hopper::fence_regs(acc);
-    hopper::fence_regs(pf);
-    hopper::wgmma_fence();
-    issue_pv(sl);
-    if (cw == 0) your_turn();  // consumer 1's last turn is not waited for
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-    hopper::fence_regs(pf);
-    release(&empty_v[sl]);
-  }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float lt = l[h];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const long long r = wq0 + r0 + 8 * h;
-    if (r >= sq) continue;
-    if constexpr (kLse) {
-      if (tig == 0)
-        lse[bh * sq + r] = lt > 0.0f ? (m[h] + log2f(lt)) * 0.6931471805599453f : -INFINITY;
-    }
-    __nv_bfloat16* out = o + (bh * sq + r) * DH + 2 * tig;
-    const float inv = lt > 0.0f ? 1.0f / lt : 0.0f;
+    for (int h = 0; h < 2; ++h) {
+      float lt = l[h];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const long long r = wq0 + r0 + 8 * h;
+      if (r >= sq) continue;
+      const long long row = static_cast<long long>(w.y) * sq + r;
+      if constexpr (kLse) {
+        if (tig == 0) lse[row] = lt > 0.0f ? (m[h] + log2f(lt)) * 0.6931471805599453f : -INFINITY;
+      }
+      __nv_bfloat16* out = o + row * DH + 2 * tig;
+      const float inv = lt > 0.0f ? 1.0f / lt : 0.0f;
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
-      store2(out + 8 * i, acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
+      for (int i = 0; i < DH / 8; ++i)
+        store2(out + 8 * i, acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
+    }
+    return true;
+  };
+
+  // consumer 0 goes first; consumer 1's last turn is taken up by consumer 0 at the end
+  if (cw == 1) your_turn();
+  if constexpr (W::kPersistent) {
+    for (int j = 0; run_unit(j); ++j) {
+    }
+  } else {
+    run_unit(0);
   }
+  if (cw == 0) my_turn();
 }
 
-template <bool kLse>
+// The persistent kernels' counter of units handed out: one int32 a device and
+// stream (two streams may run the forward at once), made on first use; the
+// launch zeroes it on its stream.  Null if it cannot be made.
+inline int* unit_counter(cudaStream_t stream) {
+  struct Entry {
+    int dev;
+    cudaStream_t stream;
+    int* counter;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> entries;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return nullptr;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : entries)
+    if (e.dev == dev && e.stream == stream) return e.counter;
+  int* counter = nullptr;
+  if (cudaMalloc(&counter, sizeof(int)) != cudaSuccess) return nullptr;
+  entries.push_back({dev, stream, counter});
+  return counter;
+}
+
+// The SMs of the current device (the persistent grid's size), read once a device.
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return counts[dev];
+}
+
+template <int DH, bool kLse>
 int launch_ws(const void* q, const void* k, const void* v, void* o, float* lse, long long b,
               long long hq, long long hkv, long long sq, long long sk, float scale, int causal,
               long long window, long long q_offset, cudaStream_t stream) {
+  using W = Ws<DH>;
   if (b * hq * ((sq + kWsBQ - 1) / kWsBQ) > 0x7fffffffLL || sq >= (1LL << 30) ||
       sk >= (1LL << 30))
-    return static_cast<int>(cudaErrorInvalidValue);  // grid.x; the kernel's 32-bit masks
+    return static_cast<int>(cudaErrorInvalidValue);  // units; the kernel's 32-bit masks
   CUtensorMap tq, tk, tv;
   // Sk = 0 leaves no tile to load: the maps of k and v then describe q's first
   // row, which is never read
   const bool keys = sk > 0;
-  int err = tma::encode_rows(&tq, q, b * hq, sq, kWsDH, kWsBQ);
+  int err = tma::encode_rows(&tq, q, b * hq, sq, DH, kWsBQ);
   if (err == 0) err = tma::encode_rows(&tk, keys ? k : q, keys ? b * hkv : 1, keys ? sk : 1,
-                                       kWsDH, kWsBK);
+                                       DH, kWsBK);
   if (err == 0) err = tma::encode_rows(&tv, keys ? v : q, keys ? b * hkv : 1, keys ? sk : 1,
-                                       kWsDH, kWsBK);
+                                       DH, kWsBK);
   if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_ws_kernel<kLse>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kWsSmem);
+  constexpr int smem = W::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_ws_kernel<DH, kLse>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(b * hq * ((sq + kWsBQ - 1) / kWsBQ)));
-  flash_attention_ws_kernel<kLse><<<grid, 384, kWsSmem, stream>>>(
+  int* next_unit = nullptr;
+  if constexpr (W::kPersistent) {
+    next_unit = unit_counter(stream);
+    if (next_unit == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
+    e = cudaMemsetAsync(next_unit, 0, sizeof(int), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int n_units = static_cast<int>(b * hq * ((sq + kWsBQ - 1) / kWsBQ));
+  const dim3 grid(static_cast<unsigned>(W::kPersistent ? min(n_units, sm_count()) : n_units));
+  flash_attention_ws_kernel<DH, kLse><<<grid, 384, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, static_cast<int>(hq),
-      static_cast<int>(hq / hkv), sq, sk, scale * 1.4426950408889634f, causal, window, q_offset);
+      static_cast<int>(hq / hkv), sq, sk, scale * 1.4426950408889634f, causal, window, q_offset,
+      n_units, next_unit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -893,11 +1030,11 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, long long b,
            long long hq, long long hkv, long long sq, long long sk, float scale, int causal,
            long long window, long long q_offset, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == kWsDH)  // TMA, warp-specialised
-    return lse != nullptr ? launch_ws<true>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
-                                            window, q_offset, stream)
-                          : launch_ws<false>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,
-                                             window, q_offset, stream);
+  if constexpr (kWsPath<T, DH>)  // TMA, warp-specialised
+    return lse != nullptr ? launch_ws<DH, true>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale,
+                                                causal, window, q_offset, stream)
+                          : launch_ws<DH, false>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale,
+                                                 causal, window, q_offset, stream);
   else
     return lse != nullptr
                ? launch_kernel<T, DH, true>(q, k, v, o, lse, b, hq, hkv, sq, sk, scale, causal,

@@ -34,9 +34,10 @@
 // This design runs seven products, not five (below): its floor is 7/5 of those,
 // 1.46 ms in fp32.  Measured at that shape (chip_smoke.py, NVIDIA H100 80GB
 // HBM3, 700 W): fp32 3.61 ms (29% of the 1.04 ms bound; the CUDA-core kernel
-// before it 8.07), bf16 0.78 ms (22% of 0.174 ms).  What holds it there: the
-// CUDA-core work between the products (each loop tile split, and in fp32
-// transposed, into the operand layout; exp, masks and dS; the fragments'
+// before it 8.07), bf16 in this design 0.78 ms (22% of 0.174 ms; bf16 at dh 64,
+// 128 and 160 now runs the TMA kernels at the end of this file).  What holds it
+// there: the CUDA-core work between the products (each loop tile split, and in
+// fp32 transposed, into the operand layout; exp, masks and dS; the fragments'
 // splits), which overlaps the tensor cores only across warpgroups, and the
 // operands' single buffer.
 //
@@ -57,8 +58,8 @@
 // (the CUDA-core work of one warpgroup then runs beside the other's products),
 // one otherwise (Cfg).  fp32 at dh 160 (pixtral-12b's training) runs kernels of
 // its own, two warpgroups with a role each over the same 64 rows or keys (the
-// note above bwd_dq_roles_kernel), and so does bf16 at dh 160, on TMA tensor
-// copies and warp-specialised (the note above bwd_dq_ws_kernel).  Elsewhere P
+// note above bwd_dq_roles_kernel), and so does bf16 at dh 64, 128 and 160, on
+// TMA tensor copies and warp-specialised (the note above struct Bwd).  Elsewhere P
 // and dS never go to shared
 // memory: the accumulator
 // gives a thread columns 2t, 2t+1 of each 8-group where the TF32 A fragment
@@ -124,9 +125,10 @@ struct Cfg {
   // fp32 up to dh 64: two warpgroups a block, each owning 64 of the block's
   // query rows (dQ) or keys (dK/dV) and sharing the split of each loop tile, so
   // that the CUDA-core work of one hides behind the other's products.  fp32 at
-  // dh 128, whose 64-row operands alone take 128 KB, and bf16, whose blocks are
-  // small enough to run several to an SM and whose two-warpgroup kernels took
-  // more registers (fewer warps an SM, and spills at dh 128), take one.  The
+  // dh 128, whose 64-row operands alone take 128 KB, and bf16 (dh 16 and 32
+  // here), whose blocks are small enough to run several to an SM and whose
+  // two-warpgroup kernels took more registers (fewer warps an SM, and spills at
+  // dh 128), take one.  The
   // loop tile (keys a step of the dQ kernel, query rows a step of the dK/dV
   // kernel) is as large as fits in 227 KB.
   // fp32 at dh 160 (kRoles) runs the kernels of their own below
@@ -1159,61 +1161,96 @@ struct Args {
   long long window, q_offset;
 };
 
-// ------------------------------------------------------------- bf16 at dh 160
-// pixtral-12b's training at the reference's production dtype (bf16 params):
-// every layer's backward runs here.  The kernels above split each loop tile
-// into the operand layout on the block's CUDA cores between barriers, beside no
-// product, and at bf16 dh 160 ran one warpgroup a block on 32-row loop tiles
-// (the dK and dV sums of 64 × 160 take 160 registers a thread).  Here no thread
-// touches an operand, and the warpgroups specialise:
+// --------------------------------------------------------- bf16 at dh 64, 128, 160
+// The production dtype's training (bf16 params): pixtral-12b at dh 160,
+// llama3.2-1b, hymba-1.5b and seamless-m4t at dh 64, qwen3-moe-30b-a3b at dh
+// 128: every layer's backward runs here.  The kernels above split each loop
+// tile into the operand layout on the block's CUDA cores between barriers,
+// beside no product, one warpgroup a block in bf16 (at dh 64 22% of the bound,
+// slower than SDPA's backward on an H100).  Here no thread touches an operand,
+// and the warpgroups specialise:
 //   * TMA tensor copies (tma.cuh) land every operand in the 64-byte swizzle
 //     that wgmma reads in place, K-major as the A or B of S and dP, MN-major
 //     through B's transpose bit as the B of dQ += dS·K, dV += Pᵀ·dO and dK +=
 //     dSᵀ·Q: one copy of each tile serves both products.  Rows past Sq or Sk
 //     arrive as zeros.
-//   * Warpgroup 0 is the producer: one warp keeps a ring of kBwdStages loop
-//     tiles full (full and empty mbarriers per stage; in the dK/dV kernel its
+//   * Warpgroup 0 is the producer: one warp keeps a ring of Bwd::kStages loop
+//     tiles full (full and empty mbarriers per stage; in the dK/dV kernels its
 //     lanes also write each tile's lse · log2 e and D into the stage) and gives
 //     its registers to the consumers (setmaxnreg 40 / 232).
 //   * dQ kernel: two consumer warpgroups of 64 query rows each (128 a block)
-//     over 64-key tiles: S = Q·Kᵀ (Q's A fragments in registers, 40 a thread),
-//     dP = dO·Vᵀ, P and dS = P ∘ (dP − D) in registers, dQ += dS·K (80 fp32
-//     sums a thread).  Each owns one sum, so two 64-row warpgroups fit beside
-//     S, dP and the fragments, and the two share each loop tile: half the tile
-//     bytes of one warpgroup a block.  D = rowsum(dO ∘ O) is computed by each
-//     row's four threads and written for the dK/dV kernel.
-//   * dK/dV kernel: 64 keys a block over 64-row query tiles, the two roles of the
-//     fp32 kernels at dh 160 (bwd_dkdv_roles_kernel):
-//     role 0 runs Sᵀ = K·Qᵀ, Pᵀ and dV += Pᵀ·dO, role 1 dPᵀ = V·dOᵀ, dSᵀ = Pᵀ ∘
-//     (dPᵀ − D) and dK += dSᵀ·Q, Pᵀ passing through shared memory (double
-//     buffered, two named barriers each way, so role 0 may run a tile ahead).
-//     Each role holds its block operand (K or V) as A fragments in registers,
-//     so Sᵀ and dPᵀ read only the loop tile from shared memory (an m64n64
-//     product from shared memory on both sides reads it at its full rate).
-//     Two 64-key warpgroups with both sums each would hold 160 fp32 sums a
-//     thread beside S, dP and the fragments of a 64-row tile (past 240
-//     registers); a role holds one sum.
+//     over 64-key tiles: S = Q·Kᵀ (Q's A fragments in registers, dh / 4 a
+//     thread), dP = dO·Vᵀ, P and dS = P ∘ (dP − D) in registers, dQ += dS·K
+//     (dh / 2 fp32 sums a thread).  Each owns one sum, so two 64-row
+//     warpgroups fit beside S, dP and the fragments, and the two share each
+//     loop tile: half the tile bytes of one warpgroup a block.  D = rowsum(dO ∘
+//     O) is computed by each row's four threads and written for the dK/dV
+//     kernel.
+//   * dK/dV kernel, two arrangements (Bwd<DH>::kBothSums picks one per head dim):
+//     - roles (bwd_dkdv_ws_kernel): 64 keys a block over 64-row query tiles,
+//       the two roles of the fp32 kernels at dh 160 (bwd_dkdv_roles_kernel):
+//       role 0 runs Sᵀ = K·Qᵀ, Pᵀ and dV += Pᵀ·dO, role 1 dPᵀ = V·dOᵀ, dSᵀ =
+//       Pᵀ ∘ (dPᵀ − D) and dK += dSᵀ·Q, Pᵀ passing through shared memory
+//       (double buffered, two named barriers each way, so role 0 may run a
+//       tile ahead).  Each role holds its block operand (K or V) as A
+//       fragments in registers, so Sᵀ and dPᵀ read only the loop tile from
+//       shared memory (an m64n64 product from shared memory on both sides
+//       reads it at its full rate).  At dh 160 two 64-key warpgroups with
+//       both sums each would hold 160 fp32 sums a thread beside S, dP and the
+//       fragments of a 64-row tile (past 240 registers); a role holds one.
+//     - both sums (bwd_dkdv_sums_kernel): 128 keys a block, each consumer
+//       owning dK and dV of its 64 (dh fp32 sums a thread), the two sharing
+//       each 64-row query tile; Sᵀ, dPᵀ, Pᵀ and dSᵀ stay in the consumer's
+//       registers, so nothing passes through shared memory and each tile's Q
+//       and dO serve 128 keys, not 64.  K and V are read from shared memory
+//       (at dh 128 their A fragments, 64 registers a thread, would not fit
+//       beside the sums).
+// Which kernel runs each bf16 entry: the fastest arrangement measured on an
+// H100 at each head dim (scripts/flash_variants.py bwd builds the others by
+// patching kTmaDq, kTmaDkdv or Bwd's kBothSums and kSoloDq).  dh 128 takes the
+// warp-specialised dQ and both sums (dK/dV 1.18 ms against the roles' 1.51 and
+// Cfg's 2.56 at qwen3-moe's B 2 × S 4,096: the roles' exchange of Pᵀ and the
+// single 64-key owner of each Q and dO tile cost more than the both-sums
+// consumer's registers); dh 160 the warp-specialised dQ and the roles (its
+// both-sums consumer would not fit in 240 registers); dh 64 the dQ kernel of
+// one warpgroup a block on TMA (bwd_dq_solo_kernel, below: 0.29 ms against
+// Cfg's 0.32 and the warp-specialised 0.45 at llama3.2-1b's B 4 × S 2048) and
+// the older dK/dV kernel of Cfg (0.46 against both sums' 0.52 and the roles'
+// 0.70).  fp32, and bf16 at dh 16 and 32, run the kernels of Cfg.
 // The sums run as one wgmma chain over the loop (bf16 products of fp32 sums:
 // no fp32 tolerance to keep, unlike the split-TF32 kernels), each output
 // element has one owner (no atomics: the same bits on every run), masks by
 // select only on tiles that cross the band or the end of Sk, the heaviest blocks
 // first, GQA read in place.
-constexpr int kBwdDH = 160;
-constexpr int kBwdStages = 3;
 constexpr int kBwdRegsProducer = 40, kBwdRegsConsumer = 232;
-constexpr int kTileBytes64 = 64 * kBwdDH * 2;  // one operand tile of 64 rows: 20,480 B
-// dQ: 128 query rows a block; Q and dO 81,920 + three stages of K and V 122,880
-constexpr int kDqRows = 128, kDqKeys = 64;
-constexpr int kDqSmem = 1024 + 2 * 2 * kTileBytes64 + kBwdStages * 2 * kTileBytes64 +
-                        8 * (1 + 2 * kBwdStages);
-// dK/dV: 64 keys a block over 64-row query tiles; K and V 40,960 + three stages of
-// Q and dO 122,880 + their lse · log2 e and D 1,536 + the exchange of Pᵀ 32,768
-constexpr int kKvKeys = 64, kKvRows = 64;
+constexpr int kDqRows = 128, kDqKeys = 64;  // dQ: 128 query rows a block over 64-key tiles
+constexpr int kKvKeys = 64, kKvRows = 64;   // dK/dV: 64 keys (a consumer) over 64-row tiles
 constexpr int kKvExchange = kKvKeys * kKvRows * 4;  // one buffer of Pᵀ, fp32
-constexpr int kKvSmem = 1024 + 2 * kTileBytes64 + kBwdStages * 2 * kTileBytes64 +
-                        kBwdStages * 2 * 4 * kKvRows + 2 * kKvExchange + 8 * (1 + 2 * kBwdStages);
-static_assert(kDqSmem <= kSmemMax && kKvSmem <= kSmemMax, "shared memory");
+template <typename T, int DH>
+constexpr bool kTmaDq =
+    std::is_same<T, __nv_bfloat16>::value && (DH == 64 || DH == 128 || DH == 160);
+template <typename T, int DH>
+constexpr bool kTmaDkdv = std::is_same<T, __nv_bfloat16>::value && (DH == 128 || DH == 160);
+template <int DH>
+struct Bwd {
+  static constexpr int kTile64 = 64 * DH * 2;  // one operand tile of 64 rows
+  static constexpr int kStages = 3;  // loop tiles in flight
+  // dQ: Q and dO of 128 rows + kStages stages of K and V of 64 keys
+  static constexpr int kDqSmem =
+      1024 + 2 * 2 * kTile64 + kStages * 2 * kTile64 + 8 * (1 + 2 * kStages);
+  static constexpr bool kBothSums = DH == 128;  // else the roles
+  static constexpr bool kSoloDq = DH == 64;      // one warpgroup a block
+  static constexpr int kKeys = kBothSums ? 2 * kKvKeys : kKvKeys;  // keys a dK/dV block
+  // dK/dV: K and V of kKeys keys + kStages stages of Q and dO + their lse · log2 e
+  // and D (+ the roles' exchange of Pᵀ)
+  static constexpr int kKvSmem = 1024 + 2 * (kKeys / 64) * kTile64 + kStages * 2 * kTile64 +
+                                 kStages * 2 * 4 * kKvRows +
+                                 (kBothSums ? 0 : 2 * kKvExchange) + 8 * (1 + 2 * kStages);
+  static_assert(DH % tma::kBoxCols == 0, "a tile is whole 32-column boxes");
+  static_assert(kDqSmem <= kSmemMax && kKvSmem <= kSmemMax, "shared memory");
+};
 
+template <int DH>
 __global__ void __launch_bounds__(384, 1)
 bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
@@ -1222,13 +1259,14 @@ bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  float* __restrict__ delta, int hq, int g, long long sq, long long sk,
                  float scale, int causal, long long window, long long q_offset) {
   using T = __nv_bfloat16;
-  constexpr int DH = kBwdDH, BK = kDqKeys, S = kBwdStages, NS = BK / 2, NO = DH / 2;
-  constexpr int QK_STEPS = DH / 16, DQ_STEPS = BK / 16;
+  constexpr int BK = kDqKeys, S = Bwd<DH>::kStages, NS = BK / 2, NO = DH / 2;
+  constexpr int QK_STEPS = DH / 16, DQ_STEPS = BK / 16, TILE = Bwd<DH>::kTile64;
+  constexpr int CHUNKS = DH / 32;  // 16-byte chunks of a row each of its four threads sums
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = tma::align1024(smem_raw);  // [box][128 rows][64 B]
-  unsigned char* dos = qs + 2 * kTileBytes64;
-  unsigned char* kvs = dos + 2 * kTileBytes64;   // [stage][K tile, V tile]
-  uint64_t* full_qo = reinterpret_cast<uint64_t*>(kvs + S * 2 * kTileBytes64);
+  unsigned char* dos = qs + 2 * TILE;
+  unsigned char* kvs = dos + 2 * TILE;   // [stage][K tile, V tile]
+  uint64_t* full_qo = reinterpret_cast<uint64_t*>(kvs + S * 2 * TILE);
   uint64_t* full = full_qo + 1;
   uint64_t* empty = full + S;
 
@@ -1259,16 +1297,16 @@ bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   if (wg == 0) {  // the producer
     tma::regs_dec<kBwdRegsProducer>();
     if (tid == 0 && n_tiles > 0) {
-      hopper::mbar_expect_tx(full_qo, 4 * kTileBytes64);
+      hopper::mbar_expect_tx(full_qo, 4 * TILE);
       tma::load_tile<DH, kDqRows>(qs, &tq, static_cast<int>(q0), static_cast<int>(bh), full_qo);
       tma::load_tile<DH, kDqRows>(dos, &tdo, static_cast<int>(q0), static_cast<int>(bh), full_qo);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % S, k0 = static_cast<int>(t0 + static_cast<long long>(t) * BK);
         if (t >= S) hopper::mbar_wait(&empty[s], ((t / S) - 1) & 1);
-        unsigned char* dst = kvs + s * 2 * kTileBytes64;
-        hopper::mbar_expect_tx(&full[s], 2 * kTileBytes64);
+        unsigned char* dst = kvs + s * 2 * TILE;
+        hopper::mbar_expect_tx(&full[s], 2 * TILE);
         tma::load_tile<DH, BK>(dst, &tk, k0, kvh, &full[s]);
-        tma::load_tile<DH, BK>(dst + kTileBytes64, &tv, k0, kvh, &full[s]);
+        tma::load_tile<DH, BK>(dst + TILE, &tv, k0, kvh, &full[s]);
       }
     }
     return;
@@ -1284,17 +1322,17 @@ bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const float scale_log2 = scale * kLog2e;
 
   // D = rowsum(dO ∘ O) and lse · log2 e of this thread's rows r0 and r0 + 8: each
-  // row's four threads take 40 columns each
+  // row's four threads take dh / 4 columns each
   float lse2[2], drw[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const long long r = wq0 + r0 + 8 * h, row = bh * sq + r;
     float sum = 0.0f;
     if (r < sq) {
-      const uint4* dr = reinterpret_cast<const uint4*>(dout + row * DH) + tig * 5;
-      const uint4* orow = reinterpret_cast<const uint4*>(o + row * DH) + tig * 5;
+      const uint4* dr = reinterpret_cast<const uint4*>(dout + row * DH) + tig * CHUNKS;
+      const uint4* orow = reinterpret_cast<const uint4*>(o + row * DH) + tig * CHUNKS;
 #pragma unroll
-      for (int c = 0; c < 5; ++c) sum = dot_chunk<T>(__ldg(dr + c), __ldg(orow + c), sum);
+      for (int c = 0; c < CHUNKS; ++c) sum = dot_chunk<T>(__ldg(dr + c), __ldg(orow + c), sum);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -1302,7 +1340,6 @@ bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     lse2[h] = r < sq ? lse[row] * kLog2e : 0.0f;
     if (r < sq && tig == 0) delta[row] = sum;
   }
-
   float acc[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
@@ -1311,61 +1348,76 @@ bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     hopper::mbar_wait(full_qo, 0);
     tma::load_a_frags<kDqRows, DH>(qs, cw * kWgRows, qf);
   }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % S;
+  // tile t: its stage arrived, S = Q · Kᵀ and dP = dO · Vᵀ issued and committed,
+  // P and dS = P ∘ (dP − D) in dp, dQ += dS · K (dS from registers, K read
+  // MN-major) issued and committed, the stage released
+  auto arrived = [&](int t) { hopper::mbar_wait(&full[t % S], (t / S) & 1); };
+  auto release = [&](int t) {  // this warp is done with the stage
+    if (lane == 0) tma::arrive(&empty[t % S]);
+  };
+  auto issue_sdp = [&](float (&x)[NS], float (&dp)[NS], int t) {
+    const unsigned char* kt = kvs + (t % S) * 2 * TILE;
+    const unsigned char* vt = kt + TILE;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < QK_STEPS; ++i)
+      Mma<Op::kBf16, Src::kRS, BK>::run(x, qf + 4 * i, tma::desc_k<BK>(kt, i), i > 0);
+#pragma unroll
+    for (int i = 0; i < QK_STEPS; ++i)
+      Mma<Op::kBf16, Src::kSS, BK>::run(dp, tma::desc_k<kDqRows>(dow, i),
+                                        tma::desc_k<BK>(vt, i), i > 0);
+    hopper::wgmma_commit();
+  };
+  // x[4i + 2h + e] is row r0 + 8h, key k0 + 8i + 2·tig + e
+  auto p_ds = [&](const float (&x)[NS], float (&dp)[NS], int t) {
     const long long k0 = t0 + static_cast<long long>(t) * BK;
-    const unsigned char* kt = kvs + s * 2 * kTileBytes64;
-    const unsigned char* vt = kt + kTileBytes64;
-    hopper::mbar_wait(&full[s], (t / S) & 1);
-    // does some row of this warpgroup see a key of this tile?
-    const bool active = rows && !(causal && k0 > qa_hi) &&
-                        !(window > 0 && k0 + BK - 1 <= qa_lo - window);
-    if (active) {
-      // S = Q · Kᵀ and dP = dO · Vᵀ
+    const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
+                        (window > 0 && k0 <= qa_hi - window);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long qpos = qa_lo + r0 + 8 * h;
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 4 * i + 2 * h + e;
+          float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -lse2[h]));
+          if (masked) p = visible(qpos, k0 + 8 * i + 2 * tig + e, sk, causal, window) ? p : 0.0f;
+          dp[j] = p * (dp[j] - drw[h]);
+        }
+    }
+  };
+  auto issue_dq = [&](const float (&dp)[NS], uint32_t (&f)[4 * DQ_STEPS], int t) {
+    const unsigned char* kt = kvs + (t % S) * 2 * TILE;
+    to_frags<T, BK>(dp, f, nullptr);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < DQ_STEPS; ++i)
+      tma::mma_mn<BK, DH>(acc, f + 4 * i, kt, i);
+    hopper::wgmma_commit();
+  };
+  // does some row of this warpgroup see a key of tile t?
+  auto active = [&](int t) {
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    return rows && !(causal && k0 > qa_hi) && !(window > 0 && k0 + BK - 1 <= qa_lo - window);
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    arrived(t);
+    if (active(t)) {
       float x[NS], dp[NS];
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < QK_STEPS; ++i)
-        Mma<Op::kBf16, Src::kRS, BK>::run(x, qf + 4 * i, tma::desc_k<BK>(kt, i), i > 0);
-#pragma unroll
-      for (int i = 0; i < QK_STEPS; ++i)
-        Mma<Op::kBf16, Src::kSS, BK>::run(dp, tma::desc_k<kDqRows>(dow, i),
-                                          tma::desc_k<BK>(vt, i), i > 0);
-      hopper::wgmma_commit();
+      uint32_t f[4 * DQ_STEPS];
+      issue_sdp(x, dp, t);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(x);
       hopper::fence_regs(dp);
-
-      // P and dS = P ∘ (dP − D); x[4i + 2h + e] is row r0 + 8h, key k0 + 8i + 2·tig + e
-      const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
-                          (window > 0 && k0 <= qa_hi - window);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long qpos = qa_lo + r0 + 8 * h;
-#pragma unroll
-        for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = 4 * i + 2 * h + e;
-            float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -lse2[h]));
-            if (masked) p = visible(qpos, k0 + 8 * i + 2 * tig + e, sk, causal, window) ? p : 0.0f;
-            dp[j] = p * (dp[j] - drw[h]);
-          }
-      }
-
-      // dQ += dS · K, dS from registers, K read MN-major
-      uint32_t f[4 * DQ_STEPS];
-      to_frags<T, BK>(dp, f, nullptr);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int i = 0; i < DQ_STEPS; ++i)
-        Mma<Op::kBf16, Src::kRST, DH>::run(acc, f + 4 * i, tma::desc_mn<BK>(kt, i), 1);
-      hopper::wgmma_commit();
+      p_ds(x, dp, t);
+      issue_dq(dp, f, t);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
       hopper::fence_regs(f);
     }
-    if (lane == 0) tma::arrive(&empty[s]);  // this warp is done with the stage
+    release(t);
   }
 
 #pragma unroll
@@ -1379,6 +1431,7 @@ bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(384, 1)
 bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
@@ -1388,13 +1441,13 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ dv, int hq, int g, long long sq, long long sk,
                    float scale, int causal, long long window, long long q_offset) {
   using T = __nv_bfloat16;
-  constexpr int DH = kBwdDH, BQ = kKvRows, S = kBwdStages, NS = BQ / 2, NO = DH / 2;
-  constexpr int QK_STEPS = DH / 16, KV_STEPS = BQ / 16;
+  constexpr int BQ = kKvRows, S = Bwd<DH>::kStages, NS = BQ / 2, NO = DH / 2;
+  constexpr int QK_STEPS = DH / 16, KV_STEPS = BQ / 16, TILE = Bwd<DH>::kTile64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ks = tma::align1024(smem_raw);   // K, then V: [box][64 keys][64 B]
-  unsigned char* vs = ks + kTileBytes64;
-  unsigned char* qds = vs + kTileBytes64;         // [stage][Q tile, dO tile]
-  float* lse2s = reinterpret_cast<float*>(qds + S * 2 * kTileBytes64);  // [stage][64]
+  unsigned char* vs = ks + TILE;
+  unsigned char* qds = vs + TILE;         // [stage][Q tile, dO tile]
+  float* lse2s = reinterpret_cast<float*>(qds + S * 2 * TILE);  // [stage][64]
   float* ds_ = lse2s + S * BQ;                                         // [stage][64]: D
   float* xs = ds_ + S * BQ;                                            // [2][Pᵀ]
   uint64_t* full_kv = reinterpret_cast<uint64_t*>(xs + 2 * (kKvExchange / 4));
@@ -1434,7 +1487,7 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid < 32 && n_tiles > 0) {
       const int lane = tid;
       if (lane == 0) {
-        hopper::mbar_expect_tx(full_kv, 2 * kTileBytes64);
+        hopper::mbar_expect_tx(full_kv, 2 * TILE);
         tma::load_tile<DH, kKvKeys>(ks, &tk, static_cast<int>(k0), static_cast<int>(bkv), full_kv);
         tma::load_tile<DH, kKvKeys>(vs, &tv, static_cast<int>(k0), static_cast<int>(bkv), full_kv);
       }
@@ -1450,10 +1503,10 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
           ds_[s * BQ + r] = in ? delta[bh * sq + q0 + r] : 0.0f;
         }
         if (lane == 0) {
-          unsigned char* dst = qds + s * 2 * kTileBytes64;
-          hopper::mbar_expect_tx(&full[s], 2 * kTileBytes64);
+          unsigned char* dst = qds + s * 2 * TILE;
+          hopper::mbar_expect_tx(&full[s], 2 * TILE);
           tma::load_tile<DH, BQ>(dst, &tq, static_cast<int>(q0), static_cast<int>(bh), &full[s]);
-          tma::load_tile<DH, BQ>(dst + kTileBytes64, &tdo, static_cast<int>(q0),
+          tma::load_tile<DH, BQ>(dst + TILE, &tdo, static_cast<int>(q0),
                                  static_cast<int>(bh), &full[s]);
         } else {
           tma::arrive(&full[s]);
@@ -1479,8 +1532,8 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % S, buf = t & 1;
     const long long q0 = tile_q0(t);
-    const unsigned char* qt = qds + s * 2 * kTileBytes64;
-    const unsigned char* dot = qt + kTileBytes64;
+    const unsigned char* qt = qds + s * 2 * TILE;
+    const unsigned char* dot = qt + TILE;
     float* xb = xs + buf * (kKvExchange / 4);
     hopper::mbar_wait(&full[s], (t / S) & 1);
 
@@ -1536,7 +1589,7 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::wgmma_fence();
 #pragma unroll
     for (int i = 0; i < KV_STEPS; ++i)
-      Mma<Op::kBf16, Src::kRST, DH>::run(acc, f + 4 * i, tma::desc_mn<BQ>(role ? qt : dot, i), 1);
+      tma::mma_mn<BQ, DH>(acc, f + 4 * i, role ? qt : dot, i);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -1556,31 +1609,388 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// The both-sums dK/dV arrangement (the note above struct Bwd): 128 keys a block,
+// consumer c owning keys [k0 + 64c, k0 + 64c + 64) with their dK and dV sums, the
+// two sharing each 64-row tile of Q and dO (with its lse · log2 e and D, written
+// into the stage by the producer warp, as in bwd_dkdv_ws_kernel).  Per tile a
+// consumer issues Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as one group, forms Pᵀ and dSᵀ in
+// registers and issues dV += Pᵀ·dO and dK += dSᵀ·Q as the next; a consumer that
+// none of the tile's rows sees skips it.  Its products are those of the roles
+// kernel in the same order, so the two give the same bits.
+template <int DH>
+__global__ void __launch_bounds__(384, 1)
+bwd_dkdv_sums_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                     const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int hq, int g, long long sq, long long sk,
+                     float scale, int causal, long long window, long long q_offset) {
+  using T = __nv_bfloat16;
+  constexpr int BQ = kKvRows, KB = Bwd<DH>::kKeys, S = Bwd<DH>::kStages, NS = BQ / 2;
+  constexpr int NO = DH / 2;
+  constexpr int QK_STEPS = DH / 16, KV_STEPS = BQ / 16, TILE = Bwd<DH>::kTile64;
+  static_assert(KB == 2 * kKvKeys, "two consumers of 64 keys");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = tma::align1024(smem_raw);   // K, then V: [box][128 keys][64 B]
+  unsigned char* vs = ks + 2 * TILE;
+  unsigned char* qds = vs + 2 * TILE;             // [stage][Q tile, dO tile]
+  float* lse2s = reinterpret_cast<float*>(qds + S * 2 * TILE);  // [stage][64]
+  float* ds_ = lse2s + S * BQ;                                  // [stage][64]: D
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(ds_ + S * BQ);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long bkv = blockIdx.x;  // b · Hkv + KV head
+  const long long hkv = hq / g, b = bkv / hkv;
+  const long long h0 = b * hq + (bkv % hkv) * g;  // b · Hq + the group's first q head
+  // the first key tiles are seen by the most rows under the causal mask: they go first
+  const long long k0 = static_cast<long long>(blockIdx.y) * KB;
+  const long long nk = min(static_cast<long long>(KB), sk - k0);
+
+  // the query tiles that see some key of the block, for each of the g heads
+  long long i_lo = 0, i_hi = sq;
+  if (causal) i_lo = max(i_lo, k0 - q_offset);
+  if (window > 0) i_hi = min(i_hi, k0 + nk - 1 + window - q_offset);
+  const long long qt0 = (i_lo / BQ) * BQ;
+  const int n_qt = i_hi > i_lo ? static_cast<int>((i_hi - qt0 + BQ - 1) / BQ) : 0;
+  const int n_tiles = g * n_qt;
+  auto tile_q0 = [&](int t) { return qt0 + static_cast<long long>(t % n_qt) * BQ; };
+  auto tile_bh = [&](int t) { return h0 + t / n_qt; };
+
+  if (tid == 0) {
+    hopper::mbar_init(full_kv, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp: the copies and lse, D
+      hopper::mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    hopper::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer: its first warp
+    tma::regs_dec<kBwdRegsProducer>();
+    if (tid < 32 && n_tiles > 0) {
+      const int lane = tid;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full_kv, 4 * TILE);
+        tma::load_tile<DH, KB>(ks, &tk, static_cast<int>(k0), static_cast<int>(bkv), full_kv);
+        tma::load_tile<DH, KB>(vs, &tv, static_cast<int>(k0), static_cast<int>(bkv), full_kv);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % S;
+        const long long q0 = tile_q0(t), bh = tile_bh(t);
+        if (t >= S) hopper::mbar_wait(&empty[s], ((t / S) - 1) & 1);
+#pragma unroll
+        for (int u = 0; u < BQ / 32; ++u) {  // the tile's lse · log2 e and D, 0 past Sq
+          const int r = lane + 32 * u;
+          const bool in = q0 + r < sq;
+          lse2s[s * BQ + r] = in ? lse[bh * sq + q0 + r] * kLog2e : 0.0f;
+          ds_[s * BQ + r] = in ? delta[bh * sq + q0 + r] : 0.0f;
+        }
+        if (lane == 0) {
+          unsigned char* dst = qds + s * 2 * TILE;
+          hopper::mbar_expect_tx(&full[s], 2 * TILE);
+          tma::load_tile<DH, BQ>(dst, &tq, static_cast<int>(q0), static_cast<int>(bh), &full[s]);
+          tma::load_tile<DH, BQ>(dst + TILE, &tdo, static_cast<int>(q0), static_cast<int>(bh),
+                                 &full[s]);
+        } else {
+          tma::arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  tma::regs_inc<kBwdRegsConsumer>();
+  const int cw = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2), tig = lane & 3;
+  const long long kc0 = k0 + cw * kKvKeys;  // this consumer's keys
+  const float scale_log2 = scale * kLog2e;
+  const unsigned char* kw = ks + cw * kKvKeys * tma::kBoxRowBytes;  // its rows of K and V
+  const unsigned char* vw = vs + cw * kKvKeys * tma::kBoxRowBytes;
+  float dka[NO], dva[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.0f;
+  if (n_tiles > 0) hopper::mbar_wait(full_kv, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S;
+    const long long q0 = tile_q0(t);
+    const unsigned char* qt = qds + s * 2 * TILE;
+    const unsigned char* dot = qt + TILE;
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+    // does some row of this tile see a key of this consumer?
+    const bool active = kc0 < sk && !(causal && q0 + BQ - 1 + q_offset < kc0) &&
+                        !(window > 0 && kc0 + kKvKeys - 1 <= q0 + q_offset - window);
+    if (active) {
+      // Sᵀ = K · Qᵀ and dPᵀ = V · dOᵀ (keys as M); x[4i + 2h + e] is key kc0 + r0 +
+      // 8h, query row q0 + 8i + 2·tig + e
+      float x[NS], dp[NS];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < QK_STEPS; ++i)
+        Mma<Op::kBf16, Src::kSS, BQ>::run(x, tma::desc_k<KB>(kw, i), tma::desc_k<BQ>(qt, i),
+                                          i > 0);
+#pragma unroll
+      for (int i = 0; i < QK_STEPS; ++i)
+        Mma<Op::kBf16, Src::kSS, BQ>::run(dp, tma::desc_k<KB>(vw, i), tma::desc_k<BQ>(dot, i),
+                                          i > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(x);
+      hopper::fence_regs(dp);
+
+      // Pᵀ and dSᵀ = Pᵀ ∘ (dPᵀ − D)
+      const bool masked = kc0 + kKvKeys > sk || (causal && kc0 + kKvKeys - 1 > q0 + q_offset) ||
+                          (window > 0 && kc0 <= q0 + BQ - 1 + q_offset - window);
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const int c = 8 * i + 2 * tig;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2s + s * BQ + c);
+        const float2 dd = *reinterpret_cast<const float2*>(ds_ + s * BQ + c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * i + 2 * h + e;
+            float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -(e ? l2.y : l2.x)));
+            p = !masked || visible(q0 + c + e + q_offset, kc0 + r0 + 8 * h, sk, causal, window)
+                    ? p
+                    : 0.0f;
+            x[j] = p;
+            dp[j] = p * (dp[j] - (e ? dd.y : dd.x));
+          }
+      }
+
+      // dV += Pᵀ · dO and dK += dSᵀ · Q; the A from registers, the B read MN-major
+      uint32_t fp[4 * KV_STEPS], fs[4 * KV_STEPS];
+      to_frags<T, BQ>(x, fp, nullptr);
+      to_frags<T, BQ>(dp, fs, nullptr);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < KV_STEPS; ++i)
+        tma::mma_mn<BQ, DH>(dva, fp + 4 * i, dot, i);
+#pragma unroll
+      for (int i = 0; i < KV_STEPS; ++i)
+        tma::mma_mn<BQ, DH>(dka, fs + 4 * i, qt, i);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      hopper::fence_regs(fp);
+      hopper::fence_regs(fs);
+    }
+    if (lane == 0) tma::arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long key = kc0 + r0 + 8 * h;
+    if (key >= sk) continue;
+    T* out_k = dk + (bkv * sk + key) * DH + 2 * tig;
+    T* out_v = dv + (bkv * sk + key) * DH + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      store2(out_k + 8 * i, dka[4 * i + 2 * h] * scale, dka[4 * i + 2 * h + 1] * scale);
+      store2(out_v + 8 * i, dva[4 * i + 2 * h], dva[4 * i + 2 * h + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- bf16 at dh 64
+// The dQ kernel at dh 64 is one warpgroup a block: at dh 64
+// a tile's products are short, and the warp-specialised dQ kernel above, one
+// block an SM with two consumers, lost to the older one-warpgroup design that ran
+// three blocks an SM (0.45 against 0.32 ms at B 4, Hq 32, S 2048 on an H100): the
+// products of one block hide another's exponentials only where the SM holds
+// several independent warpgroups.  So this kernel keeps the TMA operands in the
+// swizzle wgmma reads, but a block is the 64 query rows of one warpgroup, thread 0
+// issues the copies into a ring of kSoloStages loop tiles (refilling a stage once
+// the four warps have arrived on its empty barrier), and it runs three blocks an
+// SM (150 registers): 0.29 ms there.  (A dK/dV kernel built the same way, both
+// sums a warpgroup, two blocks an SM at 209 registers, stayed slower than the
+// older dK/dV kernel, which dh 64 keeps.)
+constexpr int kSoloStages = 3;
+
+template <int DH>
+__global__ void __launch_bounds__(128, 3)
+bwd_dq_solo_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                   __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int hq, int g,
+                   long long sq, long long sk, float scale, int causal, long long window,
+                   long long q_offset) {
+  using T = __nv_bfloat16;
+  constexpr int BK = kDqKeys, S = kSoloStages, NS = BK / 2, NO = DH / 2;
+  constexpr int QK_STEPS = DH / 16, DQ_STEPS = BK / 16, TILE = Bwd<DH>::kTile64;
+  constexpr int CHUNKS = DH / 32;  // 16-byte chunks of a row each of its four threads sums
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = tma::align1024(smem_raw);  // [box][64 rows][64 B]
+  unsigned char* dos = qs + TILE;
+  unsigned char* kvs = dos + TILE;  // [stage][K tile, V tile]
+  uint64_t* full_qo = reinterpret_cast<uint64_t*>(kvs + S * 2 * TILE);
+  uint64_t* full = full_qo + 1;
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long bh = blockIdx.x, b = bh / hq;
+  const int kvh = static_cast<int>(b * (hq / g) + (bh % hq) / g);
+  // the last query tiles see the most keys under the causal mask: they go first
+  const long long q0 = (static_cast<long long>(gridDim.y) - 1 - blockIdx.y) * kWgRows;
+  const long long nq = min(static_cast<long long>(kWgRows), sq - q0);
+  long long k_lo = 0, k_hi = sk;  // the key tiles the block's rows may see
+  if (causal) k_hi = min(k_hi, q0 + nq + q_offset);
+  if (window > 0) k_lo = max(k_lo, q0 + q_offset - window + 1);
+  const long long t0 = (k_lo / BK) * BK;
+  const int n_tiles = k_hi > k_lo ? static_cast<int>((k_hi - t0 + BK - 1) / BK) : 0;
+  auto load = [&](int t) {  // thread 0: tile t into its stage
+    const int s = t % S, k0 = static_cast<int>(t0 + static_cast<long long>(t) * BK);
+    hopper::mbar_expect_tx(&full[s], 2 * TILE);
+    tma::load_tile<DH, BK>(kvs + s * 2 * TILE, &tk, k0, kvh, &full[s]);
+    tma::load_tile<DH, BK>(kvs + s * 2 * TILE + TILE, &tv, k0, kvh, &full[s]);
+  };
+  if (tid == 0) {
+    hopper::mbar_init(full_qo, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);  // one arrival from each warp
+    }
+    hopper::fence_mbar_init();
+    if (n_tiles > 0) {
+      hopper::mbar_expect_tx(full_qo, 2 * TILE);
+      tma::load_tile<DH, kWgRows>(qs, &tq, static_cast<int>(q0), static_cast<int>(bh), full_qo);
+      tma::load_tile<DH, kWgRows>(dos, &tdo, static_cast<int>(q0), static_cast<int>(bh), full_qo);
+      for (int t = 0; t < min(S, n_tiles); ++t) load(t);
+    }
+  }
+  __syncthreads();
+
+  const int r0 = warp * 16 + (lane >> 2), tig = lane & 3;
+  const long long qa_lo = q0 + q_offset, qa_hi = q0 + nq - 1 + q_offset;
+  const float scale_log2 = scale * kLog2e;
+  // D = rowsum(dO ∘ O) and lse · log2 e of this thread's rows r0 and r0 + 8: each
+  // row's four threads take dh / 4 columns each
+  float lse2[2], drw[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = q0 + r0 + 8 * h, row = bh * sq + r;
+    float sum = 0.0f;
+    if (r < sq) {
+      const uint4* dr = reinterpret_cast<const uint4*>(dout + row * DH) + tig * CHUNKS;
+      const uint4* orow = reinterpret_cast<const uint4*>(o + row * DH) + tig * CHUNKS;
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c) sum = dot_chunk<T>(__ldg(dr + c), __ldg(orow + c), sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    drw[h] = sum;
+    lse2[h] = r < sq ? lse[row] * kLog2e : 0.0f;
+    if (r < sq && tig == 0) delta[row] = sum;
+  }
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.0f;
+  uint32_t qf[DH / 4];  // Q's A fragments
+  if (n_tiles > 0) {
+    hopper::mbar_wait(full_qo, 0);
+    tma::load_a_frags<kWgRows, DH>(qs, 0, qf);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S;
+    const long long k0 = t0 + static_cast<long long>(t) * BK;
+    const unsigned char* kt = kvs + s * 2 * TILE;
+    const unsigned char* vt = kt + TILE;
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+    const bool active = !(causal && k0 > qa_hi) && !(window > 0 && k0 + BK - 1 <= qa_lo - window);
+    if (active) {
+      // S = Q · Kᵀ and dP = dO · Vᵀ
+      float x[NS], dp[NS];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < QK_STEPS; ++i)
+        Mma<Op::kBf16, Src::kRS, BK>::run(x, qf + 4 * i, tma::desc_k<BK>(kt, i), i > 0);
+#pragma unroll
+      for (int i = 0; i < QK_STEPS; ++i)
+        Mma<Op::kBf16, Src::kSS, BK>::run(dp, tma::desc_k<kWgRows>(dos, i),
+                                          tma::desc_k<BK>(vt, i), i > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(x);
+      hopper::fence_regs(dp);
+      // P and dS = P ∘ (dP − D); x[4i + 2h + e] is row r0 + 8h, key k0 + 8i + 2·tig + e
+      const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > qa_lo) ||
+                          (window > 0 && k0 <= qa_hi - window);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long qpos = qa_lo + r0 + 8 * h;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * i + 2 * h + e;
+            float p = hopper::exp2_approx(fmaf(x[j], scale_log2, -lse2[h]));
+            if (masked) p = visible(qpos, k0 + 8 * i + 2 * tig + e, sk, causal, window) ? p : 0.0f;
+            dp[j] = p * (dp[j] - drw[h]);
+          }
+      }
+      // dQ += dS · K, dS from registers, K read MN-major
+      uint32_t f[4 * DQ_STEPS];
+      to_frags<T, BK>(dp, f, nullptr);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < DQ_STEPS; ++i)
+        tma::mma_mn<BK, DH>(acc, f + 4 * i, kt, i);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(f);
+    }
+    if (lane == 0) tma::arrive(&empty[s]);  // this warp is done with the stage
+    if (tid == 0 && t + S < n_tiles) {      // refill it with tile t + S
+      hopper::mbar_wait(&empty[s], (t / S) & 1);
+      load(t + S);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = q0 + r0 + 8 * h;
+    if (r >= sq) continue;
+    T* out = dq + (bh * sq + r) * DH + 2 * tig;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      store2(out + 8 * i, acc[4 * i + 2 * h] * scale, acc[4 * i + 2 * h + 1] * scale);
+  }
+}
+
 // the four maps of a backward call: q and dO with boxes of q_rows rows, k and v
 // of kv_rows (Sk = 0: k's and v's describe q's first row, which is never read)
+template <int DH>
 int encode_bwd_maps(CUtensorMap* m, const void* q, const void* dout, const void* k,
                     const void* v, const Args& a, int q_rows, int kv_rows) {
   const bool keys = a.sk > 0;
-  int err = tma::encode_rows(&m[0], q, a.b * a.hq, a.sq, kBwdDH, q_rows);
-  if (err == 0) err = tma::encode_rows(&m[1], dout, a.b * a.hq, a.sq, kBwdDH, q_rows);
+  int err = tma::encode_rows(&m[0], q, a.b * a.hq, a.sq, DH, q_rows);
+  if (err == 0) err = tma::encode_rows(&m[1], dout, a.b * a.hq, a.sq, DH, q_rows);
   if (err == 0) err = tma::encode_rows(&m[2], keys ? k : q, keys ? a.b * a.hkv : 1,
-                                       keys ? a.sk : 1, kBwdDH, kv_rows);
+                                       keys ? a.sk : 1, DH, kv_rows);
   if (err == 0) err = tma::encode_rows(&m[3], keys ? v : q, keys ? a.b * a.hkv : 1,
-                                       keys ? a.sk : 1, kBwdDH, kv_rows);
+                                       keys ? a.sk : 1, DH, kv_rows);
   return err;
 }
 
-int launch_dq_ws(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                 const void* dout, void* dq, void* delta, const Args& a, cudaStream_t stream) {
-  CUtensorMap m[4];
-  int err = encode_bwd_maps(m, q, dout, k, v, a, kDqRows, kDqKeys);
-  if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(bwd_dq_ws_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+template <int DH, typename Kernel>
+int launch_dq_kernel(Kernel kernel, const CUtensorMap (&m)[4], const void* o, const void* lse,
+                     const void* dout, void* dq, void* delta, const Args& a, int rows,
+                     int threads, int smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(a.b * a.hq),
-                  static_cast<unsigned>((a.sq + kDqRows - 1) / kDqRows));
-  bwd_dq_ws_kernel<<<grid, 384, kDqSmem, stream>>>(
+                  static_cast<unsigned>((a.sq + rows - 1) / rows));
+  kernel<<<grid, threads, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
       static_cast<__nv_bfloat16*>(dq), static_cast<float*>(delta), static_cast<int>(a.hq),
@@ -1588,29 +1998,61 @@ int launch_dq_ws(const void* q, const void* k, const void* v, const void* o, con
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dkdv_ws(const void* q, const void* k, const void* v, const void* lse,
-                   const void* dout, const void* delta, void* dk, void* dv, const Args& a,
-                   cudaStream_t stream) {
+template <int DH>
+int launch_dq_ws(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                 const void* dout, void* dq, void* delta, const Args& a, cudaStream_t stream) {
+  using B = Bwd<DH>;
+  constexpr int rows = B::kSoloDq ? kWgRows : kDqRows;
   CUtensorMap m[4];
-  int err = encode_bwd_maps(m, q, dout, k, v, a, kKvRows, kKvKeys);
+  int err = encode_bwd_maps<DH>(m, q, dout, k, v, a, rows, kDqKeys);
   if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(bwd_dkdv_ws_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmem);
+  if constexpr (B::kSoloDq) {
+    constexpr int smem = 1024 + 2 * B::kTile64 + kSoloStages * 2 * B::kTile64 +
+                         8 * (1 + 2 * kSoloStages);
+    return launch_dq_kernel<DH>(bwd_dq_solo_kernel<DH>, m, o, lse, dout, dq, delta, a, rows, 128,
+                                smem, stream);
+  } else {
+    return launch_dq_kernel<DH>(bwd_dq_ws_kernel<DH>, m, o, lse, dout, dq, delta, a, rows, 384,
+                                B::kDqSmem, stream);
+  }
+}
+
+template <int DH, typename Kernel>
+int launch_dkdv_kernel(Kernel kernel, const CUtensorMap (&m)[4], const void* lse,
+                       const void* delta, void* dk, void* dv, const Args& a,
+                       cudaStream_t stream) {
+  using B = Bwd<DH>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, B::kKvSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(a.b * a.hkv),
-                  static_cast<unsigned>((a.sk + kKvKeys - 1) / kKvKeys));
-  bwd_dkdv_ws_kernel<<<grid, 384, kKvSmem, stream>>>(
+                  static_cast<unsigned>((a.sk + B::kKeys - 1) / B::kKeys));
+  kernel<<<grid, 384, B::kKvSmem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), static_cast<int>(a.hq),
       static_cast<int>(a.hq / a.hkv), a.sq, a.sk, a.scale, a.causal, a.window, a.q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int launch_dkdv_ws(const void* q, const void* k, const void* v, const void* lse,
+                   const void* dout, const void* delta, void* dk, void* dv, const Args& a,
+                   cudaStream_t stream) {
+  using B = Bwd<DH>;
+  CUtensorMap m[4];
+  int err = encode_bwd_maps<DH>(m, q, dout, k, v, a, kKvRows, B::kKeys);
+  if (err != 0) return err;
+  if constexpr (B::kBothSums)
+    return launch_dkdv_kernel<DH>(bwd_dkdv_sums_kernel<DH>, m, lse, delta, dk, dv, a, stream);
+  else
+    return launch_dkdv_kernel<DH>(bwd_dkdv_ws_kernel<DH>, m, lse, delta, dk, dv, a, stream);
+}
+
 template <typename T, int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* lse,
               const void* dout, void* dq, void* delta, const Args& a, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == kBwdDH)  // TMA, warp-specialised
-    return launch_dq_ws(q, k, v, o, lse, dout, dq, delta, a, stream);
+  if constexpr (kTmaDq<T, DH>)
+    return launch_dq_ws<DH>(q, k, v, o, lse, dout, dq, delta, a, stream);
   else {
     using C = Cfg<T, DH>;
     constexpr int smem = C::kSmemDq;
@@ -1633,8 +2075,8 @@ template <typename T, int DH>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* lse,
                 const void* dout, const void* delta, void* dk, void* dv, const Args& a,
                 cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == kBwdDH)  // TMA, warp-specialised
-    return launch_dkdv_ws(q, k, v, lse, dout, delta, dk, dv, a, stream);
+  if constexpr (kTmaDkdv<T, DH>)
+    return launch_dkdv_ws<DH>(q, k, v, lse, dout, delta, dk, dv, a, stream);
   else {
     using C = Cfg<T, DH>;
     constexpr int smem = C::kSmemDkdv;

@@ -1,10 +1,10 @@
 // Tensor Memory Accelerator (TMA) copies, warp specialisation and the wgmma
-// descriptors of swizzled operands: what the bf16 kernels at dh 160
+// descriptors of swizzled operands: what the bf16 kernels at dh 64, 128 and 160
 // (flash_attention.cu, flash_attention_bwd.cu) are built from.
 //
-// A bf16 [outer, rows, 160] array (q, k, v, o or dO, row-major) is described by
-// one 3-D tensor map (160, rows, outer) whose box is 32 columns × R rows × 1:
-// five boxes cover a tile of R rows, box c holding columns [32c, 32c + 32) as
+// A bf16 [outer, rows, dh] array (q, k, v, o or dO, row-major) is described by
+// one 3-D tensor map (dh, rows, outer) whose box is 32 columns × R rows × 1:
+// dh / 32 boxes cover a tile of R rows, box c holding columns [32c, 32c + 32) as
 // R rows of 64 bytes with the 64-byte swizzle (chunk j of row r at chunk j ^
 // ((r / 2) % 4), the pattern repeating every 8 rows = 512 bytes).  Rows past
 // `rows` arrive as zeros: a ragged tile needs no masking of its operand, and a
@@ -66,7 +66,7 @@ inline int encode_rows(CUtensorMap* map, const void* base, long long outer, long
 }
 
 // ---------------------------------------------------------------- device side
-// The five boxes of a tile of R rows, starting at row `row` of slice `outer`,
+// The DH / 32 boxes of a tile of R rows, starting at row `row` of slice `outer`,
 // into `dst` (box c at dst + c · R · 64), completed on `bar`.  One thread.
 template <int DH, int R>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, int row,
@@ -104,7 +104,7 @@ __device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo, uint3
 }
 
 // K-major (the box's columns along K): 64 rows of M or N rows at `tile` (a
-// tile of boxes of R rows), k16 step i of the 160 columns.  Step i lies in box
+// tile of boxes of R rows), k16 step i of the tile's columns.  Step i lies in box
 // i / 2 at byte 32 · (i % 2) of each row; 8-row groups are 512 bytes apart.
 template <int R>
 __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int i) {
@@ -118,6 +118,30 @@ __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int i) {
 template <int R>
 __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int i) {
   return desc_sw64(tile + i * 2 * kSwizzleAtom, R * kBoxRowBytes, kSwizzleAtom);
+}
+
+// acc (+)= A · B over k16 step i: A the bf16 fragments of registers `a`, B the
+// MN-major tile of boxes of R rows at `tile` with N = DH (dh).  At dh 64 as two
+// n32 products, a box each: one m64n64k16 whose B spans two boxes of 64 rows (a
+// leading byte offset of 4,096 B) summed wrong across loop tiles on an H100 (the
+// backward's dQ far off at Sk 128 where one key tile alone was right; the n32
+// halves, and n128 and n160 over the same boxes, were right).  The cause is not
+// known, so no product spans two boxes at dh 64, in the forward (boxes of 128
+// rows, where n64 was right in every test) as in the backward.  In the forward
+// the two n32 products give n64's bits and run 5% faster (llama3.2-1b's prefill
+// on an H100).
+template <int R, int DH>
+__device__ __forceinline__ void mma_mn(float (&acc)[DH / 2], const uint32_t* a,
+                                       const unsigned char* tile, int i) {
+  using hopper::Mma;
+  using hopper::Op;
+  using hopper::Src;
+  if constexpr (DH == 64) {
+    Mma<Op::kBf16, Src::kRST, 32>::run(acc, a, desc_mn<R>(tile, i), 1);
+    Mma<Op::kBf16, Src::kRST, 32>::run(acc + 16, a, desc_mn<R>(tile + R * kBoxRowBytes, i), 1);
+  } else {
+    Mma<Op::kBf16, Src::kRST, DH>::run(acc, a, desc_mn<R>(tile, i), 1);
+  }
 }
 
 // This thread's bf16 A fragments of a K-major operand of 64 rows (from `row0`

@@ -115,8 +115,11 @@ def _logical_axes(mesh, shcfg: ShardingConfig) -> dict:
 def _splits(n: int, k: int, uneven: bool) -> bool:
     """Whether a dim of ``n`` splits over ``k`` ranks: evenly, or with
     ``uneven`` in DTensor's chunks (ceil(n / k) a rank, the last one shorter)
-    as long as no rank's chunk is empty."""
-    return n % k == 0 or (uneven and -(-n // k) * (k - 1) < n)
+    as long as no rank's chunk is empty.  A dim of 1 never splits: over more
+    than one rank it cannot, and over one DTensor's view rules drop it as a
+    singleton, so a flatten across it (``[1, S, D] @ W``) is refused as a
+    reshape of the sharded dim."""
+    return n > 1 and (n % k == 0 or (uneven and -(-n // k) * (k - 1) < n))
 
 
 def _activation_spec(shape, logical_axes, mesh, shcfg: ShardingConfig, uneven=()) -> Spec:

@@ -295,10 +295,29 @@ def opt_state_specs(axes_tree, mesh, shcfg: ShardingConfig, shapes_tree=None):
 
 def distribute(x, sharding: NamedSharding):
     """``x`` as a DTensor on ``sharding``'s mesh with its placements (every
-    rank passes the same full tensor and keeps its shard: no collective)."""
-    from torch.distributed.tensor import distribute_tensor
+    rank passes the same full tensor and keeps its shard: no collective).
+    On a mesh of one rank the shard is the whole tensor, and one already on
+    the mesh's device is wrapped as it is: ``distribute_tensor`` copies each
+    leaf it shards, and a model whose weights fill most of the card (qwen3-moe
+    at bf16 params, 61 GB on an 80 GB card) has no room for a copy of its
+    largest leaf.  The result then shares ``x``'s storage."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
-    return distribute_tensor(x, sharding.mesh, sharding.placements, src_data_rank=None)
+    mesh = sharding.mesh
+    if mesh.size() == 1 and not isinstance(x, DTensor) and x.device == _mesh_device(mesh):
+        return DTensor.from_local(x.detach(), mesh, sharding.placements, run_check=False,
+                                  shape=x.shape, stride=x.stride()
+                                  ).requires_grad_(x.requires_grad)
+    return distribute_tensor(x, mesh, sharding.placements, src_data_rank=None)
+
+
+def _mesh_device(mesh):
+    """The device a one-rank mesh's tensors live on (the current one of its type)."""
+    import torch
+
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def distribute_tree(tree, shardings):

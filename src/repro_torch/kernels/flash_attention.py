@@ -13,7 +13,11 @@ and Sk divisible by its tiles and KV heads repeated g times by its wrapper;
 the CUDA kernel masks the ragged ends and reads KV head ``h // g`` in place.
 It runs on the tensor cores (``wgmma``): fp32 inputs in error-compensated
 split TF32 (three TF32 products per product, about fp32's accuracy), bf16
-inputs in one bf16 product, both with fp32 accumulation.  Kernel source and
+inputs in one bf16 product, both with fp32 accumulation.  bf16 at dh 64, 128
+and 160 (the production dtype's path) runs kernels fed by TMA tensor copies
+(``csrc/tma.cuh``): the forward warp-specialised (persistent at dh 64 and
+128), the backward warp-specialised at dh 128 and 160, and at dh 64 a dQ
+kernel of one warpgroup a block beside the older dK/dV kernel.  Kernel source and
 its note on what bounds it:
 ``repro_torch/csrc/flash_attention.cu``.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -68,8 +72,9 @@ BWD_HEAD_DIMS = HEAD_DIMS  # the backward kernels'
 _SYMBOLS = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _BWD_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: the fewest query rows (dQ) or keys (dK/dV) a block of the backward kernels owns
-#: (64; 128 in fp32 up to dh 64 and in the bf16 dQ kernel at dh 160): the grid's
-#: second dimension holds S / 64 ≤ 65535
+#: (64; 128 in fp32 up to dh 64, in the bf16 dQ kernels at dh 128 and 160 and in
+#: the bf16 dK/dV kernel where it owns both sums): the grid's second dimension holds
+#: S / 64 ≤ 65535
 _BWD_TILE = 64
 
 

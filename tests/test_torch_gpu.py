@@ -450,9 +450,39 @@ def test_flash_attention_bf16_dh160_kernels_at_their_edges(cuda, b, hq, hkv, sq,
     _bwd_check(q, k, v, causal, window, q_offset)
 
 
-@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64), (torch.bfloat16, 160)])
+#: the bf16 kernels at dh 64 and 128 (the same TMA design, production dtype's path):
+#: Sk one below, at and one above the forward's 128-key tile and the backward's
+#: 64-key tiles; a ragged Sq; q_offset (rows that see no key, a few rows at a
+#: cache's end); a window band cut inside a tile; Sq ≠ Sk without the causal mask;
+#: GQA groups of 1, 4, 5 and 8
+_TMA_DH_CASES = ([(1, 4, 2, n, n, True, None, 0) for n in (63, 64, 65, 127, 128, 129)]
+                 + [(1, 4, 4, 333, 333, True, None, 0), (1, 32, 8, 300, 300, True, None, 0),
+                    (1, 10, 2, 700, 700, True, 200, 0), (1, 8, 1, 129, 129, True, None, 0),
+                    (1, 4, 2, 100, 600, True, None, 500), (2, 4, 1, 5, 300, True, None, 295),
+                    (1, 4, 2, 150, 150, True, None, -40), (1, 4, 2, 130, 257, False, None, 0),
+                    (1, 4, 2, 257, 65, False, None, 0), (1, 25, 5, 300, 300, True, 100, 0)])
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal,window,q_offset", _TMA_DH_CASES)
+def test_flash_attention_bf16_tma_kernels_at_their_edges(cuda, b, hq, hkv, sq, sk, causal,
+                                                         window, q_offset, dh):
+    """As the dh-160 cases: the forward without lse against the plain version
+    (3e-2) and bitwise on a second launch, then with lse (o bitwise, lse
+    against the plain version) and the two backward kernels (``_bwd_check``)."""
+    q, k, v = _attn_inputs(b, hq, hkv, sq, sk, dh, torch.bfloat16, seed=sq * 1000 + sk + dh)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = fmod.flash_attention(q, k, v, **kw)
+    ref = kref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=3e-2)
+    assert torch.equal(out, fmod.flash_attention(q, k, v, **kw))
+    _bwd_check(q, k, v, causal, window, q_offset)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64), (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128), (torch.bfloat16, 160)])
 def test_flash_attention_without_keys_gives_zero_rows(cuda, dtype, dh):
-    """Sk = 0 (no key tile to load; the bf16 dh-160 kernel's K/V tensor maps
+    """Sk = 0 (no key tile to load; the bf16 TMA kernels' K/V tensor maps
     then describe q and are never read): every row is 0 and its lse −inf."""
     q, k, v = _attn_inputs(1, 4, 2, 70, 0, dh, dtype)
     o, lse = fmod.flash_attention_lse(q, k, v, causal=False)
